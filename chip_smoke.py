@@ -1,0 +1,434 @@
+#!/usr/bin/env python3
+"""Chip smoke test of use_tpu_torch, the PyTorch / CUDA port, on one GPU.
+
+    python3 chip_smoke.py              # the full check, one card
+    python3 chip_smoke.py --kernels    # build + per-kernel phases only
+    python3 chip_smoke.py --profile    # also profile one full-width forward
+
+Phases, one line each (any failure raises and exits non-zero):
+  1. environment: torch / CUDA versions, the card's name and power limit;
+  2. build: every kernel from use_tpu_torch/csrc with nvcc, in parallel;
+  3. kernels: each hand-written kernel against its plain torch version on the
+     card at main-path shapes, fp32 and bf16, with the stated tolerance; its
+     time (median of CUDA-event timings), the plain version's, one PyTorch
+     library call's, and the bound (bytes at 3.35 TB/s or operations at the
+     dtype's peak, whichever is larger);
+  4. forward: full-width ncsnpplarge with seeded random weights on
+     [8, 512, 192, 4] (the predict path's 8 chunk lanes, one t each), the
+     card (kernels) against the CPU (plain versions), TF32 off; and its bf16
+     compute path against fp32 on the card for a few seeds, within a limit
+     that a deliberately broken bf16 path (GroupNorm sums in bf16) exceeds;
+  5. predict: the port's CLI `predict experiment=SGMSE_Large` on two
+     synthetic 24 kHz wavs (3 s full-clip, 6 s chunked into 8 lanes) with
+     seeded random weights; checks the mirrored, length-matched, finite
+     outputs and that every kernel was launched on that path.
+Then a JSON line of the kernels, the card line, and the last line
+{"ok": true, "device": {...}}.
+"""
+from __future__ import annotations
+
+import argparse
+import contextlib
+import copy
+import json
+import math
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM
+PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}  # fp32 outside tensor cores; bf16 dense
+# Shapes the predict phase gives the kernels first (a clip of >= 5 s runs as
+# 8 chunk lanes of 512 x 192), then a 10 s full clip at batch 1.
+GN_SHAPES = [
+    (8, 128, 512, 192),  # full resolution, 8 lanes
+    (8, 256, 32, 12),  # a low level, 8 lanes
+    (1, 128, 512, 1536),  # full resolution, 10 s full clip
+]
+SKIP_SHAPES = [  # (B, Ci, Co, H, W)
+    (8, 256, 128, 512, 192),  # up path, full-resolution block, 8 lanes
+    (8, 128, 128, 256, 96),  # first down block (shortcut after the FIR downsample), 8 lanes
+    (1, 256, 128, 512, 1536),  # up path, full-resolution block, 10 s full clip
+]
+FORWARD_BACKBONE, FORWARD_SHAPE = "ncsnpplarge", (8, 512, 192, 4)  # the 8 lanes of a 6 s clip
+BF16_SEEDS = (1, 2, 3)
+# bf16 forward against fp32, relative to max|fp32|: between the readings on
+# BF16_SEEDS (<= 0.013) and the broken control's (0.023) on the H100 (PERF.md)
+BF16_REL_TOL = 0.017
+PREDICT_EXPERIMENT = "SGMSE_Large"
+PREDICT_CLIPS_S = (3, 6)  # full-clip, and >= 5 s: chunked into 8 lanes
+PREDICT_N = 10
+
+
+def phase(phase_name, **fields):
+    print(json.dumps({"phase": phase_name, **fields}), flush=True)
+
+
+def bound(bytes_moved, ops, dtype):
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--kernels", action="store_true", help="build and kernel phases only")
+    ap.add_argument("--profile", action="store_true", help="profile one full-width forward")
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; needs one NVIDIA GPU",
+              file=sys.stderr)
+        return 2
+    import use_tpu_torch.models  # noqa: F401 (registries)
+    from use_tpu_torch.ops import cuda_build
+
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    phase("environment", python=sys.version.split()[0], torch=torch.__version__,
+          cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),
+          count=torch.cuda.device_count(), nvidia_smi=smi)
+
+    t0 = time.perf_counter()
+    per_lib = cuda_build.build_all()
+    phase("build", seconds=round(time.perf_counter() - t0, 2),
+          libraries={k: round(v, 2) for k, v in per_lib.items()}, nvcc=cuda_build.nvcc_path())
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    results = kernel_phases(torch, dev)
+    if not args.kernels:
+        forward_phase(torch, dev)
+        launches = predict_phase(torch, dev)
+        if args.profile:
+            profile_phase(torch, dev)
+    else:
+        launches = {name: None for name in results}
+
+    line = []
+    for name, cases in results.items():
+        main_case = cases[0]
+        entry = {k: main_case[k] for k in (
+            "name", "route", "source", "replaces", "max_abs_err", "ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms", "shape", "dtype")}
+        entry["launches"] = launches[name]
+        entry["cases"] = [{k: c[k] for k in (
+            "shape", "dtype", "max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")} for c in cases]
+        line.append(entry)
+    print(json.dumps({"kernels": line}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def time_ms(torch, fn, reps=20, warmup=3):
+    """Median over `reps` CUDA-event timings of fn(), after `warmup` calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def kernel_phases(torch, dev):
+    import torch.nn.functional as F
+
+    from use_tpu_torch.ops import gn_stats as g
+    from use_tpu_torch.ops import fused_skip as fs
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    results = {"channel_sums": [], "gn_apply": [], "fused_skip_add": []}
+    common_gn = dict(route="cuda", source="use_tpu_torch/csrc/gn_stats.cu",
+                     replaces="use_tpu/ops/gn_stats.py:85")
+    for dtype_name in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype_name)
+        for shape in GN_SHAPES:
+            b, c, hh, ww = shape
+            s = hh * ww
+            x = torch.randn(shape, generator=gen, device=dev).add_(0.5).to(dt)
+            x3 = x.reshape(b, c, s)
+            groups = g.num_groups(c)
+            sums, sumsq = g.channel_sums(x3)
+            ref_s, ref_ss = g.channel_sums_plain(x3)
+            torch.cuda.synchronize()
+            err = max(float((sums - ref_s).abs().max()), float((sumsq - ref_ss).abs().max()))
+            tol = 1e-5 * float(ref_ss.abs().max())  # fp32 sums of S terms, other order
+            check("channel_sums", shape, dtype_name, err, tol)
+            nbytes = x.numel() * x.element_size() + 2 * b * c * 4
+            bms, by = bound(nbytes, 3 * x.numel(), dtype_name)
+            results["channel_sums"].append(dict(
+                name="channel_sums", **common_gn, shape=list(shape), dtype=dtype_name,
+                max_abs_err=err, tol=tol,
+                ms=time_ms(torch, lambda: g.channel_sums(x3)),
+                plain_ms=time_ms(torch, lambda: g.channel_sums_plain(x3)),
+                library_ms=time_ms(torch, lambda: torch.var_mean(x3, dim=2)),
+                bound_ms=bms, bound_by=by))
+            phase("kernel", **{k: v for k, v in results["channel_sums"][-1].items()
+                               if k not in ("route", "source", "replaces")})
+
+            weight = 1.0 + 0.1 * torch.randn((c,), generator=gen, device=dev)
+            bias = 0.1 * torch.randn((c,), generator=gen, device=dev)
+            y = g.gn_apply(x3, sums, sumsq, weight, bias, groups, 1e-6, "swish", dt)
+            ref = g.gn_apply_plain(x3, sums, sumsq, weight, bias, groups, 1e-6, "swish", dt)
+            torch.cuda.synchronize()
+            err = float((y.float() - ref.float()).abs().max())
+            top = max(1.0, float(ref.float().abs().max()))
+            # fp32: same arithmetic, fold summed in another order; bf16: one ulp
+            tol = (1e-5 if dtype_name == "float32" else 2.0 ** -7) * top
+            check("gn_apply", shape, dtype_name, err, tol)
+            nbytes = x.numel() * x.element_size() * 2 + 2 * b * c * 4 + 2 * c * 4
+            bms, by = bound(nbytes, 6 * x.numel(), dtype_name)
+            results["gn_apply"].append(dict(
+                name="gn_apply", **common_gn, shape=list(shape), dtype=dtype_name,
+                max_abs_err=err, tol=tol,
+                ms=time_ms(torch, lambda: g.gn_apply(x3, sums, sumsq, weight, bias, groups,
+                                                     1e-6, "swish", dt)),
+                plain_ms=time_ms(torch, lambda: g.gn_apply_plain(x3, sums, sumsq, weight, bias,
+                                                                 groups, 1e-6, "swish", dt)),
+                library_ms=time_ms(torch, lambda: F.group_norm(x, groups, weight.to(dt),
+                                                               bias.to(dt), 1e-6)),
+                bound_ms=bms, bound_by=by))
+            phase("kernel", **{k: v for k, v in results["gn_apply"][-1].items()
+                               if k not in ("route", "source", "replaces")})
+            del x, x3, y, ref
+
+        for shape in SKIP_SHAPES:
+            b, ci, co, hh, ww = shape
+            x = torch.randn((b, ci, hh, ww), generator=gen, device=dev).to(dt)
+            h = torch.randn((b, co, hh, ww), generator=gen, device=dev).to(dt)
+            w = (torch.randn((co, ci), generator=gen, device=dev) / math.sqrt(ci)).to(dt)
+            bias = (0.1 * torch.randn((co,), generator=gen, device=dev)).to(dt)
+            scale = 2 ** -0.5
+            out = fs.fused_skip_add(x, h, w, bias, scale)
+            ref = fs.fused_skip_add_plain(x, h, w, bias, scale)
+            torch.cuda.synchronize()
+            err = float((out.float() - ref.float()).abs().max())
+            top = max(1.0, float(ref.float().abs().max()))
+            # fp32: Ci-term dot products summed in another order; bf16: one ulp
+            tol = (2e-5 if dtype_name == "float32" else 2.0 ** -7) * top
+            check("fused_skip_add", shape, dtype_name, err, tol)
+            s = hh * ww
+            esz = x.element_size()
+            nbytes = (b * ci * s + 2 * b * co * s + co * ci + co) * esz
+            bms, by = bound(nbytes, 2 * b * ci * co * s + 3 * b * co * s, dtype_name)
+            w4 = w[:, :, None, None]
+            results["fused_skip_add"].append(dict(
+                name="fused_skip_add", route="cuda", source="use_tpu_torch/csrc/fused_skip.cu",
+                replaces="use_tpu/ops/pallas_skip.py:44", shape=list(shape), dtype=dtype_name,
+                max_abs_err=err, tol=tol,
+                ms=time_ms(torch, lambda: fs.fused_skip_add(x, h, w, bias, scale)),
+                plain_ms=time_ms(torch, lambda: fs.fused_skip_add_plain(x, h, w, bias, scale)),
+                library_ms=time_ms(torch, lambda: (h + F.conv2d(x, w4, bias)) * scale),
+                bound_ms=bms, bound_by=by))
+            phase("kernel", **{k: v for k, v in results["fused_skip_add"][-1].items()
+                               if k not in ("route", "source", "replaces")})
+            del x, h, out, ref
+    torch.cuda.empty_cache()
+    return results
+
+
+def check(name, shape, dtype, err, tol):
+    if not (err <= tol):  # also catches NaN
+        raise AssertionError(f"{name} {shape} {dtype}: max_abs_err {err} > tol {tol}")
+
+
+def _randomize(torch, net, seed):
+    """Seeded weights of unit-scale activations (the DDPM init zeroes some
+    output convs, which would hide errors): kernels N(0, 1/fan_in), norm
+    scales 1 + N(0, 0.1), biases N(0, 0.1); the frozen Fourier W is kept."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in net.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if "GroupNorm" in name and leaf == "weight":
+                p.copy_(1.0 + 0.1 * torch.randn(p.shape, generator=gen))
+            elif leaf in ("bias", "b"):
+                p.copy_(0.1 * torch.randn(p.shape, generator=gen))
+            elif p.dim() >= 2:
+                fan_in = p.shape[0] if leaf == "W" else p[0].numel()
+                p.copy_(torch.randn(p.shape, generator=gen) / math.sqrt(fan_in))
+
+
+@contextlib.contextmanager
+def bf16_statistics_control(torch, lanes=256):
+    """A bf16 path broken on purpose, for the bf16 check to reject: GroupNorm
+    channel sums accumulated in bf16, as a stats kernel with `lanes` bf16
+    accumulators per channel would (the port accumulates in fp32)."""
+    import torch.nn.functional as F
+
+    from use_tpu_torch.ops import gn_stats
+
+    def sums_bf16(x):
+        b, c, s = x.shape
+        xb = F.pad(x.bfloat16(), (0, -s % lanes)).reshape(b, c, -1, lanes)
+        acc = torch.zeros((b, c, lanes), dtype=torch.bfloat16, device=x.device)
+        acc2 = torch.zeros_like(acc)
+        for k in range(xb.shape[2]):
+            v = xb[:, :, k]
+            acc, acc2 = acc + v, acc2 + v * v
+        return acc.float().sum(-1), acc2.float().sum(-1)
+
+    real = gn_stats.channel_sums
+    gn_stats.channel_sums = sums_bf16
+    try:
+        yield
+    finally:
+        gn_stats.channel_sums = real
+
+
+def forward_phase(torch, dev):
+    """Full-width forward at the predict path's chunked shape, one t per
+    lane: the card (kernels) against the CPU (plain versions) in fp32; then
+    the bf16 compute path against fp32 on the card for BF16_SEEDS, and a
+    broken bf16 control that the same limit must reject."""
+    from use_tpu_torch.models import BackboneRegistry
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    net = BackboneRegistry.get_by_name(FORWARD_BACKBONE)(input_channels=4, seed=0)
+    _randomize(torch, net, seed=BF16_SEEDS[0])
+    gen = torch.Generator().manual_seed(0)
+    x = 0.5 * torch.randn(FORWARD_SHAPE, generator=gen)
+    t = torch.linspace(0.1, 0.9, FORWARD_SHAPE[0])
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        ref = net(x, t)
+        cpu_s = time.perf_counter() - t0
+        gnet = copy.deepcopy(net).to(dev)
+        xd, td = x.to(dev), t.to(dev)
+        out = gnet(xd, td)
+        torch.cuda.synchronize()
+        err = float((out.cpu() - ref).abs().max())
+        top = float(ref.abs().max())
+        tol = 1e-3 * top  # fp32 on both sides, ~100 layers summed in other orders
+        if not (torch.isfinite(out).all() and err <= tol):
+            raise AssertionError(f"forward: card vs CPU max_abs_err {err} > tol {tol}")
+        phase("forward", backbone=FORWARD_BACKBONE, shape=list(FORWARD_SHAPE), dtype="float32",
+              tf32=False, t=[round(float(v), 4) for v in t],
+              max_abs_err=err, tol=tol, max_abs_ref=top, cpu_seconds=round(cpu_s, 2))
+        del net, ref
+
+        bnet = BackboneRegistry.get_by_name(FORWARD_BACKBONE)(input_channels=4, dtype="bfloat16")
+        bnet = bnet.to(dev)
+        rel_errs, control = [], None
+        for seed in BF16_SEEDS:
+            if seed != BF16_SEEDS[0]:
+                _randomize(torch, gnet, seed=seed)
+                out = gnet(xd, td)
+            bnet.load_state_dict(gnet.state_dict())
+            out16 = bnet(xd, td)
+            top = float(out.abs().max())
+            if not torch.isfinite(out16).all():
+                raise AssertionError(f"forward bf16 seed {seed}: non-finite output")
+            rel_errs.append(float((out16 - out).abs().max()) / top)
+            if control is None:
+                with bf16_statistics_control(torch):
+                    control = float((bnet(xd, td) - out).abs().max()) / top
+        phase("forward", backbone=FORWARD_BACKBONE, shape=list(FORWARD_SHAPE), dtype="bfloat16",
+              against="float32 on the card", seeds=list(BF16_SEEDS), max_rel_err=rel_errs,
+              tol=BF16_REL_TOL, control="GroupNorm sums accumulated in bf16", control_rel_err=control)
+        if not max(rel_errs) <= BF16_REL_TOL:
+            raise AssertionError(f"forward bf16: max_rel_err {rel_errs} > tol {BF16_REL_TOL}")
+        if not control > BF16_REL_TOL:
+            raise AssertionError(f"forward bf16: control {control} passes tol {BF16_REL_TOL}")
+    del gnet, bnet
+    torch.cuda.empty_cache()
+
+
+def predict_phase(torch, dev):
+    from use_tpu_torch import ops
+    from use_tpu_torch.cli.main import main as cli_main
+    from use_tpu_torch.data.audio_io import read_wav, write_wav
+
+    sr = 24000
+    rng = np.random.default_rng(3)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        src, dst = os.path.join(tmp, "in"), os.path.join(tmp, "out")
+        short_s, long_s = PREDICT_CLIPS_S
+        lengths = {"a/short.wav": short_s * sr, "b/long.wav": long_s * sr}
+        for rel, n in lengths.items():
+            tt = np.arange(n) / sr
+            wav = 0.3 * np.sin(2 * np.pi * 220 * tt) + 0.05 * rng.standard_normal(n)
+            write_wav(os.path.join(src, rel), wav.astype(np.float32), sr)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        summary = cli_main(["predict", f"experiment={PREDICT_EXPERIMENT}",
+                            f"predict.data_folder={src}", f"predict.target_folder={dst}",
+                            f"infer.N={PREDICT_N}", f"device={dev}"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        for rel, n in lengths.items():
+            data, got_sr = read_wav(os.path.join(dst, rel))
+            if got_sr != sr or data.shape != (n,) or not np.isfinite(data).all():
+                raise AssertionError(f"predict output {rel}: sr {got_sr}, shape {data.shape}")
+        if summary["files"] != len(lengths):
+            raise AssertionError(f"predict wrote {summary['files']} files")
+    missing = [k for k, v in counts.items() if v == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the predict path: {missing}")
+    phase("predict", experiment=PREDICT_EXPERIMENT, N=PREDICT_N, clips_s=list(PREDICT_CLIPS_S),
+          tf32=bool(torch.backends.cudnn.allow_tf32), files=summary["files"],
+          audio_seconds=summary["audio_seconds"], sampling_seconds=summary["seconds"],
+          wall_seconds=wall, audio_s_per_s=summary["audio_seconds"] / summary["seconds"],
+          launches=counts)
+    return counts
+
+
+def profile_phase(torch, dev):
+    """One full-width forward at the chunked predict shape (8 lanes of a 6 s
+    clip): wall ms in fp32 and bf16 (median of 5, CUDA events), the device's
+    busy share of one profiled fp32 forward, and its kernel time by name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from use_tpu_torch.models import BackboneRegistry
+
+    shape = (8, 512, 192, 4)
+    x = torch.randn(shape, device=dev)
+    t = torch.full((8,), 0.5, device=dev)
+    with torch.inference_mode():
+        for dtype in ("float32", "bfloat16"):
+            net = BackboneRegistry.get_by_name("ncsnpplarge")(input_channels=4, dtype=dtype).to(dev)
+            phase("forward_timing", shape=list(shape), dtype=dtype, tf32=False,
+                  ms=time_ms(torch, lambda: net(x, t), reps=5, warmup=2))
+        net = BackboneRegistry.get_by_name("ncsnpplarge")(input_channels=4).to(dev)
+        net(x, t)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            net(x, t)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    key = "device_time_total" if hasattr(events[0], "device_time_total") else "cuda_time_total"
+    from torch.autograd import DeviceType
+
+    kernel_ms = sum(getattr(e, "self_" + key) for e in events
+                    if e.device_type == DeviceType.CUDA) / 1e3
+    phase("profile", shape=list(shape), dtype="float32", wall_ms=wall_ms,
+          kernel_ms=kernel_ms, busy_share=kernel_ms / wall_ms)
+    print(events.table(sort_by=key, row_limit=30))
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,60 @@
+"""use_tpu_torch stands alone: importing it (every submodule) loads neither
+JAX nor any use_tpu module, no source of the port or chip_smoke.py imports
+them, and its entry points default to CUDA and raise without a card."""
+import os
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|use_tpu)(\.|\s|$)", re.M)
+
+
+def test_import_loads_no_jax_or_use_tpu():
+    # a subprocess: tests/conftest.py has already imported jax in this one
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import use_tpu_torch, chip_smoke\n"
+        "for m in pkgutil.walk_packages(use_tpu_torch.__path__, 'use_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', 'flax', 'use_tpu'))\n"
+        "assert not bad, bad\n"
+        "print(len([n for n in sys.modules if n.startswith('use_tpu_torch')]))\n"
+    )
+    env = {**os.environ, "PYTHONPATH": REPO}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 20  # every submodule was imported
+
+
+def test_sources_import_no_jax_or_use_tpu():
+    paths = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _dirs, names in os.walk(os.path.join(REPO, "use_tpu_torch")):
+        paths += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    assert len(paths) > 20
+    for path in paths:
+        with open(path) as f:
+            hits = FORBIDDEN.findall(f.read())
+        assert not hits, (path, hits)
+
+
+def test_entry_points_default_to_cuda():
+    from use_tpu_torch.cli.main import main
+    from use_tpu_torch.models.sgmse.score_model import ScoreModel
+    from use_tpu_torch.utils.device import resolve_device
+
+    if torch.cuda.is_available():
+        assert resolve_device().type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="device=cpu"):
+        resolve_device()
+    with pytest.raises(RuntimeError):
+        ScoreModel()
+    with pytest.raises(RuntimeError):
+        main(["predict", "experiment=SGMSE_debug", "predict.data_folder=in",
+              "predict.target_folder=out"])
+    assert resolve_device("cpu").type == "cpu"

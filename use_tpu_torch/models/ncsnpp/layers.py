@@ -1,0 +1,324 @@
+"""NCSN++ building blocks as torch modules (NCHW).
+
+Port of use_tpu/models/ncsnpp/layers.py (reference: layerspp.py:30-314 and
+layers.py:66-163,639-650): Gaussian-Fourier time embedding, NIN (1x1 dense
+over channels), channelwise self-attention and BigGAN / DDPM residual blocks.
+
+Layout: activations are ``[B, C, H(=freq), W(=frames)]``, contiguous, as the
+reference's torch model and cuDNN have them. Parameters are held as the
+reference holds them, so ``state_dict()`` keys and shapes are the
+reference's: conv weights OIHW, Linear weights [out, in], GroupNorm
+weight/bias, NIN and GFP ``W``/``b``. Submodule names match the reference
+(GroupNorm_0, Conv_0, Dense_0, NIN_0, ...).
+
+Compute dtype: every conv / dense / NIN layer has a compute ``dtype`` and
+casts its input and its parameters to it at use, as Flax's ``dtype=`` does;
+``ScoreModel.cast_params_for_inference`` pre-casts the weights once. The
+GroupNorm statistics are always fp32 (ops/gn_stats.py). Two layers run the
+hand-written kernels: ``GroupNormAct`` (K1) and the ``Conv_2`` shortcut of
+``ResnetBlockBigGANpp`` (K2).
+"""
+from __future__ import annotations
+
+import math
+from typing import Callable, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from use_tpu_torch.ops.fused_skip import fused_skip_add
+from use_tpu_torch.ops.gn_stats import group_norm_act, num_groups
+from use_tpu_torch.ops.upfirdn2d import (
+    downsample_2d,
+    naive_downsample_2d,
+    naive_upsample_2d,
+    upsample_2d,
+)
+
+_SKIP_SCALE = float(1.0 / np.sqrt(2.0))
+
+
+def get_act(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
+    """Activation zoo (reference layers.py:29-41)."""
+    if name == "elu":
+        return F.elu
+    if name == "relu":
+        return F.relu
+    if name == "lrelu":
+        return lambda x: F.leaky_relu(x, negative_slope=0.2)
+    if name == "swish":
+        return F.silu
+    raise NotImplementedError("activation function does not exist!")
+
+
+def default_init_(w: torch.Tensor, scale: float, fan_in: int, fan_out: int,
+                  generator: Optional[torch.Generator]) -> None:
+    """DDPM initialization: variance_scaling(scale, fan_avg, uniform)
+    (reference layers.py:66-103)."""
+    scale = 1e-10 if scale == 0 else scale
+    bound = math.sqrt(3.0 * scale / ((fan_in + fan_out) / 2.0))
+    with torch.no_grad():
+        w.uniform_(-bound, bound, generator=generator)
+
+
+class Conv2d(nn.Module):
+    """kxk conv (stride 1, 'same' padding) with DDPM init; OIHW weight."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int = 3, bias: bool = True,
+                 init_scale: float = 1.0, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(out_ch, in_ch, kernel, kernel))
+        self.bias = nn.Parameter(torch.empty(out_ch)) if bias else None
+        self.padding = kernel // 2
+        self.init_scale = init_scale
+        self.dtype = dtype
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        o, i, kh, kw = self.weight.shape
+        default_init_(self.weight, self.init_scale, i * kh * kw, o * kh * kw, generator)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b = None if self.bias is None else self.bias.to(self.dtype)
+        return F.conv2d(x.to(self.dtype), self.weight.to(self.dtype), b, padding=self.padding)
+
+
+class Linear(nn.Module):
+    """Dense layer with DDPM init; [out, in] weight."""
+
+    def __init__(self, in_features: int, out_features: int, init_scale: float = 1.0,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(out_features, in_features))
+        self.bias = nn.Parameter(torch.empty(out_features))
+        self.init_scale = init_scale
+        self.dtype = dtype
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        o, i = self.weight.shape
+        default_init_(self.weight, self.init_scale, i, o, generator)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x.to(self.dtype), self.weight.to(self.dtype), self.bias.to(self.dtype))
+
+
+class GroupNormAct(nn.Module):
+    """GroupNorm(min(C//4, 32), eps=1e-6) fused with an optional activation.
+
+    The same normalization as use_tpu's GroupNormAct (layers.py:160-272):
+    fp32 one-pass statistics, var = max(E[x^2] - E[x]^2, 0), and an apply
+    pass ``act(x * a + off)`` with the statistics and affine folded into
+    per-(batch, channel) a/off, written in ``out_dtype``. Both passes are
+    kernel K1 on the card (ops/gn_stats.py). Only quant='none' is ported.
+    """
+
+    def __init__(self, channels: int, act: Optional[str] = None,
+                 out_dtype: torch.dtype = torch.float32, eps: float = 1e-6):
+        super().__init__()
+        self.channels = channels
+        self.groups = num_groups(channels)
+        self.act = act
+        self.out_dtype = out_dtype
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        nn.init.ones_(self.weight)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.shape[1] != self.channels:
+            raise ValueError(f"GroupNormAct({self.channels}) got input {tuple(x.shape)}")
+        return group_norm_act(x, self.weight, self.bias, self.groups, self.act,
+                              self.out_dtype, self.eps)
+
+
+class GaussianFourierProjection(nn.Module):
+    """Gaussian Fourier features for (log-)noise levels (layerspp.py:30-39).
+
+    W is a frozen random projection (requires_grad=False), kept in the
+    state_dict so checkpoints carry it."""
+
+    def __init__(self, embedding_size: int = 256, scale: float = 16.0):
+        super().__init__()
+        self.scale = scale
+        self.W = nn.Parameter(torch.empty(embedding_size), requires_grad=False)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        with torch.no_grad():
+            self.W.normal_(generator=generator).mul_(self.scale)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x_proj = x.float()[:, None] * self.W[None, :] * 2 * np.pi
+        return torch.cat([torch.sin(x_proj), torch.cos(x_proj)], dim=-1)
+
+
+class NIN(nn.Module):
+    """1x1 'network-in-network' dense over the channel axis (layers.py:639-650),
+    applied to channel-last input [..., C]."""
+
+    def __init__(self, in_dim: int, num_units: int, init_scale: float = 0.1,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.W = nn.Parameter(torch.empty(in_dim, num_units))
+        self.b = nn.Parameter(torch.empty(num_units))
+        self.init_scale = init_scale
+        self.dtype = dtype
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        i, o = self.W.shape
+        default_init_(self.W, self.init_scale, i, o, generator)
+        nn.init.zeros_(self.b)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.matmul(x.to(self.dtype), self.W.to(self.dtype)) + self.b.to(self.dtype)
+
+
+class Combine(nn.Module):
+    """Combine a skip pyramid with features (layerspp.py:42-57)."""
+
+    def __init__(self, dim1: int, dim2: int, method: str = "cat",
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if method not in ("cat", "sum"):
+            raise ValueError(f"Method {method} not recognized.")
+        self.Conv_0 = Conv2d(dim1, dim2, kernel=1, dtype=dtype)
+        self.method = method
+
+    def forward(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        h = self.Conv_0(x)
+        if self.method == "cat":
+            return torch.cat([h, y], dim=1)
+        return h + y
+
+
+class AttnBlockpp(nn.Module):
+    """Channel-wise self-attention over the full F x T grid (layerspp.py:60-93):
+    two batched matmuls over the flattened spatial axis with an fp32 softmax,
+    as use_tpu computes it (torch.matmul, no fused attention call)."""
+
+    def __init__(self, channels: int, skip_rescale: bool = False, init_scale: float = 0.0,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.GroupNorm_0 = GroupNormAct(channels, act=None, out_dtype=dtype)
+        self.NIN_0 = NIN(channels, channels, dtype=dtype)
+        self.NIN_1 = NIN(channels, channels, dtype=dtype)
+        self.NIN_2 = NIN(channels, channels, dtype=dtype)
+        self.NIN_3 = NIN(channels, channels, init_scale=init_scale, dtype=dtype)
+        self.skip_rescale = skip_rescale
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, c, h, w = x.shape
+        hid = self.GroupNorm_0(x).permute(0, 2, 3, 1).reshape(b, h * w, c)
+        q, k, v = self.NIN_0(hid), self.NIN_1(hid), self.NIN_2(hid)
+        logits = torch.matmul(q.float(), k.float().transpose(1, 2)) * (int(c) ** (-0.5))
+        attn = torch.softmax(logits, dim=-1).to(self.dtype)
+        out = self.NIN_3(torch.matmul(attn, v))
+        out = out.reshape(b, h, w, c).permute(0, 3, 1, 2).to(x.dtype)
+        if not self.skip_rescale:
+            return x + out
+        return (x + out) * _SKIP_SCALE
+
+
+class ResnetBlockDDPMpp(nn.Module):
+    """DDPM residual block (layerspp.py:178-234)."""
+
+    def __init__(self, act: str, in_ch: int, out_ch: Optional[int] = None,
+                 conv_shortcut: bool = False, dropout: float = 0.1, skip_rescale: bool = False,
+                 init_scale: float = 0.0, temb_dim: Optional[int] = None,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        out_ch = out_ch if out_ch is not None else in_ch
+        self.act_name = act
+        self.act = get_act(act)
+        self.GroupNorm_0 = GroupNormAct(in_ch, act=act, out_dtype=dtype)
+        self.Conv_0 = Conv2d(in_ch, out_ch, dtype=dtype)
+        self.Dense_0 = Linear(temb_dim, out_ch, dtype=dtype) if temb_dim is not None else None
+        self.GroupNorm_1 = GroupNormAct(out_ch, act=act, out_dtype=dtype)
+        self.Conv_1 = Conv2d(out_ch, out_ch, init_scale=init_scale, dtype=dtype)
+        self.Conv_2 = self.NIN_0 = None
+        if in_ch != out_ch:
+            if conv_shortcut:
+                self.Conv_2 = Conv2d(in_ch, out_ch, dtype=dtype)
+            else:
+                self.NIN_0 = NIN(in_ch, out_ch, dtype=dtype)
+        self.dropout = dropout
+        self.skip_rescale = skip_rescale
+
+    def forward(self, x: torch.Tensor, temb: Optional[torch.Tensor] = None) -> torch.Tensor:
+        h = self.Conv_0(self.GroupNorm_0(x))
+        if temb is not None and self.Dense_0 is not None:
+            h = h + self.Dense_0(self.act(temb))[:, :, None, None]
+        h = self.GroupNorm_1(h)
+        h = F.dropout(h, self.dropout, training=self.training)
+        h = self.Conv_1(h)
+        if self.Conv_2 is not None:
+            x = self.Conv_2(x)
+        elif self.NIN_0 is not None:
+            x = self.NIN_0(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+        x = x.to(h.dtype)
+        if not self.skip_rescale:
+            return x + h
+        return (x + h) * _SKIP_SCALE
+
+
+class ResnetBlockBigGANpp(nn.Module):
+    """BigGAN residual block with optional FIR up/down (layerspp.py:237-314).
+
+    When the block changes its channel count or resamples, its 1x1 ``Conv_2``
+    shortcut, the residual add and the skip rescale run as kernel K2
+    (ops/fused_skip.py)."""
+
+    def __init__(self, act: str, in_ch: int, out_ch: Optional[int] = None, up: bool = False,
+                 down: bool = False, dropout: float = 0.1, fir: bool = False,
+                 fir_kernel: Tuple[float, ...] = (1.0, 3.0, 3.0, 1.0), skip_rescale: bool = True,
+                 init_scale: float = 0.0, temb_dim: Optional[int] = None,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        out_ch = out_ch if out_ch is not None else in_ch
+        self.act = get_act(act)
+        self.up, self.down, self.fir = up, down, fir
+        self.fir_kernel = tuple(fir_kernel)
+        self.GroupNorm_0 = GroupNormAct(in_ch, act=act, out_dtype=dtype)
+        self.Conv_0 = Conv2d(in_ch, out_ch, dtype=dtype)
+        self.Dense_0 = Linear(temb_dim, out_ch, dtype=dtype) if temb_dim is not None else None
+        self.GroupNorm_1 = GroupNormAct(out_ch, act=act, out_dtype=dtype)
+        self.Conv_1 = Conv2d(out_ch, out_ch, init_scale=init_scale, dtype=dtype)
+        self.Conv_2 = (
+            Conv2d(in_ch, out_ch, kernel=1, dtype=dtype) if (in_ch != out_ch or up or down) else None
+        )
+        self.dropout = dropout
+        self.skip_rescale = skip_rescale
+        self.dtype = dtype
+
+    def _resample(self, x: torch.Tensor) -> torch.Tensor:
+        if self.up:
+            return upsample_2d(x, self.fir_kernel, factor=2) if self.fir else naive_upsample_2d(x, 2)
+        if self.down:
+            return downsample_2d(x, self.fir_kernel, factor=2) if self.fir else naive_downsample_2d(x, 2)
+        return x
+
+    def forward(self, x: torch.Tensor, temb: Optional[torch.Tensor] = None) -> torch.Tensor:
+        h = self._resample(self.GroupNorm_0(x))
+        x = self._resample(x)
+        h = self.Conv_0(h)
+        if temb is not None and self.Dense_0 is not None:
+            h = h + self.Dense_0(self.act(temb))[:, :, None, None]
+        h = self.GroupNorm_1(h)
+        h = F.dropout(h, self.dropout, training=self.training)
+        h = self.Conv_1(h)
+        scale = _SKIP_SCALE if self.skip_rescale else 1.0
+        if self.Conv_2 is not None:
+            conv = self.Conv_2
+            return fused_skip_add(
+                x.to(self.dtype).contiguous(), h.contiguous(), conv.weight.to(self.dtype),
+                conv.bias.to(self.dtype), scale,
+            )
+        x = x.to(h.dtype)
+        return (x + h) * scale if self.skip_rescale else x + h

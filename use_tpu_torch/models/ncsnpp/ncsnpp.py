@@ -1,0 +1,282 @@
+"""NCSN++ score U-Net as a torch module, with the reference's exact topology.
+
+Port of use_tpu/models/ncsnpp/ncsnpp.py (reference src/models/components/
+sgmse/backbones/ncsnpp.py:38-559): progressive input_skip/output_skip
+pyramids, BigGAN residual blocks with FIR resampling, a bottleneck attention
+block, Gaussian-Fourier log-t embedding, optional 1/sigma output scaling and
+the `discriminative` mode.
+
+Layout at the boundary is use_tpu's: input ``[B, F, T, C_total]`` real
+channels (per complex input: re, im) and output ``[B, F, T, D, 2]``. Inside,
+activations are NCHW ``[B, C, F, T]``.
+
+Modules sit in the flat ``all_modules`` list in the order the forward pass
+walks them, plus ``output_layer``, so ``state_dict()`` keys are the
+reference's ``all_modules.{i}.<attr>`` and map to use_tpu's ``m{i}`` params
+(engine/convert_jax.py).
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+import torch
+import torch.nn as nn
+
+from use_tpu_torch.models.ncsnpp import layers
+from use_tpu_torch.models.registry import BackboneRegistry
+from use_tpu_torch.ops.upfirdn2d import downsample_2d, upsample_2d
+
+
+@dataclass(frozen=True)
+class NCSNppConfig:
+    """Static architecture config (defaults = reference ncsnpp.py:42-68)."""
+
+    scale_by_sigma: bool = True
+    nonlinearity: str = "swish"
+    nf: int = 128
+    ch_mult: Tuple[int, ...] = (1, 2, 2, 2)
+    num_res_blocks: int = 1
+    attn_resolutions: Tuple[int, ...] = (0,)
+    resamp_with_conv: bool = True
+    conditional: bool = True
+    fir: bool = True
+    fir_kernel: Tuple[float, ...] = (1.0, 3.0, 3.0, 1.0)
+    skip_rescale: bool = True
+    resblock_type: str = "biggan"
+    progressive: str = "output_skip"
+    progressive_input: str = "input_skip"
+    progressive_combine: str = "sum"
+    init_scale: float = 0.0
+    fourier_scale: float = 16.0
+    image_size: int = 256
+    embedding_type: str = "fourier"
+    input_channels: int = 4
+    spatial_channels: int = 1
+    dropout: float = 0.0
+    centered: bool = False
+    discriminative: bool = False
+    dtype: str = "float32"  # compute dtype of convs/matmuls ('bfloat16' for
+    # serving); parameters and GroupNorm statistics stay float32
+    quant: str = "none"  # only 'none' is ported (int8 waits for kernel K3)
+    quant_min_channels: int = 128
+    quant_k: float = 6.0
+    remat: bool = False  # training concern; accepted and ignored at inference
+    remat_policy: str = "full"
+
+    def resolve(self) -> "NCSNppConfig":
+        """Apply the discriminative-mode overrides (ncsnpp.py:86-92)."""
+        if self.discriminative:
+            return dataclasses.replace(
+                self, conditional=False, scale_by_sigma=False, input_channels=2
+            )
+        return self
+
+
+class NCSNpp(nn.Module):
+    """NCSN++ U-Net. Input [B, F, T, C_total]; output [B, F, T, D, 2].
+
+    Parameters are initialized from ``seed`` with an explicit
+    torch.Generator (DDPM init, as use_tpu's); ``reset_parameters`` redraws
+    them from another generator."""
+
+    def __init__(self, cfg: NCSNppConfig = NCSNppConfig(), seed: int = 0):
+        super().__init__()
+        cfg = cfg.resolve()
+        if cfg.quant != "none":
+            raise NotImplementedError(
+                f"quant={cfg.quant!r}: the int8 paths wait for kernel K3 "
+                "(qconv3x3_fused, ROADMAP queue 2); only quant='none' is ported"
+            )
+        if cfg.embedding_type != "fourier":
+            raise NotImplementedError("only fourier embedding supported")
+        if cfg.resblock_type != "biggan":
+            raise NotImplementedError(
+                "resblock_type='ddpm' needs the Upsample/Downsample layers, not ported yet (ROADMAP)"
+            )
+        if cfg.progressive not in ("none", "output_skip") or cfg.progressive_input not in (
+            "none", "input_skip"
+        ):
+            raise NotImplementedError(
+                "progressive='residual' / progressive_input='residual' not ported yet (ROADMAP)"
+            )
+        if cfg.dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"dtype {cfg.dtype!r} (float32 | bfloat16)")
+        self.cfg = cfg
+        self.cdtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+        cdtype = self.cdtype
+        act = cfg.nonlinearity
+        layers.get_act(act)  # validates the name
+        nf = cfg.nf
+        num_resolutions = len(cfg.ch_mult)
+        self.all_resolutions = [cfg.image_size // (2 ** i) for i in range(num_resolutions)]
+        total_channels = cfg.input_channels * cfg.spatial_channels
+
+        def resblock(in_ch, out_ch=None, up=False, down=False):
+            return layers.ResnetBlockBigGANpp(
+                act=act, in_ch=in_ch, out_ch=out_ch, up=up, down=down, dropout=cfg.dropout,
+                fir=cfg.fir, fir_kernel=cfg.fir_kernel, skip_rescale=cfg.skip_rescale,
+                init_scale=cfg.init_scale, temb_dim=nf * 4, dtype=cdtype,
+            )
+
+        def attn(ch):
+            return layers.AttnBlockpp(ch, skip_rescale=cfg.skip_rescale,
+                                      init_scale=cfg.init_scale, dtype=cdtype)
+
+        mods = [layers.GaussianFourierProjection(embedding_size=nf, scale=cfg.fourier_scale)]
+        if cfg.conditional:
+            mods.append(layers.Linear(nf * 2, nf * 4))
+            mods.append(layers.Linear(nf * 4, nf * 4))
+        mods.append(layers.Conv2d(total_channels, nf, dtype=cdtype))
+        hs_c = [nf]
+        in_ch = nf
+        for i_level in range(num_resolutions):
+            for _ in range(cfg.num_res_blocks):
+                out_ch = nf * cfg.ch_mult[i_level]
+                mods.append(resblock(in_ch, out_ch))
+                in_ch = out_ch
+                if self.all_resolutions[i_level] in cfg.attn_resolutions:
+                    mods.append(attn(in_ch))
+                hs_c.append(in_ch)
+            if i_level != num_resolutions - 1:
+                mods.append(resblock(in_ch, down=True))
+                if cfg.progressive_input == "input_skip":
+                    mods.append(layers.Combine(total_channels, in_ch,
+                                               method=cfg.progressive_combine.lower(), dtype=cdtype))
+                    if cfg.progressive_combine.lower() == "cat":
+                        in_ch *= 2
+                hs_c.append(in_ch)
+        mods += [resblock(in_ch), attn(in_ch), resblock(in_ch)]
+        for i_level in reversed(range(num_resolutions)):
+            for _ in range(cfg.num_res_blocks + 1):
+                out_ch = nf * cfg.ch_mult[i_level]
+                mods.append(resblock(in_ch + hs_c.pop(), out_ch))
+                in_ch = out_ch
+            if self.all_resolutions[i_level] in cfg.attn_resolutions:
+                mods.append(attn(in_ch))
+            if cfg.progressive == "output_skip":
+                mods.append(layers.GroupNormAct(in_ch, act=act, out_dtype=cdtype))
+                mods.append(layers.Conv2d(in_ch, total_channels, init_scale=cfg.init_scale,
+                                          dtype=cdtype))
+            if i_level != 0:
+                mods.append(resblock(in_ch, up=True))
+        if hs_c:
+            raise AssertionError("skip bookkeeping out of step")
+        if cfg.progressive != "output_skip":
+            mods.append(layers.GroupNormAct(in_ch, act=act, out_dtype=torch.float32))
+            mods.append(layers.Conv2d(in_ch, total_channels, init_scale=cfg.init_scale))
+        self.all_modules = nn.ModuleList(mods)
+        self.output_layer = layers.Conv2d(total_channels, 2 * cfg.spatial_channels, kernel=1,
+                                          dtype=cdtype)
+        self.reset_parameters(torch.Generator().manual_seed(seed))
+        self.eval()  # inference is the default, as use_tpu's train=False
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        """Redraw every parameter (DDPM init) from `generator`, module by
+        module in walk order."""
+        for m in self.modules():
+            if m is not self and hasattr(m, "reset_parameters"):
+                m.reset_parameters(generator)
+
+    def forward(self, x: torch.Tensor, time_cond: Optional[torch.Tensor] = None) -> torch.Tensor:
+        cfg = self.cfg
+        act = layers.get_act(cfg.nonlinearity)
+        total_channels = cfg.input_channels * cfg.spatial_channels
+        if x.shape[-1] != total_channels:
+            raise ValueError(f"input {tuple(x.shape)} needs {total_channels} channels")
+        num_resolutions = len(cfg.ch_mult)
+        mods = iter(self.all_modules)
+
+        gfp = next(mods)
+        temb = gfp(torch.log(time_cond)) if time_cond is not None else None
+        if cfg.conditional:
+            temb = next(mods)(temb)
+            temb = next(mods)(act(temb))
+        else:
+            temb = None
+
+        x = x.permute(0, 3, 1, 2)  # [B, C, F, T]
+        if not cfg.centered:
+            x = 2 * x - 1.0  # ncsnpp.py:372-374
+        x = x.to(self.cdtype).contiguous()
+
+        input_pyramid = x if cfg.progressive_input != "none" else None
+        hs = [next(mods)(x)]
+        for i_level in range(num_resolutions):
+            for _ in range(cfg.num_res_blocks):
+                h = next(mods)(hs[-1], temb)
+                if self.all_resolutions[i_level] in cfg.attn_resolutions:
+                    h = next(mods)(h)
+                hs.append(h)
+            if i_level != num_resolutions - 1:
+                h = next(mods)(hs[-1], temb)
+                if cfg.progressive_input == "input_skip":
+                    input_pyramid = downsample_2d(input_pyramid, cfg.fir_kernel, factor=2)
+                    h = next(mods)(input_pyramid, h)
+                hs.append(h)
+
+        h = hs[-1]
+        h = next(mods)(h, temb)
+        h = next(mods)(h)
+        h = next(mods)(h, temb)
+
+        pyramid = None
+        for i_level in reversed(range(num_resolutions)):
+            for _ in range(cfg.num_res_blocks + 1):
+                h = next(mods)(torch.cat([h, hs.pop()], dim=1), temb)
+            if self.all_resolutions[i_level] in cfg.attn_resolutions:
+                h = next(mods)(h)
+            if cfg.progressive == "output_skip":
+                pyramid_h = next(mods)(h)
+                pyramid_h = next(mods)(pyramid_h)
+                if i_level == num_resolutions - 1:
+                    pyramid = pyramid_h
+                else:
+                    pyramid = upsample_2d(pyramid, cfg.fir_kernel, factor=2) + pyramid_h
+            if i_level != 0:
+                h = next(mods)(h, temb)
+
+        if cfg.progressive == "output_skip":
+            h = pyramid
+        else:
+            h = next(mods)(h)
+            h = next(mods)(h)
+
+        if cfg.scale_by_sigma:
+            if time_cond is None:
+                raise ValueError("scale_by_sigma needs time_cond")
+            inv = (1.0 / time_cond.float()).reshape(-1, 1, 1, 1)
+            h = h * inv.to(h.dtype)
+
+        h = self.output_layer(h).float()  # [B, 2D, F, T]; re-major channel split
+        d = cfg.spatial_channels
+        h = h.permute(0, 2, 3, 1)  # [B, F, T, 2D]
+        return torch.stack([h[..., :d], h[..., d:]], dim=-1)  # [B, F, T, D, 2]
+
+
+def _variant(name: str, **overrides):
+    @BackboneRegistry.register(name)
+    def make(seed: int = 0, **kwargs) -> NCSNpp:
+        merged = {**overrides, **kwargs}
+        for key in ("ch_mult", "attn_resolutions", "fir_kernel"):
+            if key in merged:
+                merged[key] = tuple(merged[key])
+        return NCSNpp(cfg=NCSNppConfig(**merged), seed=seed)
+
+    make.__name__ = f"make_{name}"
+    return make
+
+
+# Registered variants (reference ncsnpp.py:38, 504-559)
+make_ncsnpp = _variant("ncsnpp")
+make_ncsnpp_large = _variant(
+    "ncsnpplarge", nf=128, ch_mult=(1, 1, 2, 2, 2, 2, 2), num_res_blocks=2,
+    attn_resolutions=(0,),
+)
+make_ncsnpp_12m = _variant(
+    "ncsnpp12M", nf=96, ch_mult=(1, 2, 2, 1), num_res_blocks=1, attn_resolutions=(0,),
+)
+make_ncsnpp_6m = _variant(
+    "ncsnpp6M", nf=96, ch_mult=(1, 1, 1, 1), num_res_blocks=1, attn_resolutions=(0,),
+)

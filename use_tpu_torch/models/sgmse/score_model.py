@@ -1,0 +1,250 @@
+"""ScoreModel: the SGMSE task head (backbone + SDE + STFT + sampler), inference.
+
+Port of use_tpu/models/sgmse/score_model.py (reference
+src/models/components/sgmse/model_wrapper.py:23-329). The backbone is a torch
+module held by the model (``score_net``) on ``device``; sampling runs under
+``torch.inference_mode``. Batch convention as use_tpu's: a dict with
+'perturbed' (and optionally 'fake') wavs [B, L], returning 'enhanced' or
+'fake_sde_enhanced'. ``train_loss`` is not ported yet (training slice).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional, Tuple, Union
+
+import torch
+
+from use_tpu_torch.models.registry import BackboneRegistry, SDERegistry
+from use_tpu_torch.models.sgmse import sampling
+from use_tpu_torch.models.sgmse.sampling import NoiseFn
+from use_tpu_torch.ops import STFTConfig, istft, pad_spec, spec_back, spec_fwd, stft
+from use_tpu_torch.utils.device import resolve_device
+
+Batch = Dict[str, torch.Tensor]
+
+
+@dataclass
+class ScoreModel:
+    """SGMSE score model (model_wrapper.py:23-143).
+
+    condition: 'noisy' | 'denoised' | 'both' — which spectra condition the
+        score network (input channels 4 / 4 / 6).
+    sde_input: 'noisy' | 'denoised' — prior mean y of the OU process.
+    device: 'cuda' (default) or 'cpu'; CUDA without a card raises.
+    seed: seed of the backbone's random initialization.
+    """
+
+    backbone: str = "ncsnpp"
+    sde: str = "ouve"
+    t_eps: float = 3e-2
+    condition: str = "both"
+    loss_type: str = "mse"
+    n_fft: int = 510
+    hop_length: int = 128
+    num_frames: int = 256
+    window: str = "hann"
+    spec_factor: float = 0.15
+    spec_abs_exponent: float = 0.5
+    sde_input: str = "denoised"
+    predictor: str = "reverse_diffusion"
+    corrector: str = "none"
+    backbone_kwargs: Dict[str, Any] = field(default_factory=dict)
+    sde_kwargs: Dict[str, Any] = field(default_factory=dict)
+    device: Union[str, torch.device] = "cuda"
+    seed: int = 0
+
+    def __post_init__(self):
+        self.device = resolve_device(self.device)
+        input_channels = 6 if self.condition == "both" else 4
+        self.score_net = BackboneRegistry.get_by_name(self.backbone)(
+            input_channels=input_channels, seed=self.seed, **self.backbone_kwargs
+        ).to(self.device)
+        self.sde_obj = SDERegistry.get_by_name(self.sde)(**self.sde_kwargs)
+        self.stft_cfg = STFTConfig(
+            n_fft=self.n_fft, hop_length=self.hop_length, window=self.window
+        )
+
+    # -- setup ------------------------------------------------------------
+    def cast_params_for_inference(self) -> None:
+        """Cast the backbone's weights to its compute dtype, in place.
+
+        As use_tpu's cast: with a bf16 compute dtype every parameter except
+        the GroupNorm affines and 1-D parameters (biases, the Gaussian-Fourier
+        projection) becomes bf16 once, instead of at every use. A no-op for
+        fp32 backbones."""
+        if self.score_net.cfg.dtype != "bfloat16":
+            return
+        with torch.no_grad():
+            for name, p in self.score_net.named_parameters():
+                if "GroupNorm" in name or p.dim() <= 1 or not p.is_floating_point():
+                    continue
+                p.data = p.data.to(torch.bfloat16)
+
+    # -- pieces -----------------------------------------------------------
+    def _spec(self, wav: torch.Tensor) -> torch.Tensor:
+        """wav [B, L] -> compressed spec [B, F, T, 2]."""
+        return spec_fwd(stft(wav, self.stft_cfg), self.spec_factor, self.spec_abs_exponent)
+
+    def _inv_spec(self, spec: torch.Tensor, length: int) -> torch.Tensor:
+        return istft(
+            spec_back(spec, self.spec_factor, self.spec_abs_exponent), self.stft_cfg,
+            length=length,
+        )
+
+    def forward_score(self, x: torch.Tensor, t: torch.Tensor,
+                      conditioning: List[torch.Tensor]) -> torch.Tensor:
+        """score = -net(cat([x] + conditioning), t) (model_wrapper.py:135-141)."""
+        dnn_input = torch.cat([x] + list(conditioning), dim=-1)
+        out = self.score_net(dnn_input, t)  # [B, F, T, 1, 2]
+        return -out[..., 0, :]
+
+    def _select_cond(self, y, y_denoised):
+        if self.condition == "noisy":
+            return [y]
+        if self.condition == "denoised":
+            if y_denoised is None:
+                raise ValueError("condition='denoised' requires batch['fake']")
+            return [y_denoised]
+        if self.condition == "both":
+            if y_denoised is None:
+                raise ValueError("condition='both' requires batch['fake']")
+            return [y, y_denoised]
+        raise NotImplementedError(f"Unknown conditioning: {self.condition}")
+
+    def _select_sde_input(self, y, y_denoised):
+        if self.sde_input == "noisy":
+            return y
+        if self.sde_input == "denoised":
+            if y_denoised is None:
+                raise ValueError("sde_input='denoised' requires batch['fake']")
+            return y_denoised
+        raise NotImplementedError(f"Unknown sde input: {self.sde_input}")
+
+    # -- inference --------------------------------------------------------
+    def sample_spec(
+        self,
+        y_spec: torch.Tensor,
+        conditioning: List[torch.Tensor],
+        generator: Optional[torch.Generator] = None,
+        noise_fn: Optional[NoiseFn] = None,
+        sampler_type: str = "pc",
+        N: int = 50,
+        corrector_steps: int = 1,
+        snr: float = 0.5,
+        **_ignored,
+    ) -> Tuple[torch.Tensor, int]:
+        """Run the reverse process on padded spectra."""
+        if sampler_type != "pc":
+            raise NotImplementedError(
+                f"sampler_type={sampler_type!r} is not ported yet; only 'pc' (ROADMAP)"
+            )
+        sde = self.sde_obj.copy(N=N)
+        sampler = sampling.get_pc_sampler(
+            self.predictor, self.corrector, sde,
+            lambda xt, t: self.forward_score(xt, t, conditioning), y_spec,
+            eps=self.t_eps, snr=snr, corrector_steps=corrector_steps,
+        )
+        return sampler(generator, noise_fn)
+
+    @torch.inference_mode()
+    def sample(
+        self,
+        batch: Batch,
+        generator: Optional[torch.Generator] = None,
+        noise_fn: Optional[NoiseFn] = None,
+        sampler_type: str = "pc",
+        N: int = 50,
+        corrector_steps: int = 1,
+        snr: float = 0.5,
+        **sampler_kwargs,
+    ) -> Batch:
+        """Batch-dict enhancement (model_wrapper.py:262-329).
+
+        Writes batch['enhanced'] (sde_input='noisy') or
+        batch['fake_sde_enhanced'] (sde_input='denoised', GAN-first hybrid).
+        """
+        y = torch.as_tensor(batch["perturbed"], device=self.device)
+        y_denoised_wav = batch.get("fake")
+        t_orig = y.shape[-1]
+
+        y_spec = pad_spec(self._spec(y))
+        y_denoised = (
+            pad_spec(self._spec(torch.as_tensor(y_denoised_wav, device=self.device)))
+            if y_denoised_wav is not None else None
+        )
+        conditioning = self._select_cond(y_spec, y_denoised)
+        sde_in = self._select_sde_input(y_spec, y_denoised)
+
+        sample, _nfe = self.sample_spec(
+            sde_in, conditioning, generator, noise_fn, sampler_type, N, corrector_steps,
+            snr, **sampler_kwargs,
+        )
+        enhanced = self._inv_spec(sample, t_orig)
+        out = dict(batch)
+        out["fake_sde_enhanced" if self.sde_input == "denoised" else "enhanced"] = enhanced
+        return out
+
+    @torch.inference_mode()
+    def sample_chunked(
+        self,
+        batch: Batch,
+        generator: Optional[torch.Generator] = None,
+        noise_fn: Optional[NoiseFn] = None,
+        n_chunks: int = 8,
+        overlap_frames: int = 32,
+        **sample_kwargs,
+    ) -> Batch:
+        """Single-utterance enhancement as ONE batched sampler call over
+        overlapped, hop-aligned time chunks, linearly crossfaded
+        (score_model.py:281-350). Falls back to full-clip sampling when the
+        clip is too short for the chunking."""
+        y = torch.as_tensor(batch["perturbed"], device=self.device)
+        if y.dim() != 2 or y.shape[0] != 1:
+            raise ValueError(
+                f"sample_chunked is the single-utterance path (got batch {y.shape[0]})"
+            )
+        length = y.shape[-1]
+        overlap = int(overlap_frames) * self.hop_length
+        hop = -(-length // int(n_chunks))  # ceil
+        hop = -(-hop // self.hop_length) * self.hop_length  # hop-aligned starts
+        n = -(-length // hop)  # actual lanes after alignment
+        if n <= 1 or hop <= overlap or overlap <= 0:
+            return self.sample(batch, generator, noise_fn, **sample_kwargs)
+        win = hop + overlap
+        padded = torch.nn.functional.pad(
+            y[None], (overlap // 2, (n - 1) * hop + win - overlap // 2 - length), mode="reflect"
+        )[0, 0]
+        idx = (torch.arange(n, device=y.device)[:, None] * hop
+               + torch.arange(win, device=y.device)[None, :])
+        chunks = padded[idx]  # [n, win]
+
+        out = self.sample({"perturbed": chunks}, generator, noise_fn, **sample_kwargs)
+        key = "fake_sde_enhanced" if self.sde_input == "denoised" else "enhanced"
+        enhanced = out[key]  # [n, win]
+
+        ramp = torch.linspace(0.0, 1.0, overlap + 2, device=y.device)[1:-1]
+        w = torch.ones((win,), device=y.device)
+        w[:overlap] = ramp
+        w[-overlap:] = ramp.flip(0)
+        total = (n - 1) * hop + win
+        acc = torch.zeros((total,), device=y.device)
+        wacc = torch.zeros((total,), device=y.device)
+        for i in range(n):
+            acc[i * hop : i * hop + win] += enhanced[i] * w
+            wacc[i * hop : i * hop + win] += w
+        joined = acc / torch.clamp(wacc, min=1e-8)
+        res = dict(batch)
+        res[key] = joined[overlap // 2 : overlap // 2 + length][None]
+        return res
+
+
+def sgmse_large(**overrides) -> ScoreModel:
+    """The shipping SGMSE_Large config (configs/model/SGMSE_Large.yaml:1-17)."""
+    kw: Dict[str, Any] = dict(
+        backbone="ncsnpplarge", sde="ouve", t_eps=3e-2, condition="noisy",
+        sde_input="noisy", loss_type="mse", n_fft=1022, hop_length=160,
+        num_frames=512, spec_factor=0.15, spec_abs_exponent=0.5,
+        predictor="reverse_diffusion", corrector="none",
+    )
+    kw.update(overrides)
+    return ScoreModel(**kw)

@@ -1,0 +1,44 @@
+"""Signal and kernel ops of the port.
+
+``KERNEL_WRAPPERS`` lists every wrapper that launches a hand-written CUDA
+kernel; each carries an integer ``launches`` count.
+"""
+from use_tpu_torch.ops.fused_skip import fused_skip_add
+from use_tpu_torch.ops.gn_stats import channel_sums, gn_apply
+from use_tpu_torch.ops.stft import (
+    STFTConfig,
+    get_window,
+    istft,
+    pad_spec,
+    spec_back,
+    spec_fwd,
+    stft,
+)
+
+KERNEL_WRAPPERS = (channel_sums, gn_apply, fused_skip_add)
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNEL_WRAPPERS:
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    return {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
+
+
+__all__ = [
+    "STFTConfig",
+    "stft",
+    "istft",
+    "spec_fwd",
+    "spec_back",
+    "pad_spec",
+    "get_window",
+    "channel_sums",
+    "gn_apply",
+    "fused_skip_add",
+    "KERNEL_WRAPPERS",
+    "reset_launch_counts",
+    "launch_counts",
+]

@@ -1,0 +1,90 @@
+"""Fused resblock shortcut out = (h + conv1x1(x; W, b)) * scale (kernel K2).
+
+Port of the Pallas kernel use_tpu/ops/pallas_skip.py::fused_skip_add: the
+BigGAN resblock's 1x1 ``Conv_2`` shortcut, residual add and skip_rescale in
+one pass (use_tpu/models/ncsnpp/layers.py:610-619), on NCHW tensors. The
+CUDA C++ kernel (csrc/fused_skip.cu) computes the per-batch GEMM
+W [Co, Ci] x [Ci, S] itself, with fp32 accumulation, and an epilogue that
+reads h and writes the output once. Bounds and design: see the note there.
+
+``fused_skip_add`` takes ``fused_skip_add_plain`` for CPU tensors; for CUDA
+tensors it launches the kernel or raises. ``fused_skip_add.launches`` counts
+kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from use_tpu_torch.ops import cuda_build
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _shapes(x: torch.Tensor, h: torch.Tensor, w: torch.Tensor, b: torch.Tensor):
+    if x.dim() != 4 or h.dim() != 4:
+        raise ValueError(f"fused_skip_add expects NCHW x and h, got {tuple(x.shape)}, {tuple(h.shape)}")
+    bsz, ci, hh, ww = x.shape
+    co = h.shape[1]
+    if h.shape != (bsz, co, hh, ww):
+        raise ValueError(f"h {tuple(h.shape)} does not match x {tuple(x.shape)} in batch/space")
+    w2 = w.reshape(w.shape[0], -1)
+    if w2.shape != (co, ci) or b.shape != (co,):
+        raise ValueError(f"weight {tuple(w.shape)} / bias {tuple(b.shape)} do not map {ci} -> {co}")
+    return bsz, ci, co, hh * ww, w2
+
+
+def fused_skip_add_plain(
+    x: torch.Tensor, h: torch.Tensor, w: torch.Tensor, b: torch.Tensor, scale: float = 1.0
+) -> torch.Tensor:
+    """(h + W x + b) * scale with fp32 accumulation, output in h's dtype."""
+    bsz, ci, co, s, w2 = _shapes(x, h, w, b)
+    skip = torch.matmul(w2.float(), x.reshape(bsz, ci, s).float())  # [B, Co, S]
+    out = (h.reshape(bsz, co, s).float() + skip + b.float()[:, None]) * scale
+    return out.to(h.dtype).reshape(h.shape)
+
+
+def fused_skip_add(
+    x: torch.Tensor, h: torch.Tensor, w: torch.Tensor, b: torch.Tensor, scale: float = 1.0
+) -> torch.Tensor:
+    """(h + conv1x1(x; w, b)) * scale for x [B, Ci, H, W], h [B, Co, H, W],
+    w [Co, Ci] (or [Co, Ci, 1, 1]), b [Co]; all of one dtype, output in it."""
+    bsz, ci, co, s, w2 = _shapes(x, h, w, b)
+    if x.device.type == "cpu":
+        return fused_skip_add_plain(x, h, w, b, scale)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_skip_add: expected a CPU or CUDA tensor, got {x.device}")
+    if x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"fused_skip_add: dtype {x.dtype} not supported (float32, bfloat16)")
+    for t, name in ((h, "h"), (w2, "w"), (b, "b")):
+        if t.dtype != x.dtype or t.device != x.device:
+            raise TypeError(f"fused_skip_add: {name} must match x in dtype and device")
+        if not t.is_contiguous():
+            raise ValueError(f"fused_skip_add: {name} must be contiguous")
+    if not x.is_contiguous():
+        raise ValueError("fused_skip_add: x must be contiguous (NCHW)")
+    if bsz > 65535 or co > 65535 * 64:
+        raise ValueError(f"fused_skip_add: batch {bsz} / Co {co} exceeds the launch grid")
+    out = torch.empty_like(h)
+    status = _lib().fused_skip_add(
+        x.data_ptr(), h.data_ptr(), w2.data_ptr(), b.data_ptr(), out.data_ptr(),
+        _DTYPE_CODES[x.dtype], bsz, ci, co, s, float(scale),
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    cuda_build.check(status, "fused_skip_add")
+    fused_skip_add.launches += 1
+    return out
+
+
+fused_skip_add.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = cuda_build.load("fused_skip")
+    p, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.fused_skip_add.argtypes = [p, p, p, p, p, i32, i32, i32, i32, ctypes.c_longlong, ctypes.c_float, p]
+    lib.fused_skip_add.restype = i32
+    return lib

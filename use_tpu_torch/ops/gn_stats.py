@@ -1,0 +1,231 @@
+"""GroupNorm statistics and apply for NCHW activations (kernel K1).
+
+Port of use_tpu/ops/gn_stats.py (Pallas ``_channel_sums_impl``, wrappers
+``channel_sums`` and ``group_mean_meansq``) together with the apply half of
+use_tpu/models/ncsnpp/layers.py::GroupNormAct (layers.py:216-256). One
+GroupNorm is two hand-written CUDA passes (csrc/gn_stats.cu):
+
+- ``channel_sums(x)``: per-(batch, channel) sum and sum of squares of
+  x [B, C, S] in one read, fp32 accumulators;
+- ``gn_apply(x, sums, sumsq, weight, bias, groups, ...)``: folds the group
+  statistics, the clamped one-pass variance E[x^2]-E[x]^2, eps and the affine
+  into a per-(batch, channel) scale and shift, and writes
+  ``act(x * scale + shift)`` in the output dtype.
+
+Route: CUDA C++ through the same nvcc + ctypes build as K2, so the port has
+one build path and no Triton dependency.
+
+Each wrapper takes its plain torch version (``*_plain``) for a CPU tensor;
+for a CUDA tensor it launches its kernel or raises. ``<wrapper>.launches``
+counts kernel launches. Bounds and design: see the note in csrc/gn_stats.cu.
+Not ported yet: the backward dx = ds + 2 x dss (training slice).
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from use_tpu_torch.ops import cuda_build
+
+ACT_CODES = {None: 0, "swish": 1, "relu": 2, "lrelu": 3, "elu": 4}  # get_act names
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_TARGET_BLOCKS = 132 * 8  # enough blocks in flight to fill the H100's 132 SMs
+_MIN_CHUNK = 8192  # elements a block streams at least
+
+
+def num_groups(channels: int) -> int:
+    """GroupNorm(min(C//4, 32)) as used across NCSN++."""
+    return min(max(channels // 4, 1), 32)
+
+
+def split_rows(rows: int, s: int) -> Tuple[int, int]:
+    """(splits, chunk): cut each of `rows` rows of `s` elements into `splits`
+    slices of `chunk` elements (a multiple of 4), enough blocks to fill the
+    card without slices below _MIN_CHUNK elements."""
+    want = max(1, -(-_TARGET_BLOCKS // rows))
+    splits = max(1, min(want, -(-s // _MIN_CHUNK), 65535))
+    chunk = -(-s // splits)
+    chunk = -(-chunk // 4) * 4
+    splits = -(-s // chunk)
+    return splits, chunk
+
+
+def _check_cuda(x: torch.Tensor, what: str) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"{what}: expected a CPU or CUDA tensor, got {x.device}")
+    if x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"{what}: dtype {x.dtype} not supported (float32, bfloat16)")
+    if not x.is_contiguous():
+        raise ValueError(f"{what}: input must be contiguous (NCHW)")
+
+
+def _vec_ok(s: int, chunk: int, *tensors: torch.Tensor) -> int:
+    return int(s % 4 == 0 and chunk % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors))
+
+
+# ---------------------------------------------------------------------------
+# statistics
+# ---------------------------------------------------------------------------
+
+def channel_sums_plain(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(sum_x, sum_x2) over axis 2 of [B, C, S], fp32."""
+    xf = x.float()
+    return xf.sum(dim=2), (xf * xf).sum(dim=2)
+
+
+def channel_sums(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(sum_x, sum_x2) over axis 2 of [B, C, S], fp32, in one read of x."""
+    if x.dim() != 3:
+        raise ValueError(f"channel_sums expects [B, C, S], got {tuple(x.shape)}")
+    if x.device.type == "cpu":
+        return channel_sums_plain(x)
+    _check_cuda(x, "channel_sums")
+    b, c, s = x.shape
+    rows = b * c
+    splits, chunk = split_rows(rows, s)
+    part = torch.empty((2, rows, splits), dtype=torch.float32, device=x.device)
+    sums = torch.empty((b, c), dtype=torch.float32, device=x.device)
+    sumsq = torch.empty((b, c), dtype=torch.float32, device=x.device)
+    lib = _lib()
+    status = lib.gn_channel_sums(
+        x.data_ptr(), _DTYPE_CODES[x.dtype], rows, s, splits, chunk, _vec_ok(s, chunk, x),
+        part.data_ptr(), sums.data_ptr(), sumsq.data_ptr(),
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    cuda_build.check(status, "gn_channel_sums")
+    channel_sums.launches += 1
+    return sums, sumsq
+
+
+channel_sums.launches = 0
+
+
+def group_mean_meansq(x: torch.Tensor, groups: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-(batch, group) mean and mean-square of [B, C, S] in one read of x.
+
+    Groups are contiguous channel ranges (C % groups == 0)."""
+    b, c, s = x.shape
+    cg = c // groups
+    sum_x, sum_x2 = channel_sums(x)
+    n = float(s * cg)
+    return sum_x.reshape(b, groups, cg).sum(-1) / n, sum_x2.reshape(b, groups, cg).sum(-1) / n
+
+
+# ---------------------------------------------------------------------------
+# apply
+# ---------------------------------------------------------------------------
+
+def fold_scale_shift(
+    sums: torch.Tensor, sumsq: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+    groups: int, s: int, eps: float,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-(batch, channel) scale and shift [B, C] from channel sums, as
+    layers.py:228-236: var = max(E[x^2] - E[x]^2, 0)."""
+    b, c = sums.shape
+    cg = c // groups
+    n = float(s * cg)
+    mean = sums.reshape(b, groups, cg).sum(-1) / n
+    meansq = sumsq.reshape(b, groups, cg).sum(-1) / n
+    var = torch.clamp(meansq - mean * mean, min=0.0)
+    inv = torch.rsqrt(var + eps)  # [B, G]
+    a = inv[:, :, None] * weight.float().reshape(groups, cg)[None]
+    off = bias.float().reshape(groups, cg)[None] - mean[:, :, None] * a
+    return a.reshape(b, c), off.reshape(b, c)
+
+
+def _act_plain(y: torch.Tensor, act: Optional[str]) -> torch.Tensor:
+    code = ACT_CODES[act]
+    if code == 1:
+        return F.silu(y)
+    if code == 2:
+        return F.relu(y)
+    if code == 3:
+        return F.leaky_relu(y, 0.2)
+    if code == 4:
+        return F.elu(y)
+    return y
+
+
+def gn_apply_plain(
+    x: torch.Tensor, sums: torch.Tensor, sumsq: torch.Tensor, weight: torch.Tensor,
+    bias: torch.Tensor, groups: int, eps: float = 1e-6, act: Optional[str] = None,
+    out_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    b, c, s = x.shape
+    a, off = fold_scale_shift(sums, sumsq, weight, bias, groups, s, eps)
+    y = x.float() * a[:, :, None] + off[:, :, None]
+    return _act_plain(y, act).to(out_dtype or x.dtype)
+
+
+def gn_apply(
+    x: torch.Tensor, sums: torch.Tensor, sumsq: torch.Tensor, weight: torch.Tensor,
+    bias: torch.Tensor, groups: int, eps: float = 1e-6, act: Optional[str] = None,
+    out_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """act(GroupNorm(x)) of [B, C, S] given its channel sums, in out_dtype
+    (default x.dtype); statistics, fold and arithmetic in fp32."""
+    if x.dim() != 3:
+        raise ValueError(f"gn_apply expects [B, C, S], got {tuple(x.shape)}")
+    if act not in ACT_CODES:
+        raise NotImplementedError(f"activation {act!r} not supported")
+    out_dtype = out_dtype or x.dtype
+    if x.device.type == "cpu":
+        return gn_apply_plain(x, sums, sumsq, weight, bias, groups, eps, act, out_dtype)
+    _check_cuda(x, "gn_apply")
+    if out_dtype not in _DTYPE_CODES:
+        raise TypeError(f"gn_apply: out_dtype {out_dtype} not supported")
+    b, c, s = x.shape
+    if c % groups:
+        raise ValueError(f"gn_apply: {c} channels not divisible into {groups} groups")
+    for t, name in ((sums, "sums"), (sumsq, "sumsq")):
+        if t.shape != (b, c) or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"gn_apply: {name} must be contiguous fp32 [{b}, {c}]")
+    weight = weight.float().contiguous()
+    bias = bias.float().contiguous()
+    if weight.device != x.device or bias.device != x.device or sums.device != x.device:
+        raise ValueError("gn_apply: all tensors must be on one device")
+    y = torch.empty((b, c, s), dtype=out_dtype, device=x.device)
+    rows = b * c
+    splits, chunk = split_rows(rows, s)
+    lib = _lib()
+    status = lib.gn_apply(
+        x.data_ptr(), _DTYPE_CODES[x.dtype], y.data_ptr(), _DTYPE_CODES[out_dtype],
+        sums.data_ptr(), sumsq.data_ptr(), weight.data_ptr(), bias.data_ptr(),
+        rows, c, groups, s, splits, chunk, float(eps), ACT_CODES[act],
+        _vec_ok(s, chunk, x, y), torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    cuda_build.check(status, "gn_apply")
+    gn_apply.launches += 1
+    return y
+
+
+gn_apply.launches = 0
+
+
+def group_norm_act(
+    x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, groups: int,
+    act: Optional[str] = None, out_dtype: Optional[torch.dtype] = None, eps: float = 1e-6,
+) -> torch.Tensor:
+    """GroupNorm (+ activation) of an NCHW tensor [B, C, ...] as the two
+    passes channel_sums -> gn_apply; output shape of x, dtype out_dtype."""
+    b, c = x.shape[:2]
+    x3 = x.reshape(b, c, -1)
+    sums, sumsq = channel_sums(x3)
+    return gn_apply(x3, sums, sumsq, weight, bias, groups, eps, act, out_dtype).reshape(x.shape)
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = cuda_build.load("gn_stats")
+    p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    lib.gn_channel_sums.argtypes = [p, i32, i64, i64, i32, i64, i32, p, p, p, p]
+    lib.gn_channel_sums.restype = i32
+    lib.gn_apply.argtypes = [
+        p, i32, p, i32, p, p, p, p, i64, i32, i32, i64, i32, i64, ctypes.c_float, i32, i32, p,
+    ]
+    lib.gn_apply.restype = i32
+    return lib
