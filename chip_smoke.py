@@ -12,16 +12,20 @@ Phases, one line each (any failure raises and exits non-zero):
      card at main-path shapes, fp32 and bf16, with the stated tolerance; its
      time (median of CUDA-event timings), the plain version's, one PyTorch
      library call's, and the bound (bytes at 3.35 TB/s or operations at the
-     dtype's peak, whichever is larger);
+     dtype's peak, whichever is larger). K3 (the int8 conv) also checks that
+     a control broken on purpose (no edge mask) fails its tolerance;
   4. forward: full-width ncsnpplarge with seeded random weights on
      [8, 512, 192, 4] (the predict path's 8 chunk lanes, one t each), the
      card (kernels) against the CPU (plain versions), TF32 off; and its bf16
      compute path against fp32 on the card for a few seeds, within a limit
      that a deliberately broken bf16 path (GroupNorm sums in bf16) exceeds;
+     then the int8 serving network (quant='int8_pallas') in fp32 and bf16,
+     K3 against K3's plain version on the card;
   5. predict: the port's CLI `predict experiment=SGMSE_Large` on two
      synthetic 24 kHz wavs (3 s full-clip, 6 s chunked into 8 lanes) with
-     seeded random weights; checks the mirrored, length-matched, finite
-     outputs and that every kernel was launched on that path.
+     seeded random weights, once in fp32 and once as int8 bf16 serving;
+     checks the mirrored, length-matched, finite outputs and that each
+     kernel was launched exactly as often as each forward of that run needs.
 Then a JSON line of the kernels, the card line, and the last line
 {"ok": true, "device": {...}}.
 """
@@ -41,7 +45,8 @@ import time
 import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
-PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}  # fp32 outside tensor cores; bf16 dense
+# fp32 outside tensor cores; bf16 and int8 dense tensor-core peaks
+PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
 # Shapes the predict phase gives the kernels first (a clip of >= 5 s runs as
 # 8 chunk lanes of 512 x 192), then a 10 s full clip at batch 1.
 GN_SHAPES = [
@@ -54,14 +59,35 @@ SKIP_SHAPES = [  # (B, Ci, Co, H, W)
     (8, 128, 128, 256, 96),  # first down block (shortcut after the FIR downsample), 8 lanes
     (1, 256, 128, 512, 1536),  # up path, full-resolution block, 10 s full clip
 ]
+QCONV_SHAPES = [  # (B, C, O, H, W): int8 predict path, 8 lanes
+    (8, 128, 128, 512, 192),  # full-resolution Conv_0 / Conv_1
+    (8, 256, 128, 512, 192),  # full-resolution up-path Conv_0 (skip concat)
+    (8, 512, 256, 128, 48),  # up-path Conv_0 at 128 x 48
+    (8, 256, 256, 8, 3),  # the lowest level
+]
 FORWARD_BACKBONE, FORWARD_SHAPE = "ncsnpplarge", (8, 512, 192, 4)  # the 8 lanes of a 6 s clip
 BF16_SEEDS = (1, 2, 3)
 # bf16 forward against fp32, relative to max|fp32|: between the readings on
 # BF16_SEEDS (<= 0.013) and the broken control's (0.023) on the H100 (PERF.md)
 BF16_REL_TOL = 0.017
+INT8_SEEDS = (1, 2)
+# int8 forward with K3 against the same forward with K3's plain version, on
+# the card, relative to max|plain|: both read exactly 0 on INT8_SEEDS, as do
+# two runs with K3, in fp32 and bf16 (PERF.md). Integer sums are exact, so
+# any flipped quantum is a fault; the limit only leaves room for float
+# rounding, which the two sides do alike. The edge-leak control must exceed it.
+INT8_REL_TOL = 1e-6
 PREDICT_EXPERIMENT = "SGMSE_Large"
 PREDICT_CLIPS_S = (3, 6)  # full-clip, and >= 5 s: chunked into 8 lanes
 PREDICT_N = 10
+INT8_PREDICT_ARGS = ("model.backbone_kwargs.quant=int8_pallas",
+                     "model.backbone_kwargs.dtype=bfloat16")
+# kernel launches per ncsnpplarge forward on each predict run
+PER_FORWARD = {
+    "float32": {"channel_sums": 106, "gn_apply": 106, "fused_skip_add": 34, "qconv3x3_fused": 0},
+    "int8_bfloat16": {"channel_sums": 106, "gn_apply": 20, "fused_skip_add": 34,
+                      "qconv3x3_fused": 86},
+}
 
 
 def phase(phase_name, **fields):
@@ -106,13 +132,14 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     results = kernel_phases(torch, dev)
+    runs = {label: {name: None for name in results} for label in PER_FORWARD}
     if not args.kernels:
         forward_phase(torch, dev)
-        launches = predict_phase(torch, dev)
+        int8_forward_phase(torch, dev)
+        runs = {"float32": predict_phase(torch, dev, "float32", ()),
+                "int8_bfloat16": predict_phase(torch, dev, "int8_bfloat16", INT8_PREDICT_ARGS)}
         if args.profile:
             profile_phase(torch, dev)
-    else:
-        launches = {name: None for name in results}
 
     line = []
     for name, cases in results.items():
@@ -120,7 +147,9 @@ def main():
         entry = {k: main_case[k] for k in (
             "name", "route", "source", "replaces", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "shape", "dtype")}
-        entry["launches"] = launches[name]
+        # the count of the predict run whose path the kernel is on (K3: int8)
+        entry["launches"] = runs["int8_bfloat16" if name == "qconv3x3_fused" else "float32"][name]
+        entry["launches_per_run"] = {label: counts[name] for label, counts in runs.items()}
         entry["cases"] = [{k: c[k] for k in (
             "shape", "dtype", "max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")} for c in cases]
@@ -244,7 +273,80 @@ def kernel_phases(torch, dev):
                                if k not in ("route", "source", "replaces")})
             del x, h, out, ref
     torch.cuda.empty_cache()
+    results["qconv3x3_fused"] = qconv_phase(torch, dev, gen)
     return results
+
+
+def qconv_phase(torch, dev, gen):
+    """K3 against its plain version at the int8 predict path's shapes, fp32
+    and bf16 input (output in the same dtype), with GroupNorm affine, SiLU
+    and bias; and a control broken on purpose (x zero-padded before the
+    affine, so act(off) leaks into the edges) that the same check must
+    reject. fp32 tolerance: max |err| <= 4 quanta of the largest output
+    channel (4 * 127 * max sw) with at most 1e-3 of the outputs off by more
+    than 1e-6 * max|ref| (a quantum flipped by a last-bit difference of the
+    sigmoid); bf16: one bf16 ulp of max|ref|."""
+    import torch.nn.functional as F
+
+    from use_tpu_torch.ops import fused_qconv as fq
+
+    def judge(out, ref, tol):
+        diff = (out.float() - ref.float()).abs()
+        top = float(ref.float().abs().max())
+        flips = int((diff > 1e-6 * top).sum())
+        err = float(diff.max())
+        return err, flips, flips / diff.numel(), (err <= tol and flips / diff.numel() <= 1e-3)
+
+    cases = []
+    for dtype_name in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype_name)
+        for shape in QCONV_SHAPES:
+            b, c, o, hh, ww = shape
+            x = (torch.randn((b, c, hh, ww), generator=gen, device=dev) + 0.5).to(dt)
+            w = (torch.randn((o, c, 3, 3), generator=gen, device=dev) / math.sqrt(9 * c)).to(dt)
+            scale = 1.0 + 0.1 * torch.randn((c,), generator=gen, device=dev)
+            shift = 0.1 * torch.randn((c,), generator=gen, device=dev)
+            u = (shift.abs() + 6.0 * scale.abs()) / 127.0 + 1e-12  # GroupNormAct's k-sigma scale
+            a = 1.0 + 0.2 * torch.randn((b, c), generator=gen, device=dev)
+            off = 0.1 * torch.randn((b, c), generator=gen, device=dev)
+            bias = 0.05 * torch.randn((o,), generator=gen, device=dev)
+            args = (x, w, u, a, off, True, bias, dt)
+            out = fq.qconv3x3_fused(*args)
+            ref = fq.qconv3x3_fused_plain(*args)
+            ctrl = fq.qconv3x3_edge_leak_plain(*args)
+            torch.cuda.synchronize()
+            top = max(1.0, float(ref.float().abs().max()))
+            if dtype_name == "float32":
+                tol = 4 * 127 * float(fq.quantize_weight_folded(w, u)[1].max())
+            else:
+                tol = 2.0 ** -7 * top
+            err, flips, share, ok = judge(out, ref, tol)
+            ctrl_err, _, ctrl_share, ctrl_ok = judge(ctrl, ref, tol)
+            if not ok:
+                raise AssertionError(f"qconv3x3_fused {shape} {dtype_name}: max_abs_err {err} "
+                                     f"(tol {tol}), {flips} outputs off ({share:.2e} > 1e-3)")
+            if ctrl_ok:
+                raise AssertionError(f"qconv3x3_fused {shape} {dtype_name}: the edge-leak control "
+                                     f"passes (err {ctrl_err}, share {ctrl_share:.2e})")
+            esz = x.element_size()
+            nbytes = (x.numel() + out.numel() + w.numel()) * esz + (2 * b * c + 2 * c + 2 * o) * 4
+            bms, by = bound(nbytes, 2 * 9 * b * hh * ww * c * o, "int8")
+            act_x = F.silu(x.float() * a[:, :, None, None] + off[:, :, None, None]).to(dt)
+            bias_dt = bias.to(dt)
+            cases.append(dict(
+                name="qconv3x3_fused", route="cuda", source="use_tpu_torch/csrc/fused_qconv.cu",
+                replaces="use_tpu/ops/pallas_qconv.py:186", shape=list(shape), dtype=dtype_name,
+                max_abs_err=err, tol=tol, flips=flips, flip_share=share,
+                control_max_abs_err=ctrl_err, control_share=ctrl_share,
+                ms=time_ms(torch, lambda: fq.qconv3x3_fused(*args)),
+                plain_ms=time_ms(torch, lambda: fq.qconv3x3_fused_plain(*args), reps=3, warmup=1),
+                library_ms=time_ms(torch, lambda: F.conv2d(act_x, w, bias_dt, padding=1)),
+                bound_ms=bms, bound_by=by))
+            phase("kernel", **{k: v for k, v in cases[-1].items()
+                               if k not in ("route", "source", "replaces")})
+            del x, out, ref, ctrl, act_x
+    torch.cuda.empty_cache()
+    return cases
 
 
 def check(name, shape, dtype, err, tol):
@@ -355,7 +457,79 @@ def forward_phase(torch, dev):
     torch.cuda.empty_cache()
 
 
-def predict_phase(torch, dev):
+@contextlib.contextmanager
+def swap_qconv(name):
+    """fused_qconv.<name> (a plain version) in place of K3's kernel; K1 and
+    K2 stay kernels."""
+    from use_tpu_torch.ops import fused_qconv
+
+    real = fused_qconv.qconv3x3_fused
+    fused_qconv.qconv3x3_fused = getattr(fused_qconv, name)
+    try:
+        yield
+    finally:
+        fused_qconv.qconv3x3_fused = real
+
+
+def int8_forward_phase(torch, dev):
+    """Full-width int8 ncsnpplarge (quant='int8_pallas') at the chunked
+    predict shape, fp32 and bf16 compute, for INT8_SEEDS: the card with K3
+    against the card with K3's plain version, within INT8_REL_TOL of
+    max|plain|, and the edge-leak control, which must exceed it; beside it,
+    as readings and not gates, the same check between two runs with the
+    kernel, the int8 output's relative L2 distance to the fp32 network
+    without quantization, and the forward's time with K3."""
+    from use_tpu_torch.models import BackboneRegistry
+
+    gen = torch.Generator().manual_seed(0)
+    x = (0.5 * torch.randn(FORWARD_SHAPE, generator=gen)).to(dev)
+    t = torch.linspace(0.1, 0.9, FORWARD_SHAPE[0]).to(dev)
+    fnet = BackboneRegistry.get_by_name(FORWARD_BACKBONE)(input_channels=4).to(dev)
+    with torch.inference_mode():
+        for dtype in ("float32", "bfloat16"):
+            qnet = BackboneRegistry.get_by_name(FORWARD_BACKBONE)(
+                input_channels=4, dtype=dtype, quant="int8_pallas").to(dev)
+            readings, control = [], None
+            for seed in INT8_SEEDS:
+                _randomize(torch, fnet, seed=seed)
+                qnet.load_state_dict(fnet.state_dict())
+                ref32 = fnet(x, t)
+                out = qnet(x, t)
+                again = qnet(x, t)
+                with swap_qconv("qconv3x3_fused_plain"):
+                    plain = qnet(x, t)
+                torch.cuda.synchronize()
+                if not torch.isfinite(out).all():
+                    raise AssertionError(f"int8 forward {dtype} seed {seed}: non-finite output")
+                top = float(plain.abs().max())
+                readings.append(dict(
+                    seed=seed, max_rel_err=float((out - plain).abs().max()) / top,
+                    repeat_max_rel_err=float((again - out).abs().max()) / top,
+                    rel_l2_vs_fp32=float((out - ref32).norm() / ref32.norm())))
+                if control is None:
+                    with swap_qconv("qconv3x3_edge_leak_plain"):
+                        control = float((qnet(x, t) - plain).abs().max()) / top
+            ms = time_ms(torch, lambda: qnet(x, t), reps=3, warmup=1)
+            phase("int8_forward", backbone=FORWARD_BACKBONE, shape=list(FORWARD_SHAPE), dtype=dtype,
+                  quant="int8_pallas", against="K3's plain version on the card",
+                  tol=INT8_REL_TOL, readings=readings, control="edge mask removed",
+                  control_max_rel_err=control, ms=ms)
+            worst = max(r["max_rel_err"] for r in readings)
+            if not worst <= INT8_REL_TOL:
+                raise AssertionError(f"int8 forward {dtype}: max_rel_err {worst} > "
+                                     f"tol {INT8_REL_TOL}")
+            if not control > INT8_REL_TOL:
+                raise AssertionError(f"int8 forward {dtype}: control {control} passes "
+                                     f"tol {INT8_REL_TOL}")
+            del qnet
+    del fnet
+    torch.cuda.empty_cache()
+
+
+def predict_phase(torch, dev, label, extra_args):
+    """The CLI's predict on two synthetic clips with `extra_args`; checks the
+    outputs and that each kernel launched exactly PER_FORWARD[label] times a
+    forward (one forward a sampler step and file)."""
     from use_tpu_torch import ops
     from use_tpu_torch.cli.main import main as cli_main
     from use_tpu_torch.data.audio_io import read_wav, write_wav
@@ -374,7 +548,7 @@ def predict_phase(torch, dev):
         t0 = time.perf_counter()
         summary = cli_main(["predict", f"experiment={PREDICT_EXPERIMENT}",
                             f"predict.data_folder={src}", f"predict.target_folder={dst}",
-                            f"infer.N={PREDICT_N}", f"device={dev}"])
+                            f"infer.N={PREDICT_N}", f"device={dev}", *extra_args])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = ops.launch_counts()
@@ -384,21 +558,25 @@ def predict_phase(torch, dev):
                 raise AssertionError(f"predict output {rel}: sr {got_sr}, shape {data.shape}")
         if summary["files"] != len(lengths):
             raise AssertionError(f"predict wrote {summary['files']} files")
-    missing = [k for k, v in counts.items() if v == 0]
-    if missing:
-        raise AssertionError(f"kernels not launched on the predict path: {missing}")
-    phase("predict", experiment=PREDICT_EXPERIMENT, N=PREDICT_N, clips_s=list(PREDICT_CLIPS_S),
-          tf32=bool(torch.backends.cudnn.allow_tf32), files=summary["files"],
-          audio_seconds=summary["audio_seconds"], sampling_seconds=summary["seconds"],
-          wall_seconds=wall, audio_s_per_s=summary["audio_seconds"] / summary["seconds"],
-          launches=counts)
+    forwards = len(lengths) * PREDICT_N
+    want = {k: v * forwards for k, v in PER_FORWARD[label].items()}
+    if counts != want:
+        raise AssertionError(f"predict {label}: kernel launches {counts}, expected {want} "
+                             f"({PER_FORWARD[label]} x {forwards} forwards)")
+    phase("predict", run=label, experiment=PREDICT_EXPERIMENT, args=list(extra_args), N=PREDICT_N,
+          clips_s=list(PREDICT_CLIPS_S), tf32=bool(torch.backends.cudnn.allow_tf32),
+          files=summary["files"], audio_seconds=summary["audio_seconds"],
+          sampling_seconds=summary["seconds"], wall_seconds=wall,
+          audio_s_per_s=summary["audio_seconds"] / summary["seconds"], launches=counts)
     return counts
 
 
 def profile_phase(torch, dev):
     """One full-width forward at the chunked predict shape (8 lanes of a 6 s
-    clip): wall ms in fp32 and bf16 (median of 5, CUDA events), the device's
-    busy share of one profiled fp32 forward, and its kernel time by name."""
+    clip): wall ms in fp32 and bf16 (median of 5, CUDA events); then for the
+    fp32 forward and the int8 bf16 serving forward, the device's busy share
+    of one profiled forward and its kernel time by name."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from use_tpu_torch.models import BackboneRegistry
@@ -411,23 +589,23 @@ def profile_phase(torch, dev):
             net = BackboneRegistry.get_by_name("ncsnpplarge")(input_channels=4, dtype=dtype).to(dev)
             phase("forward_timing", shape=list(shape), dtype=dtype, tf32=False,
                   ms=time_ms(torch, lambda: net(x, t), reps=5, warmup=2))
-        net = BackboneRegistry.get_by_name("ncsnpplarge")(input_channels=4).to(dev)
-        net(x, t)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
+        for dtype, quant in (("float32", "none"), ("bfloat16", "int8_pallas")):
+            net = BackboneRegistry.get_by_name("ncsnpplarge")(
+                input_channels=4, dtype=dtype, quant=quant).to(dev)
             net(x, t)
             torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-    events = prof.key_averages()
-    key = "device_time_total" if hasattr(events[0], "device_time_total") else "cuda_time_total"
-    from torch.autograd import DeviceType
-
-    kernel_ms = sum(getattr(e, "self_" + key) for e in events
-                    if e.device_type == DeviceType.CUDA) / 1e3
-    phase("profile", shape=list(shape), dtype="float32", wall_ms=wall_ms,
-          kernel_ms=kernel_ms, busy_share=kernel_ms / wall_ms)
-    print(events.table(sort_by=key, row_limit=30))
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                net(x, t)
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            events = prof.key_averages()
+            key = "device_time_total" if hasattr(events[0], "device_time_total") else "cuda_time_total"
+            kernel_ms = sum(getattr(e, "self_" + key) for e in events
+                            if e.device_type == DeviceType.CUDA) / 1e3
+            phase("profile", shape=list(shape), dtype=dtype, quant=quant, wall_ms=wall_ms,
+                  kernel_ms=kernel_ms, busy_share=kernel_ms / wall_ms)
+            print(events.table(sort_by="self_" + key, row_limit=30))
 
 
 if __name__ == "__main__":

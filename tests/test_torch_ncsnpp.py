@@ -138,7 +138,10 @@ def test_converter_round_trips_through_use_tpu():
 
 
 def test_config_keys_quant_raises_and_remat_is_accepted():
-    with pytest.raises(NotImplementedError, match="K3"):
-        TNCSNpp(TConfig(**TINY, quant="int8_pallas"))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TNCSNpp(TConfig(**TINY, quant="int8"))
     net = TNCSNpp(TConfig(**TINY, remat=True, remat_policy="conv_outs"))
     assert sum(p.numel() for p in net.parameters()) > 0
+    qnet = TNCSNpp(TConfig(**TINY, quant="int8_pallas", quant_min_channels=16))
+    assert any(isinstance(m, tl.FusedQConv3x3) for m in qnet.modules())
+    assert qnet.state_dict().keys() == net.state_dict().keys()

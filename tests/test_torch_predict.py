@@ -60,6 +60,29 @@ def test_predict_loads_state_dict_checkpoint(wav_tree):
         _predict(wav_tree, "out_bad", f"ckpt_path={bad}")
 
 
+def test_predict_int8_serving_quantizes_bf16_weights(wav_tree, monkeypatch):
+    """`model.backbone_kwargs.*` reach the backbone: the int8 serving path
+    runs its fused convs on bf16 activations, with the weights cast to bf16
+    before they are quantized (as use_tpu's cast_params_for_inference)."""
+    from use_tpu_torch.ops import fused_qconv
+
+    seen = []
+    real = fused_qconv.qconv3x3_fused
+
+    def record(x, weight, u, *args, **kw):
+        seen.append((x.dtype, weight.dtype, kw["out_dtype"]))
+        return real(x, weight, u, *args, **kw)
+
+    monkeypatch.setattr(fused_qconv, "qconv3x3_fused", record)
+    summary = _predict(wav_tree, "out_int8", "infer.N=1", "model.backbone_kwargs.quant=int8_pallas",
+                       "model.backbone_kwargs.dtype=bfloat16",
+                       "model.backbone_kwargs.quant_min_channels=96")
+    assert summary["files"] == len(FILES)
+    for rel, (data, sr) in _read(wav_tree, "out_int8").items():
+        assert sr == SR and data.shape == (FILES[rel],) and np.isfinite(data).all()
+    assert seen and set(seen) == {(torch.bfloat16, torch.bfloat16, torch.bfloat16)}
+
+
 @pytest.mark.parametrize("argv", [
     ["train", "experiment=SGMSE_debug"],
     ["predict", "experiment=SGMSE_debug", "predict.chain=gan+sgmse"],

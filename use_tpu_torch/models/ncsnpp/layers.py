@@ -14,9 +14,9 @@ weight/bias, NIN and GFP ``W``/``b``. Submodule names match the reference
 Compute dtype: every conv / dense / NIN layer has a compute ``dtype`` and
 casts its input and its parameters to it at use, as Flax's ``dtype=`` does;
 ``ScoreModel.cast_params_for_inference`` pre-casts the weights once. The
-GroupNorm statistics are always fp32 (ops/gn_stats.py). Two layers run the
-hand-written kernels: ``GroupNormAct`` (K1) and the ``Conv_2`` shortcut of
-``ResnetBlockBigGANpp`` (K2).
+GroupNorm statistics are always fp32 (ops/gn_stats.py). Three layers run the
+hand-written kernels: ``GroupNormAct`` (K1), the ``Conv_2`` shortcut of
+``ResnetBlockBigGANpp`` (K2) and, under int8 serving, ``FusedQConv3x3`` (K3).
 """
 from __future__ import annotations
 
@@ -28,8 +28,10 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from use_tpu_torch.ops import fused_qconv
+from use_tpu_torch.ops.fused_qconv import true_div
 from use_tpu_torch.ops.fused_skip import fused_skip_add
-from use_tpu_torch.ops.gn_stats import group_norm_act, num_groups
+from use_tpu_torch.ops.gn_stats import channel_sums, fold_scale_shift, group_norm_act, num_groups
 from use_tpu_torch.ops.upfirdn2d import (
     downsample_2d,
     naive_downsample_2d,
@@ -86,6 +88,22 @@ class Conv2d(nn.Module):
         return F.conv2d(x.to(self.dtype), self.weight.to(self.dtype), b, padding=self.padding)
 
 
+class FusedQConv3x3(Conv2d):
+    """3x3 conv with the GroupNorm apply + SiLU + int8 quantize fused into
+    its operand read: the port of use_tpu's ``PallasQConv3x3``
+    (layers.py:124-149), kernel K3 on the card (ops/fused_qconv.py).
+
+    Holds ``weight`` (OIHW) and ``bias`` as ``Conv2d`` does, so fp32, bf16
+    and int8 serving share state dicts. Takes the raw activation and the
+    ``(a, off, u)`` of ``GroupNormAct(quant='fold')``; SiLU is hard-wired, the
+    output is in the compute dtype. Serving only."""
+
+    def forward(self, x: torch.Tensor, gn_scale: torch.Tensor, gn_shift: torch.Tensor,
+                u: torch.Tensor) -> torch.Tensor:
+        return fused_qconv.qconv3x3_fused(x.contiguous(), self.weight, u, gn_scale, gn_shift,
+                                          act=True, bias=self.bias, out_dtype=self.dtype)
+
+
 class Linear(nn.Module):
     """Dense layer with DDPM init; [out, in] weight."""
 
@@ -113,17 +131,28 @@ class GroupNormAct(nn.Module):
     fp32 one-pass statistics, var = max(E[x^2] - E[x]^2, 0), and an apply
     pass ``act(x * a + off)`` with the statistics and affine folded into
     per-(batch, channel) a/off, written in ``out_dtype``. Both passes are
-    kernel K1 on the card (ops/gn_stats.py). Only quant='none' is ported.
+    kernel K1 on the card (ops/gn_stats.py).
+
+    ``quant='fold'`` (int8 serving, layers.py:237-249) runs the statistics
+    pass only and returns ``(a [B, C], off [B, C], u [C])``, all fp32, for
+    ``FusedQConv3x3`` to apply in its operand read; u is the analytic
+    k-sigma activation scale (|bias| + quant_k |weight|) / 127 + 1e-12.
+    The non-Pallas modes 'out' / 'scale' are not ported.
     """
 
     def __init__(self, channels: int, act: Optional[str] = None,
-                 out_dtype: torch.dtype = torch.float32, eps: float = 1e-6):
+                 out_dtype: torch.dtype = torch.float32, eps: float = 1e-6,
+                 quant: str = "none", quant_k: float = 6.0):
         super().__init__()
+        if quant not in ("none", "fold"):
+            raise NotImplementedError(f"GroupNormAct quant={quant!r} (ported: 'none', 'fold')")
         self.channels = channels
         self.groups = num_groups(channels)
         self.act = act
         self.out_dtype = out_dtype
         self.eps = eps
+        self.quant = quant
+        self.quant_k = quant_k
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
@@ -131,11 +160,20 @@ class GroupNormAct(nn.Module):
         nn.init.ones_(self.weight)
         nn.init.zeros_(self.bias)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor):
         if x.shape[1] != self.channels:
             raise ValueError(f"GroupNormAct({self.channels}) got input {tuple(x.shape)}")
-        return group_norm_act(x, self.weight, self.bias, self.groups, self.act,
-                              self.out_dtype, self.eps)
+        if self.quant == "none":
+            return group_norm_act(x, self.weight, self.bias, self.groups, self.act,
+                                  self.out_dtype, self.eps)
+        b, c = x.shape[:2]
+        x3 = x.reshape(b, c, -1)
+        sums, sumsq = channel_sums(x3)
+        a, off = fold_scale_shift(sums, sumsq, self.weight, self.bias, self.groups, x3.shape[2],
+                                  self.eps)
+        u = true_div(self.bias.float().abs() + self.quant_k * self.weight.float().abs(),
+                     127.0) + 1e-12
+        return a, off, u
 
 
 class GaussianFourierProjection(nn.Module):
@@ -273,23 +311,40 @@ class ResnetBlockBigGANpp(nn.Module):
 
     When the block changes its channel count or resamples, its 1x1 ``Conv_2``
     shortcut, the residual add and the skip rescale run as kernel K2
-    (ops/fused_skip.py)."""
+    (ops/fused_skip.py).
+
+    ``quant='int8_pallas'`` (int8 serving) gates each 3x3 conv as use_tpu
+    does (layers.py:516-526): ``Conv_0`` when the block does not resample,
+    its activation is SiLU and min(in, out) >= quant_min_channels; ``Conv_1``
+    when SiLU and out >= quant_min_channels. A gated conv is a
+    ``FusedQConv3x3`` (kernel K3) fed by ``GroupNormAct(quant='fold')``, and
+    dropout drops out of the ``Conv_1`` path (serving only)."""
 
     def __init__(self, act: str, in_ch: int, out_ch: Optional[int] = None, up: bool = False,
                  down: bool = False, dropout: float = 0.1, fir: bool = False,
                  fir_kernel: Tuple[float, ...] = (1.0, 3.0, 3.0, 1.0), skip_rescale: bool = True,
                  init_scale: float = 0.0, temb_dim: Optional[int] = None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, quant: str = "none",
+                 quant_min_channels: int = 128, quant_k: float = 6.0):
         super().__init__()
+        if quant not in ("none", "int8_pallas"):
+            raise NotImplementedError(f"quant={quant!r} is not ported yet (ROADMAP queue 1); "
+                                      "ported: 'none' and 'int8_pallas'")
         out_ch = out_ch if out_ch is not None else in_ch
         self.act = get_act(act)
         self.up, self.down, self.fir = up, down, fir
         self.fir_kernel = tuple(fir_kernel)
-        self.GroupNorm_0 = GroupNormAct(in_ch, act=act, out_dtype=dtype)
-        self.Conv_0 = Conv2d(in_ch, out_ch, dtype=dtype)
+        q = quant == "int8_pallas" and act == "swish"
+        self.qp0 = q and not (up or down) and min(in_ch, out_ch) >= quant_min_channels
+        self.qp1 = q and out_ch >= quant_min_channels
+        self.GroupNorm_0 = GroupNormAct(in_ch, act=act, out_dtype=dtype,
+                                        quant="fold" if self.qp0 else "none", quant_k=quant_k)
+        self.Conv_0 = (FusedQConv3x3 if self.qp0 else Conv2d)(in_ch, out_ch, dtype=dtype)
         self.Dense_0 = Linear(temb_dim, out_ch, dtype=dtype) if temb_dim is not None else None
-        self.GroupNorm_1 = GroupNormAct(out_ch, act=act, out_dtype=dtype)
-        self.Conv_1 = Conv2d(out_ch, out_ch, init_scale=init_scale, dtype=dtype)
+        self.GroupNorm_1 = GroupNormAct(out_ch, act=act, out_dtype=dtype,
+                                        quant="fold" if self.qp1 else "none", quant_k=quant_k)
+        self.Conv_1 = (FusedQConv3x3 if self.qp1 else Conv2d)(out_ch, out_ch,
+                                                              init_scale=init_scale, dtype=dtype)
         self.Conv_2 = (
             Conv2d(in_ch, out_ch, kernel=1, dtype=dtype) if (in_ch != out_ch or up or down) else None
         )
@@ -305,14 +360,19 @@ class ResnetBlockBigGANpp(nn.Module):
         return x
 
     def forward(self, x: torch.Tensor, temb: Optional[torch.Tensor] = None) -> torch.Tensor:
-        h = self._resample(self.GroupNorm_0(x))
-        x = self._resample(x)
-        h = self.Conv_0(h)
+        if self.qp0:  # no resampling on this path
+            h = self.Conv_0(x, *self.GroupNorm_0(x))
+        else:
+            h = self.Conv_0(self._resample(self.GroupNorm_0(x)))
+            x = self._resample(x)
         if temb is not None and self.Dense_0 is not None:
             h = h + self.Dense_0(self.act(temb))[:, :, None, None]
-        h = self.GroupNorm_1(h)
-        h = F.dropout(h, self.dropout, training=self.training)
-        h = self.Conv_1(h)
+        if self.qp1:
+            h = self.Conv_1(h, *self.GroupNorm_1(h))
+        else:
+            h = self.GroupNorm_1(h)
+            h = F.dropout(h, self.dropout, training=self.training)
+            h = self.Conv_1(h)
         scale = _SKIP_SCALE if self.skip_rescale else 1.0
         if self.Conv_2 is not None:
             conv = self.Conv_2

@@ -59,9 +59,11 @@ class NCSNppConfig:
     discriminative: bool = False
     dtype: str = "float32"  # compute dtype of convs/matmuls ('bfloat16' for
     # serving); parameters and GroupNorm statistics stay float32
-    quant: str = "none"  # only 'none' is ported (int8 waits for kernel K3)
-    quant_min_channels: int = 128
-    quant_k: float = 6.0
+    quant: str = "none"  # 'int8_pallas': int8 serving, the BigGAN blocks' 3x3
+    # convs run kernel K3 with the GroupNorm apply + SiLU + quantize fused in
+    # (ops/fused_qconv.py); 'int8' (no Pallas kernel in use_tpu) is not ported
+    quant_min_channels: int = 128  # gate: only convs this wide quantize
+    quant_k: float = 6.0  # k-sigma analytic activation range (GroupNormAct)
     remat: bool = False  # training concern; accepted and ignored at inference
     remat_policy: str = "full"
 
@@ -84,11 +86,6 @@ class NCSNpp(nn.Module):
     def __init__(self, cfg: NCSNppConfig = NCSNppConfig(), seed: int = 0):
         super().__init__()
         cfg = cfg.resolve()
-        if cfg.quant != "none":
-            raise NotImplementedError(
-                f"quant={cfg.quant!r}: the int8 paths wait for kernel K3 "
-                "(qconv3x3_fused, ROADMAP queue 2); only quant='none' is ported"
-            )
         if cfg.embedding_type != "fourier":
             raise NotImplementedError("only fourier embedding supported")
         if cfg.resblock_type != "biggan":
@@ -117,7 +114,8 @@ class NCSNpp(nn.Module):
             return layers.ResnetBlockBigGANpp(
                 act=act, in_ch=in_ch, out_ch=out_ch, up=up, down=down, dropout=cfg.dropout,
                 fir=cfg.fir, fir_kernel=cfg.fir_kernel, skip_rescale=cfg.skip_rescale,
-                init_scale=cfg.init_scale, temb_dim=nf * 4, dtype=cdtype,
+                init_scale=cfg.init_scale, temb_dim=nf * 4, dtype=cdtype, quant=cfg.quant,
+                quant_min_channels=cfg.quant_min_channels, quant_k=cfg.quant_k,
             )
 
         def attn(ch):

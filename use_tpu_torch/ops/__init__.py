@@ -3,6 +3,7 @@
 ``KERNEL_WRAPPERS`` lists every wrapper that launches a hand-written CUDA
 kernel; each carries an integer ``launches`` count.
 """
+from use_tpu_torch.ops.fused_qconv import qconv3x3_fused
 from use_tpu_torch.ops.fused_skip import fused_skip_add
 from use_tpu_torch.ops.gn_stats import channel_sums, gn_apply
 from use_tpu_torch.ops.stft import (
@@ -15,7 +16,7 @@ from use_tpu_torch.ops.stft import (
     stft,
 )
 
-KERNEL_WRAPPERS = (channel_sums, gn_apply, fused_skip_add)
+KERNEL_WRAPPERS = (channel_sums, gn_apply, fused_skip_add, qconv3x3_fused)
 
 
 def reset_launch_counts() -> None:
@@ -38,6 +39,7 @@ __all__ = [
     "channel_sums",
     "gn_apply",
     "fused_skip_add",
+    "qconv3x3_fused",
     "KERNEL_WRAPPERS",
     "reset_launch_counts",
     "launch_counts",
