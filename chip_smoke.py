@@ -12,8 +12,12 @@ Phases, one line each (any failure raises and exits non-zero):
      card at main-path shapes, fp32 and bf16, with the stated tolerance; its
      time (median of CUDA-event timings), the plain version's, one PyTorch
      library call's, and the bound (bytes at 3.35 TB/s or operations at the
-     dtype's peak, whichever is larger). K3 (the int8 conv) also checks that
-     a control broken on purpose (no edge mask) fails its tolerance;
+     dtype's peak, whichever is larger). K3 (the int8 conv) is timed on
+     weights prepared once (`prep_ms` times the preparation), in each of its
+     tiles, also checked at a ragged shape, and a control broken on
+     purpose (no edge mask) must fail its tolerance; the branch-free
+     reciprocal of its SiLU is checked against IEEE 1/d at every float of
+     [1, 2^126), the range it is used on;
   4. forward: full-width ncsnpplarge with seeded random weights on
      [8, 512, 192, 4] (the predict path's 8 chunk lanes, one t each), the
      card (kernels) against the CPU (plain versions), TF32 off; and its bf16
@@ -64,7 +68,10 @@ QCONV_SHAPES = [  # (B, C, O, H, W): int8 predict path, 8 lanes
     (8, 256, 128, 512, 192),  # full-resolution up-path Conv_0 (skip concat)
     (8, 512, 256, 128, 48),  # up-path Conv_0 at 128 x 48
     (8, 256, 256, 8, 3),  # the lowest level
+    (8, 128, 128, 256, 96),  # Conv_0 / Conv_1 at 256 x 96
+    (8, 256, 256, 64, 24),  # Conv_0 / Conv_1 at 64 x 24
 ]
+QCONV_RAGGED = (2, 36, 40, 5, 7)  # ragged channel chunk, O and pixel edges: checked, not timed
 FORWARD_BACKBONE, FORWARD_SHAPE = "ncsnpplarge", (8, 512, 192, 4)  # the 8 lanes of a 6 s clip
 BF16_SEEDS = (1, 2, 3)
 # bf16 forward against fp32, relative to max|fp32|: between the readings on
@@ -150,9 +157,11 @@ def main():
         # the count of the predict run whose path the kernel is on (K3: int8)
         entry["launches"] = runs["int8_bfloat16" if name == "qconv3x3_fused" else "float32"][name]
         entry["launches_per_run"] = {label: counts[name] for label, counts in runs.items()}
+        if "prep_ms" in main_case:
+            entry["prep_ms"] = main_case["prep_ms"]
         entry["cases"] = [{k: c[k] for k in (
             "shape", "dtype", "max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")} for c in cases]
+            "library_ms", "tile", "tile_ms", "prep_ms") if k in c} for c in cases]
         line.append(entry)
     print(json.dumps({"kernels": line}))
     print(smi)
@@ -280,12 +289,16 @@ def kernel_phases(torch, dev):
 def qconv_phase(torch, dev, gen):
     """K3 against its plain version at the int8 predict path's shapes, fp32
     and bf16 input (output in the same dtype), with GroupNorm affine, SiLU
-    and bias; and a control broken on purpose (x zero-padded before the
-    affine, so act(off) leaks into the edges) that the same check must
-    reject. fp32 tolerance: max |err| <= 4 quanta of the largest output
-    channel (4 * 127 * max sw) with at most 1e-3 of the outputs off by more
-    than 1e-6 * max|ref| (a quantum flipped by a last-bit difference of the
-    sigmoid); bf16: one bf16 ulp of max|ref|."""
+    and bias, in each of the kernel's tiles; and a control broken on
+    purpose (x zero-padded before the affine, so act(off) leaks into the
+    edges) that the same check must reject. fp32 tolerance: max |err| <= 4
+    quanta of the largest output channel (4 * 127 * max sw) with at most
+    1e-3 of the outputs off by more than 1e-6 * max|ref| (a quantum flipped
+    by a last-bit difference of the sigmoid); bf16: one bf16 ulp of max|ref|.
+    The kernel's time is on prepared weights (`ms`, with the tile the
+    wrapper picks; `tile_ms` with each of the kernel's tiles), and
+    `prep_ms` is the weight preparation alone. QCONV_RAGGED is checked, not
+    timed."""
     import torch.nn.functional as F
 
     from use_tpu_torch.ops import fused_qconv as fq
@@ -297,10 +310,14 @@ def qconv_phase(torch, dev, gen):
         err = float(diff.max())
         return err, flips, flips / diff.numel(), (err <= tol and flips / diff.numel() <= 1e-3)
 
+    mismatches = fq.rcp_mismatches(dev)
+    phase("kernel_check", name="rcp_newton", floats="[1, 2^126)", mismatches=mismatches)
+    if mismatches:
+        raise AssertionError(f"K3's reciprocal differs from IEEE 1/d at {mismatches} floats")
     cases = []
     for dtype_name in ("float32", "bfloat16"):
         dt = getattr(torch, dtype_name)
-        for shape in QCONV_SHAPES:
+        for shape in (*QCONV_SHAPES, QCONV_RAGGED):
             b, c, o, hh, ww = shape
             x = (torch.randn((b, c, hh, ww), generator=gen, device=dev) + 0.5).to(dt)
             w = (torch.randn((o, c, 3, 3), generator=gen, device=dev) / math.sqrt(9 * c)).to(dt)
@@ -311,7 +328,12 @@ def qconv_phase(torch, dev, gen):
             off = 0.1 * torch.randn((b, c), generator=gen, device=dev)
             bias = 0.05 * torch.randn((o,), generator=gen, device=dev)
             args = (x, w, u, a, off, True, bias, dt)
-            out = fq.qconv3x3_fused(*args)
+            prepared = fq.prepare_qconv_weight(w, u)
+            tile = fq.pick_tile(hh, ww, o)
+            run_args = (x, prepared, a, off, True, bias, dt)
+            out_tiles = {t: fq.qconv3x3_fused_prepared(*run_args, tile=t) for t in fq.TILES}
+            out = out_tiles[tile]
+            out_public = fq.qconv3x3_fused(*args)  # prepares, picks the tile, launches
             ref = fq.qconv3x3_fused_plain(*args)
             ctrl = fq.qconv3x3_edge_leak_plain(*args)
             torch.cuda.synchronize()
@@ -321,30 +343,46 @@ def qconv_phase(torch, dev, gen):
             else:
                 tol = 2.0 ** -7 * top
             err, flips, share, ok = judge(out, ref, tol)
+            tile_errs = {t: judge(v, ref, tol) for t, v in out_tiles.items()}
             ctrl_err, _, ctrl_share, ctrl_ok = judge(ctrl, ref, tol)
-            if not ok:
+            if not (ok and all(v[3] for v in tile_errs.values())):
+                by_tile = {t: v[:2] for t, v in tile_errs.items()}
                 raise AssertionError(f"qconv3x3_fused {shape} {dtype_name}: max_abs_err {err} "
-                                     f"(tol {tol}), {flips} outputs off ({share:.2e} > 1e-3)")
+                                     f"(tol {tol}), {flips} outputs off; (err, flips) by tile "
+                                     f"{by_tile}")
+            if not torch.equal(out_public, out):
+                raise AssertionError(f"qconv3x3_fused {shape} {dtype_name}: the public call "
+                                     "differs from the prepared one")
             if ctrl_ok:
                 raise AssertionError(f"qconv3x3_fused {shape} {dtype_name}: the edge-leak control "
                                      f"passes (err {ctrl_err}, share {ctrl_share:.2e})")
+            checked = dict(shape=list(shape), dtype=dtype_name, tile=tile, max_abs_err=err,
+                           tol=tol, flips=flips, flip_share=share,
+                           tile_max_abs_err={t: v[0] for t, v in tile_errs.items()},
+                           tile_flips={t: v[1] for t, v in tile_errs.items()},
+                           control_max_abs_err=ctrl_err, control_share=ctrl_share)
+            if shape == QCONV_RAGGED:
+                phase("kernel_check", name="qconv3x3_fused", **checked)
+                del x, out, out_tiles, out_public, ref, ctrl
+                continue
             esz = x.element_size()
-            nbytes = (x.numel() + out.numel() + w.numel()) * esz + (2 * b * c + 2 * c + 2 * o) * 4
+            nbytes = (x.numel() + out.numel()) * esz + prepared.qw.numel() + (2 * b * c + c + 2 * o) * 4
             bms, by = bound(nbytes, 2 * 9 * b * hh * ww * c * o, "int8")
             act_x = F.silu(x.float() * a[:, :, None, None] + off[:, :, None, None]).to(dt)
             bias_dt = bias.to(dt)
             cases.append(dict(
                 name="qconv3x3_fused", route="cuda", source="use_tpu_torch/csrc/fused_qconv.cu",
-                replaces="use_tpu/ops/pallas_qconv.py:186", shape=list(shape), dtype=dtype_name,
-                max_abs_err=err, tol=tol, flips=flips, flip_share=share,
-                control_max_abs_err=ctrl_err, control_share=ctrl_share,
-                ms=time_ms(torch, lambda: fq.qconv3x3_fused(*args)),
+                replaces="use_tpu/ops/pallas_qconv.py:186", **checked,
+                ms=time_ms(torch, lambda: fq.qconv3x3_fused_prepared(*run_args)),
+                tile_ms={t: time_ms(torch, lambda: fq.qconv3x3_fused_prepared(*run_args, tile=t))
+                         for t in fq.TILES},
+                prep_ms=time_ms(torch, lambda: fq.prepare_qconv_weight(w, u)),
                 plain_ms=time_ms(torch, lambda: fq.qconv3x3_fused_plain(*args), reps=3, warmup=1),
                 library_ms=time_ms(torch, lambda: F.conv2d(act_x, w, bias_dt, padding=1)),
                 bound_ms=bms, bound_by=by))
             phase("kernel", **{k: v for k, v in cases[-1].items()
                                if k not in ("route", "source", "replaces")})
-            del x, out, ref, ctrl, act_x
+            del x, out, out_tiles, out_public, ref, ctrl, act_x
     torch.cuda.empty_cache()
     return cases
 
@@ -464,9 +502,31 @@ def swap_qconv(name):
     from use_tpu_torch.ops import fused_qconv
 
     real = fused_qconv.qconv3x3_fused
-    fused_qconv.qconv3x3_fused = getattr(fused_qconv, name)
+    plain = getattr(fused_qconv, name)
+    # the plain version quantizes the weight itself: drop FusedQConv3x3's prepared weights
+    fused_qconv.qconv3x3_fused = lambda *args, prepared=None, **kw: plain(*args, **kw)
     try:
         yield
+    finally:
+        fused_qconv.qconv3x3_fused = real
+
+
+@contextlib.contextmanager
+def count_qconv_calls():
+    """Counts K3's calls by "HxW CtoO" while it is in effect."""
+    from use_tpu_torch.ops import fused_qconv
+
+    real = fused_qconv.qconv3x3_fused
+    counts = {}
+
+    def counting(x, weight, *args, **kw):
+        key = f"{x.shape[2]}x{x.shape[3]} {weight.shape[1]}to{weight.shape[0]}"
+        counts[key] = counts.get(key, 0) + 1
+        return real(x, weight, *args, **kw)
+
+    fused_qconv.qconv3x3_fused = counting
+    try:
+        yield counts
     finally:
         fused_qconv.qconv3x3_fused = real
 
@@ -478,23 +538,27 @@ def int8_forward_phase(torch, dev):
     max|plain|, and the edge-leak control, which must exceed it; beside it,
     as readings and not gates, the same check between two runs with the
     kernel, the int8 output's relative L2 distance to the fp32 network
-    without quantization, and the forward's time with K3."""
+    without quantization, the forward's time with K3 and K3's calls by
+    image size and channels."""
     from use_tpu_torch.models import BackboneRegistry
 
     gen = torch.Generator().manual_seed(0)
     x = (0.5 * torch.randn(FORWARD_SHAPE, generator=gen)).to(dev)
     t = torch.linspace(0.1, 0.9, FORWARD_SHAPE[0]).to(dev)
     fnet = BackboneRegistry.get_by_name(FORWARD_BACKBONE)(input_channels=4).to(dev)
-    with torch.inference_mode():
-        for dtype in ("float32", "bfloat16"):
-            qnet = BackboneRegistry.get_by_name(FORWARD_BACKBONE)(
-                input_channels=4, dtype=dtype, quant="int8_pallas").to(dev)
+    for dtype in ("float32", "bfloat16"):
+        # built outside inference mode, as the CLI builds it, so that its
+        # parameters count in-place updates and K3's prepared weights are kept
+        qnet = BackboneRegistry.get_by_name(FORWARD_BACKBONE)(
+            input_channels=4, dtype=dtype, quant="int8_pallas").to(dev)
+        with torch.inference_mode():
             readings, control = [], None
             for seed in INT8_SEEDS:
                 _randomize(torch, fnet, seed=seed)
                 qnet.load_state_dict(fnet.state_dict())
                 ref32 = fnet(x, t)
-                out = qnet(x, t)
+                with count_qconv_calls() as calls:
+                    out = qnet(x, t)
                 again = qnet(x, t)
                 with swap_qconv("qconv3x3_fused_plain"):
                     plain = qnet(x, t)
@@ -513,7 +577,8 @@ def int8_forward_phase(torch, dev):
             phase("int8_forward", backbone=FORWARD_BACKBONE, shape=list(FORWARD_SHAPE), dtype=dtype,
                   quant="int8_pallas", against="K3's plain version on the card",
                   tol=INT8_REL_TOL, readings=readings, control="edge mask removed",
-                  control_max_rel_err=control, ms=ms)
+                  control_max_rel_err=control, ms=ms,
+                  qconv_calls=dict(sorted(calls.items(), key=lambda kv: -int(kv[0].split("x")[0]))))
             worst = max(r["max_rel_err"] for r in readings)
             if not worst <= INT8_REL_TOL:
                 raise AssertionError(f"int8 forward {dtype}: max_rel_err {worst} > "
@@ -574,8 +639,11 @@ def predict_phase(torch, dev, label, extra_args):
 def profile_phase(torch, dev):
     """One full-width forward at the chunked predict shape (8 lanes of a 6 s
     clip): wall ms in fp32 and bf16 (median of 5, CUDA events); then for the
-    fp32 forward and the int8 bf16 serving forward, the device's busy share
-    of one profiled forward and its kernel time by name."""
+    fp32 forward and the int8 bf16 serving forward, the kernel time of one
+    profiled forward by name, against that forward's profiled wall time
+    (`busy_share`) and against the unprofiled wall time (`unprofiled_ms`,
+    median of 5, CUDA events; `unprofiled_busy_share`): the profiler's own
+    host overhead leaves the card idle in the profiled run."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -589,11 +657,12 @@ def profile_phase(torch, dev):
             net = BackboneRegistry.get_by_name("ncsnpplarge")(input_channels=4, dtype=dtype).to(dev)
             phase("forward_timing", shape=list(shape), dtype=dtype, tf32=False,
                   ms=time_ms(torch, lambda: net(x, t), reps=5, warmup=2))
-        for dtype, quant in (("float32", "none"), ("bfloat16", "int8_pallas")):
-            net = BackboneRegistry.get_by_name("ncsnpplarge")(
-                input_channels=4, dtype=dtype, quant=quant).to(dev)
-            net(x, t)
-            torch.cuda.synchronize()
+    for dtype, quant in (("float32", "none"), ("bfloat16", "int8_pallas")):
+        # built outside inference mode, so that K3's prepared weights are kept
+        net = BackboneRegistry.get_by_name("ncsnpplarge")(
+            input_channels=4, dtype=dtype, quant=quant).to(dev)
+        with torch.inference_mode():
+            unprofiled_ms = time_ms(torch, lambda: net(x, t), reps=5, warmup=2)
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
                 net(x, t)
@@ -604,7 +673,8 @@ def profile_phase(torch, dev):
             kernel_ms = sum(getattr(e, "self_" + key) for e in events
                             if e.device_type == DeviceType.CUDA) / 1e3
             phase("profile", shape=list(shape), dtype=dtype, quant=quant, wall_ms=wall_ms,
-                  kernel_ms=kernel_ms, busy_share=kernel_ms / wall_ms)
+                  kernel_ms=kernel_ms, busy_share=kernel_ms / wall_ms,
+                  unprofiled_ms=unprofiled_ms, unprofiled_busy_share=kernel_ms / unprofiled_ms)
             print(events.table(sort_by="self_" + key, row_limit=30))
 
 

@@ -75,6 +75,60 @@ def test_quantize_weight_folded_bit_equal_to_jax():
     np.testing.assert_array_equal(tqw.numpy().transpose(2, 3, 1, 0).reshape(9 * 128, 64),
                                   np.asarray(qw))
     np.testing.assert_array_equal(tsw.numpy(), np.asarray(sw))
+    _assert_kernel_layout(tq._weights_for_kernel(tqw), np.asarray(qw).reshape(9, 128, 64))
+
+
+def _assert_kernel_layout(wk, want):
+    """wk, the kernel's int8 [ceil(C / 32), 9, O, 32], unpacked by a naive
+    index loop, equals want [9, C, O] (use_tpu's HWIO order); zeros past C."""
+    taps, c, o = want.shape
+    wk = wk.numpy()
+    assert wk.dtype == np.int8 and wk.shape == (-(-c // 32), 9, o, 32)
+    got = np.full((9, c, o), 99, np.int8)
+    for k in range(wk.shape[0]):
+        for tap in range(9):
+            for oo in range(o):
+                for j in range(32):
+                    if 32 * k + j < c:
+                        got[tap, 32 * k + j, oo] = wk[k, tap, oo, j]
+                    else:
+                        assert wk[k, tap, oo, j] == 0
+    np.testing.assert_array_equal(got, want)
+
+
+def test_kernel_weight_layout_ragged_channels_bit_equal_to_jax():
+    rng = np.random.default_rng(1)
+    k = (rng.standard_normal((3, 3, 36, 40)) * 0.1).astype(np.float32)
+    u = (0.02 + 0.01 * rng.random(36)).astype(np.float32)
+    qw, _ = jq._quantize_weight_folded(jnp.asarray(k), jnp.asarray(u))
+    prepared = tq.prepare_qconv_weight(_hwio_to_oihw(k), _t(u))
+    _assert_kernel_layout(prepared.qw, np.asarray(qw).reshape(9, 36, 40))
+    tqw, _ = tq.quantize_weight_folded(_hwio_to_oihw(k), _t(u))
+    assert torch.equal(tq._weights_from_kernel(prepared.qw, 36), tqw)
+
+
+@pytest.mark.parametrize(
+    "B,C,O,H,W,affine,dtype,seed",
+    [(2, 128, 128, 8, 16, True, "float32", 11), (1, 36, 40, 5, 7, True, "float32", 12),
+     (2, 64, 32, 4, 6, False, "bfloat16", 13)],
+    ids=["fused_gn_act_bias", "ragged", "bf16_plain"],
+)
+def test_qconv3x3_prepared_equals_fused_and_plain(B, C, O, H, W, affine, dtype, seed):
+    x, k, u, a, o, bias = _op_inputs(B, H, W, C, O, seed, affine)
+    tx = nhwc_to_nchw(x).to(getattr(torch, dtype))
+    w, tu = _hwio_to_oihw(k), _t(u)
+    rest = (None if a is None else _t(a), None if o is None else _t(o), affine,
+            None if bias is None else _t(bias), getattr(torch, dtype))
+    prepared = tq.prepare_qconv_weight(w, tu)
+    assert prepared.qw.shape == (-(-C // 32), 9, O, 32) and prepared.sw.shape == (O,)
+    launches = tq.qconv3x3_fused.launches
+    got = tq.qconv3x3_fused_prepared(tx, prepared, *rest)
+    assert tq.qconv3x3_fused.launches == launches  # CPU tensors: the plain version
+    assert got.shape == (B, O, H, W) and got.dtype == getattr(torch, dtype)
+    torch.testing.assert_close(got, tq.qconv3x3_fused(tx, w, tu, *rest), rtol=0, atol=0)
+    torch.testing.assert_close(got, tq.qconv3x3_fused_plain(tx, w, tu, *rest), rtol=0, atol=0)
+    torch.testing.assert_close(got, tq.qconv3x3_fused(tx, w, tu, *rest, prepared=prepared),
+                               rtol=0, atol=0)
 
 
 @pytest.mark.parametrize(
@@ -214,3 +268,106 @@ def test_tiny_int8_ncsnpp_matches_jax(monkeypatch):
     rel = np.linalg.norm(got - want) / np.linalg.norm(want)
     assert rel <= MODEL_REL_L2, rel
     assert np.linalg.norm(got - fp32) / np.linalg.norm(fp32) > 1e-3  # the int8 path ran
+
+
+def _fold_and_conv(seed, c=16, o=24):
+    """GroupNormAct(quant='fold') feeding a FusedQConv3x3, parameters drawn
+    with numpy from a seed."""
+    rng = np.random.default_rng(seed)
+    gn = tl.GroupNormAct(c, act="swish", quant="fold")
+    conv = tl.FusedQConv3x3(c, o)
+    with torch.no_grad():
+        gn.weight.copy_(_t(1.0 + 0.1 * rng.standard_normal(c).astype(np.float32)))
+        gn.bias.copy_(_t(0.1 * rng.standard_normal(c).astype(np.float32)))
+        conv.weight.copy_(_t((rng.standard_normal((o, c, 3, 3)) / 12).astype(np.float32)))
+        conv.bias.copy_(_t(0.05 * rng.standard_normal(o).astype(np.float32)))
+    return gn, conv
+
+
+def _uncached(gn, conv, x):
+    a, off, u = gn(x)
+    return tq.qconv3x3_fused_plain(x, conv.weight, u.clone(), a, off, True, conv.bias, conv.dtype)
+
+
+def test_fused_qconv_module_prepares_its_weight_once(monkeypatch):
+    calls = []
+    real = tq.quantize_weight_folded
+
+    def counting(weight, u):
+        calls.append(tuple(weight.shape))
+        return real(weight, u)
+
+    gn, conv = _fold_and_conv(20)
+    x = nhwc_to_nchw(np.random.default_rng(21).standard_normal((2, 6, 10, 16)).astype(np.float32))
+    with torch.no_grad():
+        want = _uncached(gn, conv, x)
+        monkeypatch.setattr(tq, "quantize_weight_folded", counting)
+        outs = [conv(x, *gn(x)) for _ in range(3)]
+    assert len(calls) == 1  # the first forward only
+    assert gn(x)[2] is gn(x)[2]  # one u tensor while the affine holds
+    for out in outs:
+        torch.testing.assert_close(out, want, rtol=0, atol=0)
+
+
+def _set_conv_weight(gn, conv, seed):
+    with torch.no_grad():
+        conv.weight.copy_(_fold_and_conv(seed)[1].weight)
+
+
+def _load_conv_state(gn, conv, seed):
+    conv.load_state_dict(_fold_and_conv(seed)[1].state_dict())
+
+
+def _set_gn_affine(gn, conv, seed):
+    with torch.no_grad():
+        gn.weight.mul_(1.5)
+
+
+def _set_conv_bias(gn, conv, seed):
+    with torch.no_grad():
+        conv.bias.add_(0.25)
+
+
+def _cast_conv_weight(gn, conv, seed):
+    with torch.no_grad():
+        conv.weight.data = conv.weight.data.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize(
+    "change", [_load_conv_state, _set_conv_weight, _set_gn_affine, _set_conv_bias,
+               _cast_conv_weight],
+    ids=["load_state_dict", "weight_copy_", "gn_affine", "bias", "weight_cast"],
+)
+def test_fused_qconv_module_cache_rebuilds_after_a_change(monkeypatch, change):
+    calls = []
+    real = tq.quantize_weight_folded
+    monkeypatch.setattr(tq, "quantize_weight_folded",
+                        lambda weight, u: calls.append(1) or real(weight, u))
+    gn, conv = _fold_and_conv(30)
+    x = nhwc_to_nchw(np.random.default_rng(31).standard_normal((2, 6, 10, 16)).astype(np.float32))
+    with torch.no_grad():
+        before = conv(x, *gn(x))
+        change(gn, conv, 32)
+        n = len(calls)
+        after = conv(x, *gn(x))
+        assert len(calls) == n + 1  # quantized anew
+        again = conv(x, *gn(x))
+        assert len(calls) == n + 1
+        want = _uncached(gn, conv, x)
+    assert not torch.equal(after, before)
+    torch.testing.assert_close(after, want, rtol=0, atol=0)
+    torch.testing.assert_close(again, want, rtol=0, atol=0)
+
+
+def test_fused_qconv_module_built_in_inference_mode_follows_load_state_dict():
+    """Inference tensors count no in-place updates, so nothing made from
+    them is kept: a load_state_dict under inference mode still shows."""
+    src = [_fold_and_conv(seed) for seed in (40, 41)]
+    x = nhwc_to_nchw(np.random.default_rng(42).standard_normal((2, 6, 10, 16)).astype(np.float32))
+    with torch.inference_mode():
+        gn, conv = tl.GroupNormAct(16, act="swish", quant="fold"), tl.FusedQConv3x3(16, 24)
+        for sgn, sconv in src:
+            gn.load_state_dict(sgn.state_dict())
+            conv.load_state_dict(sconv.state_dict())
+            got = conv(x, *gn(x))
+            torch.testing.assert_close(got, _uncached(sgn, sconv, x), rtol=0, atol=0)

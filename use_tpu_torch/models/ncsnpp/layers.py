@@ -88,6 +88,16 @@ class Conv2d(nn.Module):
         return F.conv2d(x.to(self.dtype), self.weight.to(self.dtype), b, padding=self.padding)
 
 
+def _state(t: torch.Tensor) -> Optional[tuple]:
+    """What tells a tensor's values apart without reading them: its storage,
+    its count of in-place updates, dtype and device. None for an inference
+    tensor, whose in-place updates leave no trace: nothing made from one is
+    kept."""
+    if t.is_inference():
+        return None
+    return (t.data_ptr(), t._version, t.dtype, t.device)
+
+
 class FusedQConv3x3(Conv2d):
     """3x3 conv with the GroupNorm apply + SiLU + int8 quantize fused into
     its operand read: the port of use_tpu's ``PallasQConv3x3``
@@ -96,12 +106,36 @@ class FusedQConv3x3(Conv2d):
     Holds ``weight`` (OIHW) and ``bias`` as ``Conv2d`` does, so fp32, bf16
     and int8 serving share state dicts. Takes the raw activation and the
     ``(a, off, u)`` of ``GroupNormAct(quant='fold')``; SiLU is hard-wired, the
-    output is in the compute dtype. Serving only."""
+    output is in the compute dtype. Serving only.
+
+    The weight is quantized once and kept (with the fp32 bias) until the
+    weight, the bias or u change: a new storage, dtype or device, an
+    in-place update (``load_state_dict``, ``copy_``), or another u tensor.
+    The kept tensors pin the storages they were made from, so that a
+    storage address is not reused while it is a key. Parameters made under
+    ``torch.inference_mode`` count no updates, so they are quantized on
+    every call."""
+
+    _prepared = None  # (key, u, QConvWeights, fp32 bias, pinned parameters)
+
+    def _weights(self, u: torch.Tensor):
+        params = tuple(t for t in (self.weight, self.bias) if t is not None)
+        key = tuple(_state(t) for t in params)
+        kept = self._prepared
+        if kept is None or None in key or kept[0] != key or kept[1] is not u:
+            with torch.no_grad():
+                bias = None if self.bias is None else self.bias.float().contiguous()
+                kept = (key, u, fused_qconv.prepare_qconv_weight(self.weight, u), bias,
+                        tuple(t.detach() for t in params))
+            self._prepared = kept
+        return kept[2], kept[3]
 
     def forward(self, x: torch.Tensor, gn_scale: torch.Tensor, gn_shift: torch.Tensor,
                 u: torch.Tensor) -> torch.Tensor:
+        prepared, bias = self._weights(u)
         return fused_qconv.qconv3x3_fused(x.contiguous(), self.weight, u, gn_scale, gn_shift,
-                                          act=True, bias=self.bias, out_dtype=self.dtype)
+                                          act=True, bias=bias, out_dtype=self.dtype,
+                                          prepared=prepared)
 
 
 class Linear(nn.Module):
@@ -171,9 +205,20 @@ class GroupNormAct(nn.Module):
         sums, sumsq = channel_sums(x3)
         a, off = fold_scale_shift(sums, sumsq, self.weight, self.bias, self.groups, x3.shape[2],
                                   self.eps)
-        u = true_div(self.bias.float().abs() + self.quant_k * self.weight.float().abs(),
-                     127.0) + 1e-12
-        return a, off, u
+        return a, off, self._act_scale()
+
+    _u = None  # (key, pinned affine, u)
+
+    def _act_scale(self) -> torch.Tensor:
+        """u, kept as one tensor until the affine changes (``FusedQConv3x3``
+        keys its prepared weights on u)."""
+        key = (_state(self.weight), _state(self.bias))
+        if self._u is None or None in key or self._u[0] != key:
+            with torch.no_grad():
+                u = true_div(self.bias.float().abs() + self.quant_k * self.weight.float().abs(),
+                             127.0) + 1e-12
+            self._u = (key, (self.weight.detach(), self.bias.detach()), u)
+        return self._u[2]
 
 
 class GaussianFourierProjection(nn.Module):

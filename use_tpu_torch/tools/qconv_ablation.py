@@ -1,0 +1,119 @@
+#!/usr/bin/env python3
+"""Where K3's time goes: the kernel timed with one part left out, per tile.
+
+    python3 -m use_tpu_torch.tools.qconv_ablation
+
+Builds csrc/fused_qconv.cu four times with nvcc, in parallel, into
+use_tpu_torch/_build/ablation/: as shipped, and with -DQC_SKIP_PRODUCE
+(the quantized operand is not computed), -DQC_SKIP_MMA (no products) or
+-DQC_SKIP_WLOAD (the weights are not loaded). Then, at the int8 predict
+path's shapes in bf16, it times each build with each of the kernel's tiles
+(median of 20 CUDA-event timings after 3 warm-ups, one launch each) and
+prints one JSON line a shape and tile, then the card's name and power
+limit. Only the full build computes the conv; the others time what is
+left. Needs one GPU.
+"""
+from __future__ import annotations
+
+import ctypes
+import json
+import math
+import os
+import subprocess
+import sys
+
+import numpy as np
+
+VARIANTS = {
+    "full": [],
+    "no_produce": ["-DQC_SKIP_PRODUCE"],
+    "no_mma": ["-DQC_SKIP_MMA"],
+    "no_weight_load": ["-DQC_SKIP_WLOAD"],
+}
+SHAPES = [  # (B, C, O, H, W) of the int8 predict path, 8 lanes
+    (8, 128, 128, 512, 192), (8, 256, 128, 512, 192), (8, 128, 128, 256, 96),
+    (8, 512, 256, 128, 48), (8, 256, 256, 64, 24), (8, 512, 256, 32, 12),
+    (8, 256, 256, 16, 6), (8, 256, 256, 8, 3),
+]
+
+
+def build(cuda_build):
+    out_dir = os.path.join(cuda_build.BUILD_DIR, "ablation")
+    os.makedirs(out_dir, exist_ok=True)
+    procs = {}
+    for name, flags in VARIANTS.items():
+        lib = os.path.join(out_dir, f"fused_qconv_{name}.so")
+        cmd = [cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS, *flags, "-o", lib,
+               cuda_build.source_path("fused_qconv")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT), lib)
+    libs = {}
+    for name, (proc, lib) in procs.items():
+        log = proc.communicate()[0].decode(errors="replace")
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for the {name} build:\n{log}")
+        cdll = ctypes.CDLL(lib)
+        p, i32 = ctypes.c_void_p, ctypes.c_int
+        cdll.qconv3x3_fused.argtypes = [p, i32, p, p, p, p, p, p, p, i32, i32, i32, i32, i32, i32,
+                                        i32, i32, p]
+        cdll.qconv3x3_fused.restype = i32
+        libs[name] = cdll
+    return libs
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("qconv_ablation: needs one NVIDIA GPU", file=sys.stderr)
+        return 2
+    from use_tpu_torch.ops import cuda_build
+    from use_tpu_torch.ops import fused_qconv as fq
+
+    libs = build(cuda_build)
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def time_ms(fn, reps=20, warmup=3):
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return float(np.median(times))
+
+    for shape in SHAPES:
+        b, c, o, h, w = shape
+        x = (torch.randn((b, c, h, w), generator=gen, device=dev) + 0.5).bfloat16()
+        weight = torch.randn((o, c, 3, 3), generator=gen, device=dev) / math.sqrt(9 * c)
+        u = 6.0 / 127.0 + 0.1 * torch.rand((c,), generator=gen, device=dev)
+        a = 1.0 + 0.2 * torch.randn((b, c), generator=gen, device=dev)
+        off = 0.1 * torch.randn((b, c), generator=gen, device=dev)
+        bias = 0.05 * torch.randn((o,), generator=gen, device=dev)
+        qw, sw, iu = fq.prepare_qconv_weight(weight, u)
+        out = torch.empty((b, o, h, w), dtype=torch.bfloat16, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for tile, code in fq.TILES.items():
+            row = {}
+            for name, lib in libs.items():
+                def launch():
+                    status = lib.qconv3x3_fused(
+                        x.data_ptr(), 1, a.data_ptr(), off.data_ptr(), iu.data_ptr(),
+                        qw.data_ptr(), sw.data_ptr(), bias.data_ptr(), out.data_ptr(), 1,
+                        b, c, h, w, o, 1, code, stream)
+                    cuda_build.check(status, "qconv3x3_fused")
+                row[name] = time_ms(launch)
+            print(json.dumps({"shape": list(shape), "dtype": "bfloat16", "tile": tile,
+                              "picked": tile == fq.pick_tile(h, w, o), "ms": row}), flush=True)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
