@@ -12,7 +12,11 @@ Phases, one line each (any failure raises and exits non-zero):
      card at main-path shapes, fp32 and bf16, with the stated tolerance; its
      time (median of CUDA-event timings), the plain version's, one PyTorch
      library call's, and the bound (bytes at 3.35 TB/s or operations at the
-     dtype's peak, whichever is larger). K3 (the int8 conv) is timed on
+     dtype's peak, whichever is larger), and for K1 and K2 the device time
+     of one call from the profiler's kernel durations (`device_ms`), so that
+     the host's cost of a call and the card's are told apart. K1's
+     statistics are also checked with the GroupNorm fold inside
+     (`gn_fold`), and K2 at a ragged shape. K3 (the int8 conv) is timed on
      weights prepared once (`prep_ms` times the preparation), in each of its
      tiles, also checked at a ragged shape, and a control broken on
      purpose (no edge mask) must fail its tolerance; the branch-free
@@ -24,7 +28,8 @@ Phases, one line each (any failure raises and exits non-zero):
      compute path against fp32 on the card for a few seeds, within a limit
      that a deliberately broken bf16 path (GroupNorm sums in bf16) exceeds;
      then the int8 serving network (quant='int8_pallas') in fp32 and bf16,
-     K3 against K3's plain version on the card;
+     K3 against K3's plain version on the card, with K2's and K3's calls
+     counted by image size and channels;
   5. predict: the port's CLI `predict experiment=SGMSE_Large` on two
      synthetic 24 kHz wavs (3 s full-clip, 6 s chunked into 8 lanes) with
      seeded random weights, once in fp32 and once as int8 bf16 serving;
@@ -57,12 +62,15 @@ GN_SHAPES = [
     (8, 128, 512, 192),  # full resolution, 8 lanes
     (8, 256, 32, 12),  # a low level, 8 lanes
     (1, 128, 512, 1536),  # full resolution, 10 s full clip
+    (8, 256, 8, 3),  # the lowest level, 8 lanes
 ]
 SKIP_SHAPES = [  # (B, Ci, Co, H, W)
     (8, 256, 128, 512, 192),  # up path, full-resolution block, 8 lanes
     (8, 128, 128, 256, 96),  # first down block (shortcut after the FIR downsample), 8 lanes
     (1, 256, 128, 512, 1536),  # up path, full-resolution block, 10 s full clip
+    (8, 512, 256, 128, 48),  # up path at 128 x 48 (Co 256: two channel tiles), 8 lanes
 ]
+SKIP_RAGGED = (2, 36, 40, 5, 7)  # ragged Ci, Co and positions, scalar path: checked, not timed
 QCONV_SHAPES = [  # (B, C, O, H, W): int8 predict path, 8 lanes
     (8, 128, 128, 512, 192),  # full-resolution Conv_0 / Conv_1
     (8, 256, 128, 512, 192),  # full-resolution up-path Conv_0 (skip concat)
@@ -78,6 +86,7 @@ BF16_SEEDS = (1, 2, 3)
 # BF16_SEEDS (<= 0.013) and the broken control's (0.023) on the H100 (PERF.md)
 BF16_REL_TOL = 0.017
 INT8_SEEDS = (1, 2)
+KERNEL_REPS = 100  # single-call timings a median of K1's and K2's times takes
 # int8 forward with K3 against the same forward with K3's plain version, on
 # the card, relative to max|plain|: both read exactly 0 on INT8_SEEDS, as do
 # two runs with K3, in fp32 and bf16 (PERF.md). Integer sums are exact, so
@@ -138,7 +147,8 @@ def main():
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    results = kernel_phases(torch, dev)
+    with torch.inference_mode():  # as the predict path's sampler calls the kernels
+        results = kernel_phases(torch, dev)
     runs = {label: {name: None for name in results} for label in PER_FORWARD}
     if not args.kernels:
         forward_phase(torch, dev)
@@ -153,15 +163,17 @@ def main():
         main_case = cases[0]
         entry = {k: main_case[k] for k in (
             "name", "route", "source", "replaces", "max_abs_err", "ms", "plain_ms",
-            "bound_ms", "bound_by", "library_ms", "shape", "dtype")}
+            "bound_ms", "bound_by", "library_ms", "shape", "dtype", "device_ms") if k in main_case}
         # the count of the predict run whose path the kernel is on (K3: int8)
         entry["launches"] = runs["int8_bfloat16" if name == "qconv3x3_fused" else "float32"][name]
         entry["launches_per_run"] = {label: counts[name] for label, counts in runs.items()}
         if "prep_ms" in main_case:
             entry["prep_ms"] = main_case["prep_ms"]
         entry["cases"] = [{k: c[k] for k in (
-            "shape", "dtype", "max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "tile", "tile_ms", "prep_ms") if k in c} for c in cases]
+            "variant", "shape", "dtype", "max_abs_err", "tol", "ms", "device_ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms", "library_device_ms", "kernels_per_call",
+            "profiler_kernels_per_call", "profiler_exact", "tile", "tile_ms", "prep_ms") if k in c}
+            for c in cases]
         line.append(entry)
     print(json.dumps({"kernels": line}))
     print(smi)
@@ -188,7 +200,58 @@ def time_ms(torch, fn, reps=20, warmup=3):
     return float(np.median(times))
 
 
+def time_pair_ms(torch, fn, other, reps):
+    """Medians of `reps` single-call CUDA-event timings of fn() and of
+    other(), taken in turns (other, fn, fn, other, ...), so that a drift of
+    the host's speed falls on both alike."""
+    a, b = [], []
+    for r in range(reps):
+        for f, out in (((other, b), (fn, a)) if r % 2 == 0 else ((fn, a), (other, b))):
+            out.append(time_ms(torch, f, reps=1, warmup=1 if r == 0 else 0))
+    return float(np.median(a)), float(np.median(b))
+
+
+def device_ms(torch, fn, reps=10):
+    """Device time of one fn() call and its kernel launches a call, from the
+    kernels that the profiler records over `reps` calls (no host time), and
+    whether every kernel was recorded `reps` times (or a whole multiple). A
+    session that misses launches, as one now and then does, is run again, up
+    to three times, and the last one's counts are rounded."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        exact = bool(events) and all(e.count % reps == 0 for e in events)
+        if exact:
+            break
+    if not events:
+        raise AssertionError("device_ms: three profiler sessions recorded no kernel on the card")
+    key = "self_device_time_total" if hasattr(events[0], "self_device_time_total") else "self_cuda_time_total"
+    per_call = {e.key: max(1, round(e.count / reps)) for e in events}
+    ms = sum(getattr(e, key) / e.count * per_call[e.key] for e in events) / 1e3
+    return ms, sum(per_call.values()), exact
+
+
 def kernel_phases(torch, dev):
+    """K1 and K2 against their plain versions at GN_SHAPES and SKIP_SHAPES.
+    Their times are medians of KERNEL_REPS single calls, the kernel's and
+    the library call's taken in turns: at the low levels a call is a few
+    microseconds on the card, so its event time is mostly the host's
+    enqueue, which varies by tens of microseconds from call to call.
+    `device_ms` is the profiler's kernel time of one call (beside it the
+    library call's). Every statistics call must put exactly its kernels on
+    the stream, one for short rows and two for split rows, counted in a
+    CUDA graph captured around the call (`kernels_per_call`; the profiler's
+    count is kept beside it).
+    Runs under torch.inference_mode, as the sampler does: there a view or an
+    allocation costs the host less than with autograd's bookkeeping."""
     import torch.nn.functional as F
 
     from use_tpu_torch.ops import gn_stats as g
@@ -214,18 +277,54 @@ def kernel_phases(torch, dev):
             check("channel_sums", shape, dtype_name, err, tol)
             nbytes = x.numel() * x.element_size() + 2 * b * c * 4
             bms, by = bound(nbytes, 3 * x.numel(), dtype_name)
+            launches = 1 if g.split_rows(b * c, s)[0] == 1 else 2  # short rows: no finalize
+            ms, lib_ms = time_pair_ms(torch, lambda: g.channel_sums(x3),
+                                      lambda: torch.var_mean(x3, dim=2), KERNEL_REPS)
+            dev_ms, per_call, exact = device_ms(torch, lambda: g.channel_sums(x3))
+            graph_kernels = check_launches(torch, "channel_sums", shape, dtype_name,
+                                           lambda: g.channel_sums(x3), launches)
             results["channel_sums"].append(dict(
-                name="channel_sums", **common_gn, shape=list(shape), dtype=dtype_name,
-                max_abs_err=err, tol=tol,
-                ms=time_ms(torch, lambda: g.channel_sums(x3)),
-                plain_ms=time_ms(torch, lambda: g.channel_sums_plain(x3)),
-                library_ms=time_ms(torch, lambda: torch.var_mean(x3, dim=2)),
+                name="channel_sums", variant="sums", **common_gn, shape=list(shape),
+                dtype=dtype_name, max_abs_err=err, tol=tol, ms=ms, device_ms=dev_ms,
+                kernels_per_call=graph_kernels, profiler_kernels_per_call=per_call,
+                profiler_exact=exact,
+                plain_ms=time_ms(torch, lambda: g.channel_sums_plain(x3), reps=KERNEL_REPS),
+                library_ms=lib_ms,
+                library_device_ms=device_ms(torch, lambda: torch.var_mean(x3, dim=2))[0],
                 bound_ms=bms, bound_by=by))
             phase("kernel", **{k: v for k, v in results["channel_sums"][-1].items()
                                if k not in ("route", "source", "replaces")})
 
             weight = 1.0 + 0.1 * torch.randn((c,), generator=gen, device=dev)
             bias = 0.1 * torch.randn((c,), generator=gen, device=dev)
+            a, off = g.gn_fold(x3, weight, bias, groups, 1e-6)
+            ref_a, ref_off = g.gn_fold_plain(x3, weight, bias, groups, 1e-6)
+            torch.cuda.synchronize()
+            # the group sums in another order, then the same rounded steps
+            # (rsqrt to nearest in the kernel, torch.rsqrt in the plain
+            # version): relative to the largest |a| and |off|
+            err = max(float((a - ref_a).abs().max()) / float(ref_a.abs().max()),
+                      float((off - ref_off).abs().max()) / float(ref_off.abs().max()))
+            tol = 1e-5
+            check("gn_fold", shape, dtype_name, err, tol)
+            bms, by = bound(nbytes + 2 * c * 4, 3 * x.numel(), dtype_name)
+            dev_ms, per_call, exact = device_ms(torch, lambda: g.gn_fold(x3, weight, bias, groups,
+                                                                         1e-6))
+            graph_kernels = check_launches(
+                torch, "gn_fold", shape, dtype_name,
+                lambda: g.gn_fold(x3, weight, bias, groups, 1e-6), launches)
+            results["channel_sums"].append(dict(
+                name="channel_sums", variant="gn_fold", **common_gn, shape=list(shape),
+                dtype=dtype_name, max_abs_err=err, tol=tol,
+                ms=time_ms(torch, lambda: g.gn_fold(x3, weight, bias, groups, 1e-6),
+                           reps=KERNEL_REPS),
+                device_ms=dev_ms, kernels_per_call=graph_kernels,
+                profiler_kernels_per_call=per_call, profiler_exact=exact,
+                plain_ms=time_ms(torch, lambda: g.gn_fold_plain(x3, weight, bias, groups, 1e-6),
+                                 reps=KERNEL_REPS),
+                library_ms=None, bound_ms=bms, bound_by=by))
+            phase("kernel", **{k: v for k, v in results["channel_sums"][-1].items()
+                               if k not in ("route", "source", "replaces")})
             y = g.gn_apply(x3, sums, sumsq, weight, bias, groups, 1e-6, "swish", dt)
             ref = g.gn_apply_plain(x3, sums, sumsq, weight, bias, groups, 1e-6, "swish", dt)
             torch.cuda.synchronize()
@@ -240,17 +339,20 @@ def kernel_phases(torch, dev):
                 name="gn_apply", **common_gn, shape=list(shape), dtype=dtype_name,
                 max_abs_err=err, tol=tol,
                 ms=time_ms(torch, lambda: g.gn_apply(x3, sums, sumsq, weight, bias, groups,
-                                                     1e-6, "swish", dt)),
+                                                     1e-6, "swish", dt), reps=KERNEL_REPS),
+                device_ms=device_ms(torch, lambda: g.gn_apply(x3, sums, sumsq, weight, bias,
+                                                              groups, 1e-6, "swish", dt))[0],
                 plain_ms=time_ms(torch, lambda: g.gn_apply_plain(x3, sums, sumsq, weight, bias,
-                                                                 groups, 1e-6, "swish", dt)),
+                                                                 groups, 1e-6, "swish", dt),
+                                 reps=KERNEL_REPS),
                 library_ms=time_ms(torch, lambda: F.group_norm(x, groups, weight.to(dt),
-                                                               bias.to(dt), 1e-6)),
+                                                               bias.to(dt), 1e-6), reps=KERNEL_REPS),
                 bound_ms=bms, bound_by=by))
             phase("kernel", **{k: v for k, v in results["gn_apply"][-1].items()
                                if k not in ("route", "source", "replaces")})
             del x, x3, y, ref
 
-        for shape in SKIP_SHAPES:
+        for shape in (*SKIP_SHAPES, SKIP_RAGGED):
             b, ci, co, hh, ww = shape
             x = torch.randn((b, ci, hh, ww), generator=gen, device=dev).to(dt)
             h = torch.randn((b, co, hh, ww), generator=gen, device=dev).to(dt)
@@ -265,18 +367,26 @@ def kernel_phases(torch, dev):
             # fp32: Ci-term dot products summed in another order; bf16: one ulp
             tol = (2e-5 if dtype_name == "float32" else 2.0 ** -7) * top
             check("fused_skip_add", shape, dtype_name, err, tol)
+            if shape == SKIP_RAGGED:
+                phase("kernel_check", name="fused_skip_add", shape=list(shape), dtype=dtype_name,
+                      max_abs_err=err, tol=tol)
+                continue
             s = hh * ww
             esz = x.element_size()
             nbytes = (b * ci * s + 2 * b * co * s + co * ci + co) * esz
             bms, by = bound(nbytes, 2 * b * ci * co * s + 3 * b * co * s, dtype_name)
             w4 = w[:, :, None, None]
+            ms, lib_ms = time_pair_ms(torch, lambda: fs.fused_skip_add(x, h, w, bias, scale),
+                                      lambda: (h + F.conv2d(x, w4, bias)) * scale, KERNEL_REPS)
             results["fused_skip_add"].append(dict(
                 name="fused_skip_add", route="cuda", source="use_tpu_torch/csrc/fused_skip.cu",
                 replaces="use_tpu/ops/pallas_skip.py:44", shape=list(shape), dtype=dtype_name,
                 max_abs_err=err, tol=tol,
-                ms=time_ms(torch, lambda: fs.fused_skip_add(x, h, w, bias, scale)),
-                plain_ms=time_ms(torch, lambda: fs.fused_skip_add_plain(x, h, w, bias, scale)),
-                library_ms=time_ms(torch, lambda: (h + F.conv2d(x, w4, bias)) * scale),
+                ms=ms, device_ms=device_ms(torch, lambda: fs.fused_skip_add(x, h, w, bias, scale))[0],
+                plain_ms=time_ms(torch, lambda: fs.fused_skip_add_plain(x, h, w, bias, scale),
+                                 reps=KERNEL_REPS),
+                library_ms=lib_ms,
+                library_device_ms=device_ms(torch, lambda: (h + F.conv2d(x, w4, bias)) * scale)[0],
                 bound_ms=bms, bound_by=by))
             phase("kernel", **{k: v for k, v in results["fused_skip_add"][-1].items()
                                if k not in ("route", "source", "replaces")})
@@ -387,6 +497,45 @@ def qconv_phase(torch, dev, gen):
     return cases
 
 
+def graph_nodes(torch, fn):
+    """(kernel nodes, all nodes) of a CUDA graph captured around one fn()
+    call: what the call puts on the stream, counted with libcuda's
+    cuGraphGetNodes and cuGraphNodeGetType, not by the profiler."""
+    import ctypes
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        fn()
+    cuda = ctypes.CDLL("libcuda.so.1")
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    if cuda.cuGraphGetNodes(raw, None, ctypes.byref(count)) != 0:
+        raise AssertionError("graph_nodes: cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * count.value)()
+    if count.value and cuda.cuGraphGetNodes(raw, nodes, ctypes.byref(count)) != 0:
+        raise AssertionError("graph_nodes: cuGraphGetNodes failed")
+    kinds = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        if cuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) != 0:
+            raise AssertionError("graph_nodes: cuGraphNodeGetType failed")
+        kinds.append(kind.value)
+    graph.reset()
+    return kinds.count(0), len(kinds)  # 0: CU_GRAPH_NODE_TYPE_KERNEL
+
+
+def check_launches(torch, name, shape, dtype, fn, want):
+    """One call of a statistics wrapper puts exactly `want` kernels on the
+    stream and nothing else (no copy, no memset); -> the kernel count."""
+    kernels, nodes = graph_nodes(torch, fn)
+    if kernels != want or nodes != kernels:
+        raise AssertionError(f"{name} {shape} {dtype}: {kernels} kernels and {nodes - kernels} "
+                             f"other operations a call, expected {want} kernels")
+    return kernels
+
+
 def check(name, shape, dtype, err, tol):
     if not (err <= tol):  # also catches NaN
         raise AssertionError(f"{name} {shape} {dtype}: max_abs_err {err} > tol {tol}")
@@ -442,6 +591,7 @@ def forward_phase(torch, dev):
     the bf16 compute path against fp32 on the card for BF16_SEEDS, and a
     broken bf16 control that the same limit must reject."""
     from use_tpu_torch.models import BackboneRegistry
+    from use_tpu_torch.models.sgmse.score_model import cast_backbone_for_inference
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -470,6 +620,7 @@ def forward_phase(torch, dev):
 
         bnet = BackboneRegistry.get_by_name(FORWARD_BACKBONE)(input_channels=4, dtype="bfloat16")
         bnet = bnet.to(dev)
+        cast_backbone_for_inference(bnet)  # as the CLI serves it; loads below round to bf16
         rel_errs, control = [], None
         for seed in BF16_SEEDS:
             if seed != BF16_SEEDS[0]:
@@ -512,23 +663,26 @@ def swap_qconv(name):
 
 
 @contextlib.contextmanager
-def count_qconv_calls():
-    """Counts K3's calls by "HxW CtoO" while it is in effect."""
-    from use_tpu_torch.ops import fused_qconv
-
-    real = fused_qconv.qconv3x3_fused
+def count_calls(owner, attr, out_channels):
+    """Counts the calls of owner.<attr>(x, second, ...) by "HxW CtoO" (C from
+    x, O = out_channels(second)) while it is in effect."""
+    real = getattr(owner, attr)
     counts = {}
 
-    def counting(x, weight, *args, **kw):
-        key = f"{x.shape[2]}x{x.shape[3]} {weight.shape[1]}to{weight.shape[0]}"
+    def counting(x, second, *args, **kw):
+        key = f"{x.shape[2]}x{x.shape[3]} {x.shape[1]}to{out_channels(second)}"
         counts[key] = counts.get(key, 0) + 1
-        return real(x, weight, *args, **kw)
+        return real(x, second, *args, **kw)
 
-    fused_qconv.qconv3x3_fused = counting
+    setattr(owner, attr, counting)
     try:
         yield counts
     finally:
-        fused_qconv.qconv3x3_fused = real
+        setattr(owner, attr, real)
+
+
+def by_level(counts):
+    return dict(sorted(counts.items(), key=lambda kv: -int(kv[0].split("x")[0])))
 
 
 def int8_forward_phase(torch, dev):
@@ -538,9 +692,12 @@ def int8_forward_phase(torch, dev):
     max|plain|, and the edge-leak control, which must exceed it; beside it,
     as readings and not gates, the same check between two runs with the
     kernel, the int8 output's relative L2 distance to the fp32 network
-    without quantization, the forward's time with K3 and K3's calls by
-    image size and channels."""
+    without quantization, the forward's time with K3, and K3's and K2's calls
+    by image size and channels."""
     from use_tpu_torch.models import BackboneRegistry
+    from use_tpu_torch.models.ncsnpp import layers
+    from use_tpu_torch.models.sgmse.score_model import cast_backbone_for_inference
+    from use_tpu_torch.ops import fused_qconv
 
     gen = torch.Generator().manual_seed(0)
     x = (0.5 * torch.randn(FORWARD_SHAPE, generator=gen)).to(dev)
@@ -551,13 +708,15 @@ def int8_forward_phase(torch, dev):
         # parameters count in-place updates and K3's prepared weights are kept
         qnet = BackboneRegistry.get_by_name(FORWARD_BACKBONE)(
             input_channels=4, dtype=dtype, quant="int8_pallas").to(dev)
+        cast_backbone_for_inference(qnet)  # as the CLI serves it (bf16: before quantizing)
         with torch.inference_mode():
             readings, control = [], None
             for seed in INT8_SEEDS:
                 _randomize(torch, fnet, seed=seed)
                 qnet.load_state_dict(fnet.state_dict())
                 ref32 = fnet(x, t)
-                with count_qconv_calls() as calls:
+                with count_calls(fused_qconv, "qconv3x3_fused", lambda w: w.shape[0]) as calls, \
+                        count_calls(layers, "fused_skip_add", lambda h: h.shape[1]) as skip_calls:
                     out = qnet(x, t)
                 again = qnet(x, t)
                 with swap_qconv("qconv3x3_fused_plain"):
@@ -578,7 +737,7 @@ def int8_forward_phase(torch, dev):
                   quant="int8_pallas", against="K3's plain version on the card",
                   tol=INT8_REL_TOL, readings=readings, control="edge mask removed",
                   control_max_rel_err=control, ms=ms,
-                  qconv_calls=dict(sorted(calls.items(), key=lambda kv: -int(kv[0].split("x")[0]))))
+                  qconv_calls=by_level(calls), skip_calls=by_level(skip_calls))
             worst = max(r["max_rel_err"] for r in readings)
             if not worst <= INT8_REL_TOL:
                 raise AssertionError(f"int8 forward {dtype}: max_rel_err {worst} > "
@@ -639,28 +798,34 @@ def predict_phase(torch, dev, label, extra_args):
 def profile_phase(torch, dev):
     """One full-width forward at the chunked predict shape (8 lanes of a 6 s
     clip): wall ms in fp32 and bf16 (median of 5, CUDA events); then for the
-    fp32 forward and the int8 bf16 serving forward, the kernel time of one
+    fp32, the bf16 and the int8 bf16 serving forward, the kernel time of one
     profiled forward by name, against that forward's profiled wall time
     (`busy_share`) and against the unprofiled wall time (`unprofiled_ms`,
     median of 5, CUDA events; `unprofiled_busy_share`): the profiler's own
-    host overhead leaves the card idle in the profiled run."""
+    host overhead leaves the card idle in the profiled run. `op_counts`
+    counts the host's torch ops (those called 20 times or more) in the
+    profiled forward. Every net is built outside inference mode and its
+    weights cast for serving (``cast_backbone_for_inference``), as the CLI
+    builds it, so that the weights the layers prepare once are kept."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from use_tpu_torch.models import BackboneRegistry
+    from use_tpu_torch.models.sgmse.score_model import cast_backbone_for_inference
 
     shape = (8, 512, 192, 4)
     x = torch.randn(shape, device=dev)
     t = torch.full((8,), 0.5, device=dev)
-    with torch.inference_mode():
-        for dtype in ("float32", "bfloat16"):
-            net = BackboneRegistry.get_by_name("ncsnpplarge")(input_channels=4, dtype=dtype).to(dev)
+    for dtype in ("float32", "bfloat16"):
+        net = BackboneRegistry.get_by_name("ncsnpplarge")(input_channels=4, dtype=dtype).to(dev)
+        cast_backbone_for_inference(net)
+        with torch.inference_mode():
             phase("forward_timing", shape=list(shape), dtype=dtype, tf32=False,
                   ms=time_ms(torch, lambda: net(x, t), reps=5, warmup=2))
-    for dtype, quant in (("float32", "none"), ("bfloat16", "int8_pallas")):
-        # built outside inference mode, so that K3's prepared weights are kept
+    for dtype, quant in (("float32", "none"), ("bfloat16", "none"), ("bfloat16", "int8_pallas")):
         net = BackboneRegistry.get_by_name("ncsnpplarge")(
             input_channels=4, dtype=dtype, quant=quant).to(dev)
+        cast_backbone_for_inference(net)
         with torch.inference_mode():
             unprofiled_ms = time_ms(torch, lambda: net(x, t), reps=5, warmup=2)
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -672,9 +837,13 @@ def profile_phase(torch, dev):
             key = "device_time_total" if hasattr(events[0], "device_time_total") else "cuda_time_total"
             kernel_ms = sum(getattr(e, "self_" + key) for e in events
                             if e.device_type == DeviceType.CUDA) / 1e3
+            op_counts = {e.key: e.count for e in events
+                         if e.device_type == DeviceType.CPU and e.key.startswith("aten::")
+                         and e.count >= 20}
             phase("profile", shape=list(shape), dtype=dtype, quant=quant, wall_ms=wall_ms,
                   kernel_ms=kernel_ms, busy_share=kernel_ms / wall_ms,
-                  unprofiled_ms=unprofiled_ms, unprofiled_busy_share=kernel_ms / unprofiled_ms)
+                  unprofiled_ms=unprofiled_ms, unprofiled_busy_share=kernel_ms / unprofiled_ms,
+                  op_counts=dict(sorted(op_counts.items(), key=lambda kv: -kv[1])))
             print(events.table(sort_by="self_" + key, row_limit=30))
 
 

@@ -52,3 +52,102 @@ def test_plain_accepts_conv_weight_and_rejects_bad_shapes():
         fused_skip_add(x, h, w.T.contiguous(), b)
     with pytest.raises(ValueError):
         fused_skip_add(x.to("meta"), h.to("meta"), w.to("meta"), b.to("meta"))
+
+
+
+TINY = dict(nf=16, ch_mult=(1, 2, 2))
+
+
+def _tiny_net(dtype, quant="none"):
+    """A tiny NCSN++ with seeded weights; its BigGAN blocks that change their
+    channel count or resample run the K2 shortcut."""
+    from use_tpu_torch.models.ncsnpp.ncsnpp import NCSNpp, NCSNppConfig
+
+    torch.manual_seed(0)
+    net = NCSNpp(NCSNppConfig(**TINY, dtype=dtype, quant=quant, quant_min_channels=16)).eval()
+    with torch.no_grad():
+        for p in net.parameters():
+            p.copy_(0.1 * torch.randn(p.shape))
+    return net
+
+
+def _tiny_forward(net):
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.standard_normal((1, 32, 16, 4)).astype(np.float32))
+    with torch.no_grad():
+        return net(x, torch.full((1,), 0.5))
+
+
+def _shortcuts(net):
+    from use_tpu_torch.models.ncsnpp.layers import ResnetBlockBigGANpp
+
+    return [m.Conv_2 for m in net.modules()
+            if isinstance(m, ResnetBlockBigGANpp) and m.Conv_2 is not None]
+
+
+def test_cast_backbone_casts_shortcut_weight_and_bias():
+    from use_tpu_torch.models.sgmse.score_model import cast_backbone_for_inference
+
+    net = _tiny_net("bfloat16")
+    cast_backbone_for_inference(net)
+    convs = _shortcuts(net)
+    assert convs
+    for conv in convs:
+        assert conv.weight.dtype == conv.bias.dtype == torch.bfloat16
+    shortcut = {id(t) for conv in convs for t in (conv.weight, conv.bias)}
+    for name, p in net.named_parameters():
+        if id(p) not in shortcut and ("GroupNorm" in name or p.dim() <= 1):
+            assert p.dtype == torch.float32, name
+
+
+@pytest.mark.parametrize("quant", ["none", "int8_pallas"])
+def test_shortcut_takes_cast_params_without_a_copy(quant, monkeypatch):
+    """After the serving cast, K2 gets Conv_2's own bf16 weight and bias: no
+    cast at any call."""
+    from use_tpu_torch.models.ncsnpp import layers
+    from use_tpu_torch.models.sgmse.score_model import cast_backbone_for_inference
+
+    net = _tiny_net("bfloat16", quant)
+    cast_backbone_for_inference(net)
+    own = {t.data_ptr() for conv in _shortcuts(net) for t in (conv.weight, conv.bias)}
+    seen = []
+
+    def record(x, h, w, b, scale):
+        seen.append((w.data_ptr() in own, b.data_ptr() in own, w.dtype, b.dtype))
+        return fused_skip_add(x, h, w, b, scale)
+
+    monkeypatch.setattr(layers, "fused_skip_add", record)
+    _tiny_forward(net)
+    assert len(seen) == len(_shortcuts(net))
+    assert set(seen) == {(True, True, torch.bfloat16, torch.bfloat16)}
+
+
+@pytest.mark.parametrize("quant", ["none", "int8_pallas"])
+def test_cast_backbone_only_rounds_the_weights(quant):
+    """The serving cast changes the forward only by rounding the weights it
+    casts: a net holding the same rounded weights in fp32, cast by each layer
+    at use, gives the same forward bit for bit (K2's bias included)."""
+    from use_tpu_torch.models.sgmse.score_model import cast_backbone_for_inference
+
+    net = _tiny_net("bfloat16", quant)
+    cast_backbone_for_inference(net)
+    ref = _tiny_net("bfloat16", quant)
+    rounded = 0
+    with torch.no_grad():
+        for p, q in zip(net.parameters(), ref.parameters()):
+            if p.dtype == torch.bfloat16:
+                q.copy_(p.float())
+                rounded += 1
+    assert rounded and all(q.dtype == torch.float32 for q in ref.parameters())
+    torch.testing.assert_close(_tiny_forward(net), _tiny_forward(ref), rtol=0, atol=0)
+
+
+def test_cast_backbone_leaves_fp32_alone():
+    from use_tpu_torch.models.sgmse.score_model import cast_backbone_for_inference
+
+    net = _tiny_net("float32")
+    kept = {name: (p, p.data_ptr()) for name, p in net.named_parameters()}
+    cast_backbone_for_inference(net)
+    for name, p in net.named_parameters():
+        assert p is kept[name][0] and p.data_ptr() == kept[name][1]
+        assert p.dtype == torch.float32

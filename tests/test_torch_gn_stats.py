@@ -79,3 +79,97 @@ def test_wrappers_reject_other_devices():
     with pytest.raises(ValueError):
         tgn.gn_apply(x, torch.empty((1, 4), device="meta"), torch.empty((1, 4), device="meta"),
                      torch.ones(4), torch.zeros(4), groups=1)
+
+
+def _row_visits(rows, s, cg):
+    """How often the statistics launch of split_rows / rows_per_block visits
+    each row (short rows: warp w of a block takes rows w, w + 8, ... of the
+    block's rows_per_block, as stats_rows_kernel does) and, per row, which
+    elements (long rows: block (r, j) takes [j * chunk, (j + 1) * chunk))."""
+    splits, chunk = tgn.split_rows(rows, s)
+    visits = np.zeros(rows, np.int64)
+    if splits == 1:
+        per_block = tgn.rows_per_block(cg)
+        assert per_block % cg == 0 and per_block >= min(cg, 8)
+        for r0 in range(0, rows, per_block):
+            assert r0 % cg == 0  # a block starts on a group
+            for warp in range(8):
+                for k in range(warp, per_block, 8):
+                    if r0 + k < rows:
+                        visits[r0 + k] += 1
+        return visits, [(0, s)]
+    assert chunk % 8 == 0
+    slices = [(j * chunk, min(s, (j + 1) * chunk)) for j in range(splits)]
+    visits += 1  # block (r, j) for each row r: every row gets all its slices
+    return visits, slices
+
+
+@pytest.mark.parametrize("channels", [128, 256], ids=["cg4", "cg8"])
+@pytest.mark.parametrize("batch", [1, 8])
+@pytest.mark.parametrize("s", [24, 37, tgn._MIN_CHUNK - 8, tgn._MIN_CHUNK, tgn._MIN_CHUNK + 1,
+                               2 * tgn._MIN_CHUNK + 3, 98304])
+def test_stats_launch_covers_each_row_once(batch, channels, s):
+    cg = channels // tgn.num_groups(channels)
+    assert cg == channels // 32
+    rows = batch * channels
+    visits, slices = _row_visits(rows, s, cg)
+    np.testing.assert_array_equal(visits, np.ones(rows, np.int64))
+    covered = np.zeros(s, np.int64)
+    for begin, end in slices:
+        assert begin < end
+        covered[begin:end] += 1
+    np.testing.assert_array_equal(covered, np.ones(s, np.int64))
+
+
+def test_short_rows_at_every_low_level():
+    # every batch-8 level from 128 x 48 down is one launch without partials
+    for c, s in ((256, 128 * 48), (256, 64 * 24), (256, 32 * 12), (512, 16 * 6), (256, 8 * 3)):
+        assert tgn.split_rows(8 * c, s)[0] == 1
+    assert tgn.split_rows(8 * 128, 512 * 192)[0] > 1
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("channels", [64, 128])
+def test_gn_fold_plain_matches_jax_fold(channels, dtype):
+    """use_tpu's GroupNormAct(quant='fold') squares a bf16 input in bf16 on
+    its XLA path (its comment: ~2^-9 relative), while its Pallas K1 widens
+    to fp32 first, as the port does: so use_tpu's fold is fed the input's
+    values widened to fp32, the values K1 sums."""
+    rng = np.random.default_rng(channels)
+    x = (0.5 + rng.standard_normal((2, 6, 10, channels))).astype(np.float32)
+    tdt = getattr(torch, dtype)
+    xt = nhwc_to_nchw(x).to(tdt)
+    x = nchw_to_nhwc(xt.float())
+    jmod = jl.GroupNormAct(channels, act=jax.nn.silu, quant="fold")
+    params = random_params(jax.eval_shape(jmod.init, jax.random.PRNGKey(0), x)["params"], seed=9)
+    ja, joff, _ = (np.asarray(v) for v in jmod.apply({"params": params}, x))
+    sd = ncsnpp_params_to_state_dict(params)
+    a, off = tgn.gn_fold(xt.reshape(2, channels, -1), sd["weight"], sd["bias"],
+                         tgn.num_groups(channels))
+    assert a.dtype == off.dtype == torch.float32 and a.shape == off.shape == (2, channels)
+    np.testing.assert_allclose(a.numpy(), ja, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(off.numpy(), joff, rtol=RTOL, atol=ATOL)
+
+
+def test_groupnorm_fold_module_unchanged():
+    """GroupNormAct(quant='fold') gives the (a, off, u) of channel sums
+    folded by fold_scale_shift, and the k-sigma u, bit for bit."""
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy((0.3 + rng.standard_normal((2, 48, 5, 7))).astype(np.float32))
+    mod = tl.GroupNormAct(48, act="swish", quant="fold")
+    with torch.no_grad():
+        mod.weight.copy_(torch.from_numpy(1 + 0.1 * rng.standard_normal(48).astype(np.float32)))
+        mod.bias.copy_(torch.from_numpy(0.1 * rng.standard_normal(48).astype(np.float32)))
+        a, off, u = mod(x)
+    x3 = x.reshape(2, 48, -1)
+    want_a, want_off = tgn.fold_scale_shift(*tgn.channel_sums(x3), mod.weight, mod.bias,
+                                            mod.groups, x3.shape[2], mod.eps)
+    want_u = (mod.bias.abs() + 6.0 * mod.weight.abs()) / 127.0 + 1e-12
+    assert torch.equal(a, want_a) and torch.equal(off, want_off)
+    torch.testing.assert_close(u, want_u.detach(), rtol=0, atol=0)
+
+
+def test_gn_fold_rejects_other_devices():
+    x = torch.empty((1, 8, 16), device="meta")
+    with pytest.raises(ValueError):
+        tgn.gn_fold(x, torch.ones(8), torch.zeros(8), groups=2)

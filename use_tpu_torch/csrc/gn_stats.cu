@@ -1,26 +1,39 @@
 // GroupNorm for NCHW activations as two hand-written passes (kernel K1).
 //
 // Replaces the Pallas kernel use_tpu/ops/gn_stats.py::_channel_sums_impl
-// (body `_kernel`): per-(batch, channel) sum and sum of squares over the
-// spatial axis in one read with fp32 accumulators. The apply pass replaces the
-// XLA elementwise `x * a + off` (+ activation) of
-// use_tpu/models/ncsnpp/layers.py::GroupNormAct (layers.py:228-256), with the
-// fold of the statistics and the affine done per block from the [B, C] sums.
+// (body `_kernel` at :43, the pallas_call at :92): per-(batch, channel) sum
+// and sum of squares over the spatial axis in one read with fp32
+// accumulators. The same pass can fold the statistics into the GroupNorm's
+// per-(batch, channel) scale and shift, as use_tpu's GroupNorm does for int8
+// serving (use_tpu/models/ncsnpp/layers.py:231-250). The apply pass replaces
+// the XLA elementwise `x * a + off` (+ activation) of
+// use_tpu/models/ncsnpp/layers.py::GroupNormAct (layers.py:251-256), with the
+// fold done per block from the [B, C] sums.
 //
 // Bound on the H100: both passes are memory-bound (a few operations per
 // element against 4 or 2 bytes read). Stats reads x once (3.35 TB/s ->
 // 0.12 ms for the 403 MB full-resolution fp32 tensor); apply reads x and
-// writes y once.
+// writes y once. At the U-Net's low levels a call moves a few hundred KB:
+// there the bound is under a microsecond and the launch itself is the cost.
 //
-// Design: in NCHW a channel's S elements are contiguous, so a block owns one
-// slice of one (b, c) row and streams it with 16-byte loads (4 fp32 or 4 bf16
-// elements a thread, four loads in flight). The TPU kernel carried its sums
-// across a sequential grid; blocks here run in no order on 132 SMs, so a row
-// is cut into `splits` slices to fill the card, each block writes its own
-// partial, and a second small kernel adds the partials of a row in a fixed
-// order (deterministic, no atomics). The apply kernel folds mean, clamped
-// variance E[x^2]-E[x]^2, eps and the affine into one scale and one offset
-// per block, then streams its slice once.
+// Design of the statistics. In NCHW a channel's S elements are contiguous,
+// and the TPU kernel carried its sums across a sequential grid; blocks here
+// run in no order on 132 SMs. The wrapper (ops/gn_stats.py split_rows)
+// cuts rows into slices only when there are too few rows to fill the card:
+// - Short rows (one slice: every batch-8 level from 128 x 48 down): one warp
+//   owns a row, reads it with 16-byte loads (4 fp32 or 8 bf16 elements, four
+//   loads in flight a lane) and reduces with shuffles; a block owns whole
+//   GroupNorm groups. It writes the sums straight to the output: one launch,
+//   no shared memory, no barrier. Folding, the block's warps leave their row
+//   sums in shared memory and, after one barrier, each thread folds one
+//   channel of its group.
+// - Long rows: a 256-thread block streams one slice with eight 16-byte loads
+//   in flight a thread and writes its partial; a second small kernel adds a
+//   row's partials in a fixed order (deterministic, no atomics), and folds
+//   per (batch, group) when asked.
+// The fold: mean = sum / n, var = max(E[x^2] - E[x]^2, 0),
+// a = rsqrt(var + eps) * weight, off = bias - mean * a, each step rounded
+// as the plain version's (no contraction, round-to-nearest rsqrt).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -28,6 +41,7 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -63,15 +77,65 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, const float v[4]) {
   *reinterpret_cast<uint2*>(p) = q;
 }
 
-// Sum of a and b over the block; the result is valid in thread 0.
-__device__ __forceinline__ void block_sum2(float& a, float& b) {
-  __shared__ float sa[kThreads / 32];
-  __shared__ float sb[kThreads / 32];
+// Elements in one 16-byte load.
+template <typename T> constexpr int kVec = 16 / sizeof(T);
+
+__device__ __forceinline__ void add(float v, float& s, float& ss) {
+  s += v;
+  ss = fmaf(v, v, ss);
+}
+__device__ __forceinline__ void accumulate16(const uint4& q, float, float& s, float& ss) {
+  add(__uint_as_float(q.x), s, ss);
+  add(__uint_as_float(q.y), s, ss);
+  add(__uint_as_float(q.z), s, ss);
+  add(__uint_as_float(q.w), s, ss);
+}
+// a bf16 is the high half of the float it widens to, exactly
+__device__ __forceinline__ void accumulate16(const uint4& q, __nv_bfloat16, float& s, float& ss) {
+  const unsigned w[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    add(__uint_as_float(w[j] << 16), s, ss);
+    add(__uint_as_float(w[j] & 0xffff0000u), s, ss);
+  }
+}
+
+// Thread t of n sums xr[begin, end) into s, ss. VEC: begin, end and xr are
+// 16-byte aligned element counts/addresses, U loads in flight a thread.
+template <typename T, int U>
+__device__ __forceinline__ void sum_range(const T* __restrict__ xr, long long begin,
+                                          long long end, int t, int n, bool vec, float& s,
+                                          float& ss) {
+  if (vec) {
+    constexpr int V = kVec<T>;
+    const long long stride = (long long)V * n;
+    long long i = begin + (long long)V * t;
+    for (; i + (U - 1) * stride < end; i += U * stride) {
+      uint4 q[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) q[u] = __ldg(reinterpret_cast<const uint4*>(xr + i + u * stride));
+#pragma unroll
+      for (int u = 0; u < U; ++u) accumulate16(q[u], T(), s, ss);
+    }
+    for (; i < end; i += stride) accumulate16(__ldg(reinterpret_cast<const uint4*>(xr + i)), T(), s, ss);
+  } else {
+    for (long long i = begin + t; i < end; i += n) add(to_f(xr[i]), s, ss);
+  }
+}
+
+__device__ __forceinline__ void warp_sum2(float& a, float& b) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) {
     a += __shfl_xor_sync(0xffffffffu, a, o);
     b += __shfl_xor_sync(0xffffffffu, b, o);
   }
+}
+
+// Sum of a and b over the block; the result is valid in thread 0.
+__device__ __forceinline__ void block_sum2(float& a, float& b) {
+  __shared__ float sa[kWarps];
+  __shared__ float sb[kWarps];
+  warp_sum2(a, b);
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   if (lane == 0) {
@@ -80,25 +144,66 @@ __device__ __forceinline__ void block_sum2(float& a, float& b) {
   }
   __syncthreads();
   if (warp == 0) {
-    a = lane < kThreads / 32 ? sa[lane] : 0.f;
-    b = lane < kThreads / 32 ? sb[lane] : 0.f;
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      a += __shfl_xor_sync(0xffffffffu, a, o);
-      b += __shfl_xor_sync(0xffffffffu, b, o);
+    a = lane < kWarps ? sa[lane] : 0.f;
+    b = lane < kWarps ? sb[lane] : 0.f;
+    warp_sum2(a, b);
+  }
+}
+
+// The GroupNorm fold of one channel from its group's sums gs, gss over n elements.
+__device__ __forceinline__ void fold(float gs, float gss, float n, float gamma, float beta,
+                                     float eps, float& a, float& off) {
+  const float mean = __fdiv_rn(gs, n);
+  const float meansq = __fdiv_rn(gss, n);
+  const float var = fmaxf(__fsub_rn(meansq, __fmul_rn(mean, mean)), 0.f);
+  a = __fmul_rn(__frsqrt_rn(__fadd_rn(var, eps)), gamma);
+  off = __fsub_rn(beta, __fmul_rn(mean, a));
+}
+
+// Short rows. grid ceil(rows / R), kThreads: the block owns rows
+// [blockIdx.x * R, + R), whole groups of cg rows; warp w sums rows w, w + 8, ...
+// out [2, rows]: without weight the sums and sums of squares; with weight
+// (and R * 2 floats of dynamic shared memory) the folded a and off.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+stats_rows_kernel(const T* __restrict__ x, float* __restrict__ out, long long rows, long long S,
+                  int R, int vec, const float* __restrict__ weight, const float* __restrict__ bias,
+                  int C, int cg, float eps) {
+  extern __shared__ float row_sums[];  // [2][R], folding only
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long r0 = (long long)blockIdx.x * R;
+  for (int k = warp; k < R && r0 + k < rows; k += kWarps) {
+    const long long row = r0 + k;
+    float s = 0.f, ss = 0.f;
+    sum_range<T, 4>(x + row * S, 0, S, lane, 32, vec, s, ss);
+    warp_sum2(s, ss);
+    if (lane == 0) {
+      if (weight == nullptr) {
+        out[row] = s;
+        out[rows + row] = ss;
+      } else {
+        row_sums[k] = s;
+        row_sums[R + k] = ss;
+      }
     }
   }
-}
-
-__device__ __forceinline__ void accumulate4(const float v[4], float& s, float& ss) {
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    s += v[k];
-    ss = fmaf(v[k], v[k], ss);
+  if (weight == nullptr) return;
+  __syncthreads();
+  const float n = (float)((double)S * cg);
+  for (int k = threadIdx.x; k < R && r0 + k < rows; k += kThreads) {
+    const int g0 = k - k % cg;
+    float gs = 0.f, gss = 0.f;
+    for (int j = 0; j < cg; ++j) {
+      gs += row_sums[g0 + j];
+      gss += row_sums[R + g0 + j];
+    }
+    const long long row = r0 + k;
+    const int c = (int)(row % C);
+    fold(gs, gss, n, weight[c], bias[c], eps, out[row], out[rows + row]);
   }
 }
 
-// grid (rows, splits): block (r, j) sums x[r, j*chunk : min(S, (j+1)*chunk)].
+// Long rows. grid (rows, splits): block (r, j) sums x[r, j*chunk : min(S, (j+1)*chunk)].
 // part holds [2, rows, splits]: sums, then sums of squares.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -109,34 +214,8 @@ stats_partial_kernel(const T* __restrict__ x, float* __restrict__ part, long lon
   const int splits = gridDim.y;
   const long long begin = (long long)split * chunk;
   const long long end = min(S, begin + chunk);
-  const T* xr = x + row * S;
   float s = 0.f, ss = 0.f;
-  if (vec) {  // S and chunk are multiples of 4, x is 16-byte aligned
-    const long long stride = 4LL * kThreads;
-    long long i = begin + 4LL * threadIdx.x;
-    for (; i + 3 * stride < end; i += 4 * stride) {
-      float v0[4], v1[4], v2[4], v3[4];
-      load4(xr + i, v0);
-      load4(xr + i + stride, v1);
-      load4(xr + i + 2 * stride, v2);
-      load4(xr + i + 3 * stride, v3);
-      accumulate4(v0, s, ss);
-      accumulate4(v1, s, ss);
-      accumulate4(v2, s, ss);
-      accumulate4(v3, s, ss);
-    }
-    for (; i < end; i += stride) {
-      float v[4];
-      load4(xr + i, v);
-      accumulate4(v, s, ss);
-    }
-  } else {
-    for (long long i = begin + threadIdx.x; i < end; i += kThreads) {
-      const float v = to_f(xr[i]);
-      s += v;
-      ss = fmaf(v, v, ss);
-    }
-  }
+  sum_range<T, 8>(x + row * S, begin, end, threadIdx.x, kThreads, vec, s, ss);
   block_sum2(s, ss);
   if (threadIdx.x == 0) {
     const long long rows = gridDim.x;
@@ -145,18 +224,58 @@ stats_partial_kernel(const T* __restrict__ x, float* __restrict__ part, long lon
   }
 }
 
-// One thread a row: add the row's partials in order.
-__global__ void stats_finalize_kernel(const float* __restrict__ part, float* __restrict__ sums,
-                                      float* __restrict__ sumsq, long long rows, int splits) {
-  const long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= rows) return;
-  float s = 0.f, ss = 0.f;
-  for (int k = 0; k < splits; ++k) {
-    s += part[r * splits + k];
-    ss += part[rows * splits + r * splits + k];
+// One thread a group of cg rows (cg = 1 without weight): add each row's
+// partials in order; write the sums, or fold the group into a and off.
+__global__ void stats_finalize_kernel(const float* __restrict__ part, float* __restrict__ out,
+                                      long long rows, int splits, long long S,
+                                      const float* __restrict__ weight,
+                                      const float* __restrict__ bias, int C, int cg, float eps) {
+  const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (g * cg >= rows) return;
+  float gs = 0.f, gss = 0.f;
+  for (int j = 0; j < cg; ++j) {
+    const long long r = g * cg + j;
+    float s = 0.f, ss = 0.f;
+    for (int k = 0; k < splits; ++k) {
+      s += part[r * splits + k];
+      ss += part[rows * splits + r * splits + k];
+    }
+    if (weight == nullptr) {
+      out[r] = s;
+      out[rows + r] = ss;
+    }
+    gs += s;
+    gss += ss;
   }
-  sums[r] = s;
-  sumsq[r] = ss;
+  if (weight == nullptr) return;
+  const float n = (float)((double)S * cg);
+  for (int j = 0; j < cg; ++j) {
+    const long long r = g * cg + j;
+    const int c = (int)(r % C);
+    fold(gs, gss, n, weight[c], bias[c], eps, out[r], out[rows + r]);
+  }
+}
+
+template <typename T>
+cudaError_t launch_stats(const T* x, long long rows, long long S, int splits, long long chunk,
+                         int rows_per_block, int vec, float* part, float* out, const float* weight,
+                         const float* bias, int C, int cg, float eps, cudaStream_t st) {
+  if (splits == 1) {
+    const unsigned blocks = (unsigned)((rows + rows_per_block - 1) / rows_per_block);
+    const size_t smem = weight == nullptr ? 0 : 2 * rows_per_block * sizeof(float);
+    stats_rows_kernel<T><<<blocks, kThreads, smem, st>>>(x, out, rows, S, rows_per_block, vec,
+                                                         weight, bias, C, cg, eps);
+    return cudaGetLastError();
+  }
+  stats_partial_kernel<T><<<dim3((unsigned)rows, (unsigned)splits), kThreads, 0, st>>>(
+      x, part, S, chunk, vec);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int group = weight == nullptr ? 1 : cg;
+  const long long threads = rows / group;
+  stats_finalize_kernel<<<(unsigned)((threads + 255) / 256), 256, 0, st>>>(
+      part, out, rows, splits, S, weight, bias, C, group, eps);
+  return cudaGetLastError();
 }
 
 // act: 0 none, 1 silu, 2 relu, 3 leaky relu (0.2), 4 elu
@@ -243,28 +362,27 @@ cudaError_t launch_apply(const void* x, void* y, int out_dtype, const float* sum
 // dtype codes: 0 float32, 1 bfloat16. Every function returns the CUDA error
 // of its launches (0 when they were accepted).
 
-// x [rows, S] -> sums[rows], sumsq[rows] (fp32); part is scratch of
-// 2 * rows * splits floats.
+// x [rows, S] (rows = B * C) -> out [2, rows] fp32: with weight == NULL the
+// sums and sums of squares of each row; else the GroupNorm fold a and off of
+// each channel (groups of cg consecutive rows, weight and bias [C]). splits
+// == 1: one launch, rows_per_block rows (whole groups) a block; else part is
+// scratch of 2 * rows * splits floats and a finalize launch follows.
 extern "C" int gn_channel_sums(const void* x, int dtype, long long rows, long long S, int splits,
-                               long long chunk, int vec, void* part, void* sums, void* sumsq,
+                               long long chunk, int rows_per_block, int vec, void* part, void* out,
+                               const void* weight, const void* bias, int C, int cg, float eps,
                                void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const dim3 grid((unsigned)rows, (unsigned)splits);
+  const float* w = (const float*)weight;
+  const float* b = (const float*)bias;
   if (dtype == 0) {
-    stats_partial_kernel<float><<<grid, kThreads, 0, st>>>((const float*)x, (float*)part, S,
-                                                           chunk, vec);
-  } else if (dtype == 1) {
-    stats_partial_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
-        (const __nv_bfloat16*)x, (float*)part, S, chunk, vec);
-  } else {
-    return (int)cudaErrorInvalidValue;
+    return (int)launch_stats((const float*)x, rows, S, splits, chunk, rows_per_block, vec,
+                             (float*)part, (float*)out, w, b, C, cg, eps, st);
   }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const unsigned blocks = (unsigned)((rows + 255) / 256);
-  stats_finalize_kernel<<<blocks, 256, 0, st>>>((const float*)part, (float*)sums,
-                                                (float*)sumsq, rows, splits);
-  return (int)cudaGetLastError();
+  if (dtype == 1) {
+    return (int)launch_stats((const __nv_bfloat16*)x, rows, S, splits, chunk, rows_per_block, vec,
+                             (float*)part, (float*)out, w, b, C, cg, eps, st);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 // y[b, c, :] = act(x[b, c, :] * a[b, c] + off[b, c]), with a and off folded

@@ -31,7 +31,7 @@ import torch.nn.functional as F
 from use_tpu_torch.ops import fused_qconv
 from use_tpu_torch.ops.fused_qconv import true_div
 from use_tpu_torch.ops.fused_skip import fused_skip_add
-from use_tpu_torch.ops.gn_stats import channel_sums, fold_scale_shift, group_norm_act, num_groups
+from use_tpu_torch.ops.gn_stats import gn_fold, group_norm_act, num_groups
 from use_tpu_torch.ops.upfirdn2d import (
     downsample_2d,
     naive_downsample_2d,
@@ -168,8 +168,9 @@ class GroupNormAct(nn.Module):
     kernel K1 on the card (ops/gn_stats.py).
 
     ``quant='fold'`` (int8 serving, layers.py:237-249) runs the statistics
-    pass only and returns ``(a [B, C], off [B, C], u [C])``, all fp32, for
-    ``FusedQConv3x3`` to apply in its operand read; u is the analytic
+    pass only, with the fold inside it (``gn_fold``), and returns
+    ``(a [B, C], off [B, C], u [C])``, all fp32, for ``FusedQConv3x3`` to
+    apply in its operand read; u is the analytic
     k-sigma activation scale (|bias| + quant_k |weight|) / 127 + 1e-12.
     The non-Pallas modes 'out' / 'scale' are not ported.
     """
@@ -201,10 +202,7 @@ class GroupNormAct(nn.Module):
             return group_norm_act(x, self.weight, self.bias, self.groups, self.act,
                                   self.out_dtype, self.eps)
         b, c = x.shape[:2]
-        x3 = x.reshape(b, c, -1)
-        sums, sumsq = channel_sums(x3)
-        a, off = fold_scale_shift(sums, sumsq, self.weight, self.bias, self.groups, x3.shape[2],
-                                  self.eps)
+        a, off = gn_fold(x.reshape(b, c, -1), self.weight, self.bias, self.groups, self.eps)
         return a, off, self._act_scale()
 
     _u = None  # (key, pinned affine, u)
@@ -356,7 +354,8 @@ class ResnetBlockBigGANpp(nn.Module):
 
     When the block changes its channel count or resamples, its 1x1 ``Conv_2``
     shortcut, the residual add and the skip rescale run as kernel K2
-    (ops/fused_skip.py).
+    (ops/fused_skip.py), on Conv_2's weight and bias in the compute dtype
+    (cast once for serving by ``cast_backbone_for_inference``).
 
     ``quant='int8_pallas'`` (int8 serving) gates each 3x3 conv as use_tpu
     does (layers.py:516-526): ``Conv_0`` when the block does not resample,

@@ -14,6 +14,7 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
 
+from use_tpu_torch.models.ncsnpp.layers import ResnetBlockBigGANpp
 from use_tpu_torch.models.registry import BackboneRegistry, SDERegistry
 from use_tpu_torch.models.sgmse import sampling
 from use_tpu_torch.models.sgmse.sampling import NoiseFn
@@ -21,6 +22,27 @@ from use_tpu_torch.ops import STFTConfig, istft, pad_spec, spec_back, spec_fwd, 
 from use_tpu_torch.utils.device import resolve_device
 
 Batch = Dict[str, torch.Tensor]
+
+
+def cast_backbone_for_inference(net: torch.nn.Module) -> None:
+    """Cast an NCSN++ backbone's weights to its compute dtype, in place.
+
+    As use_tpu's ``cast_params_for_inference``: with a bf16 compute dtype
+    every parameter except the GroupNorm affines and 1-D parameters (biases,
+    the Gaussian-Fourier projection) becomes bf16 once, instead of at every
+    use. The BigGAN shortcut's bias is cast too: the shortcut kernel (K2)
+    takes it in the compute dtype, as the layer would cast it at every call.
+    A no-op for fp32 backbones."""
+    if net.cfg.dtype != "bfloat16":
+        return
+    with torch.no_grad():
+        for name, p in net.named_parameters():
+            if "GroupNorm" in name or p.dim() <= 1 or not p.is_floating_point():
+                continue
+            p.data = p.data.to(torch.bfloat16)
+        for m in net.modules():
+            if isinstance(m, ResnetBlockBigGANpp) and m.Conv_2 is not None:
+                m.Conv_2.bias.data = m.Conv_2.bias.data.to(torch.bfloat16)
 
 
 @dataclass
@@ -66,19 +88,9 @@ class ScoreModel:
 
     # -- setup ------------------------------------------------------------
     def cast_params_for_inference(self) -> None:
-        """Cast the backbone's weights to its compute dtype, in place.
-
-        As use_tpu's cast: with a bf16 compute dtype every parameter except
-        the GroupNorm affines and 1-D parameters (biases, the Gaussian-Fourier
-        projection) becomes bf16 once, instead of at every use. A no-op for
-        fp32 backbones."""
-        if self.score_net.cfg.dtype != "bfloat16":
-            return
-        with torch.no_grad():
-            for name, p in self.score_net.named_parameters():
-                if "GroupNorm" in name or p.dim() <= 1 or not p.is_floating_point():
-                    continue
-                p.data = p.data.to(torch.bfloat16)
+        """Cast the backbone's weights to its compute dtype, in place
+        (``cast_backbone_for_inference``)."""
+        cast_backbone_for_inference(self.score_net)
 
     # -- pieces -----------------------------------------------------------
     def _spec(self, wav: torch.Tensor) -> torch.Tensor:

@@ -22,6 +22,8 @@ import subprocess
 import time
 from typing import Dict, List
 
+import torch
+
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
@@ -86,9 +88,20 @@ def build_all(names=SOURCES) -> Dict[str, float]:
 
 @functools.lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
-    """The built library for csrc/<name>.cu (built on first use)."""
+    """The built library for csrc/<name>.cu (built on first use), loaded as a
+    ``ctypes.PyDLL``: its calls keep the GIL. Every entry point only enqueues
+    work on a stream and returns, and letting go of the GIL and taking it
+    back can cost more than that when another thread (the profiler's, a data
+    loader's) asks for it in between."""
     build_all((name,))
-    return ctypes.CDLL(lib_path(name))
+    return ctypes.PyDLL(lib_path(name))
+
+
+def stream(t) -> int:
+    """The raw handle of the current CUDA stream on tensor t's device, as a
+    kernel's C entry point takes it (the call PyTorch's own generated
+    kernels use; cheaper than building a ``torch.cuda.Stream``)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def check(status: int, what: str) -> None:

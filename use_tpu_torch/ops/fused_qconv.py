@@ -219,7 +219,7 @@ def qconv3x3_fused_prepared(
     status = _lib().qconv3x3_fused(
         x.data_ptr(), _DTYPE_CODES[x.dtype], a.data_ptr(), off.data_ptr(), iu.data_ptr(),
         qw.data_ptr(), sw.data_ptr(), bz.data_ptr(), out.data_ptr(), _DTYPE_CODES[out_dtype],
-        bsz, c, hh, ww, o, int(bool(act)), TILES[tile], torch.cuda.current_stream(dev).cuda_stream,
+        bsz, c, hh, ww, o, int(bool(act)), TILES[tile], cuda_build.stream(x),
     )
     cuda_build.check(status, "qconv3x3_fused")
     _counter.launches += 1

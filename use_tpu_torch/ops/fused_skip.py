@@ -4,8 +4,10 @@ Port of the Pallas kernel use_tpu/ops/pallas_skip.py::fused_skip_add: the
 BigGAN resblock's 1x1 ``Conv_2`` shortcut, residual add and skip_rescale in
 one pass (use_tpu/models/ncsnpp/layers.py:610-619), on NCHW tensors. The
 CUDA C++ kernel (csrc/fused_skip.cu) computes the per-batch GEMM
-W [Co, Ci] x [Ci, S] itself, with fp32 accumulation, and an epilogue that
-reads h and writes the output once. Bounds and design: see the note there.
+W [Co, Ci] x [Ci, S] itself, with fp32 accumulation (bf16 on the tensor
+cores, fp32 on the CUDA cores), and an epilogue that reads h and writes the
+output once. Tiles and the 16-byte or scalar path are picked in the C entry
+point. Bounds and design: see the note there.
 
 ``fused_skip_add`` takes ``fused_skip_add_plain`` for CPU tensors; for CUDA
 tensors it launches the kernel or raises. ``fused_skip_add.launches`` counts
@@ -30,7 +32,7 @@ def _shapes(x: torch.Tensor, h: torch.Tensor, w: torch.Tensor, b: torch.Tensor):
     co = h.shape[1]
     if h.shape != (bsz, co, hh, ww):
         raise ValueError(f"h {tuple(h.shape)} does not match x {tuple(x.shape)} in batch/space")
-    w2 = w.reshape(w.shape[0], -1)
+    w2 = w if w.dim() == 2 else w.reshape(w.shape[0], -1)
     if w2.shape != (co, ci) or b.shape != (co,):
         raise ValueError(f"weight {tuple(w.shape)} / bias {tuple(b.shape)} do not map {ci} -> {co}")
     return bsz, ci, co, hh * ww, w2
@@ -52,26 +54,27 @@ def fused_skip_add(
     """(h + conv1x1(x; w, b)) * scale for x [B, Ci, H, W], h [B, Co, H, W],
     w [Co, Ci] (or [Co, Ci, 1, 1]), b [Co]; all of one dtype, output in it."""
     bsz, ci, co, s, w2 = _shapes(x, h, w, b)
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return fused_skip_add_plain(x, h, w, b, scale)
-    if x.device.type != "cuda":
+    if not x.is_cuda:
         raise ValueError(f"fused_skip_add: expected a CPU or CUDA tensor, got {x.device}")
     if x.dtype not in _DTYPE_CODES:
         raise TypeError(f"fused_skip_add: dtype {x.dtype} not supported (float32, bfloat16)")
+    dev = x.get_device()
     for t, name in ((h, "h"), (w2, "w"), (b, "b")):
-        if t.dtype != x.dtype or t.device != x.device:
+        if t.dtype != x.dtype or t.get_device() != dev:
             raise TypeError(f"fused_skip_add: {name} must match x in dtype and device")
         if not t.is_contiguous():
             raise ValueError(f"fused_skip_add: {name} must be contiguous")
     if not x.is_contiguous():
         raise ValueError("fused_skip_add: x must be contiguous (NCHW)")
-    if bsz > 65535 or co > 65535 * 64:
-        raise ValueError(f"fused_skip_add: batch {bsz} / Co {co} exceeds the launch grid")
+    if bsz > 65535:
+        raise ValueError(f"fused_skip_add: batch {bsz} exceeds the launch grid")
     out = torch.empty_like(h)
     status = _lib().fused_skip_add(
         x.data_ptr(), h.data_ptr(), w2.data_ptr(), b.data_ptr(), out.data_ptr(),
         _DTYPE_CODES[x.dtype], bsz, ci, co, s, float(scale),
-        torch.cuda.current_stream(x.device).cuda_stream,
+        cuda_build.stream(x),
     )
     cuda_build.check(status, "fused_skip_add")
     fused_skip_add.launches += 1

@@ -7,6 +7,9 @@ GroupNorm is two hand-written CUDA passes (csrc/gn_stats.cu):
 
 - ``channel_sums(x)``: per-(batch, channel) sum and sum of squares of
   x [B, C, S] in one read, fp32 accumulators;
+- ``gn_fold(x, weight, bias, groups, eps)``: the same pass with the GroupNorm
+  fold inside it (int8 serving's 'fold' mode, layers.py:231-250): the
+  per-(batch, channel) scale and shift, for the int8 conv to apply;
 - ``gn_apply(x, sums, sumsq, weight, bias, groups, ...)``: folds the group
   statistics, the clamped one-pass variance E[x^2]-E[x]^2, eps and the affine
   into a per-(batch, channel) scale and shift, and writes
@@ -15,9 +18,13 @@ GroupNorm is two hand-written CUDA passes (csrc/gn_stats.cu):
 Route: CUDA C++ through the same nvcc + ctypes build as K2, so the port has
 one build path and no Triton dependency.
 
+The statistics pass is one launch where a row is not cut into slices
+(``split_rows``; every batch-8 level from 128 x 48 down), else a slice pass
+and an ordered finalize.
+
 Each wrapper takes its plain torch version (``*_plain``) for a CPU tensor;
 for a CUDA tensor it launches its kernel or raises. ``<wrapper>.launches``
-counts kernel launches. Bounds and design: see the note in csrc/gn_stats.cu.
+counts kernel launches; ``gn_fold`` counts as ``channel_sums``. Bounds and design: see the note in csrc/gn_stats.cu.
 Not ported yet: the backward dx = ds + 2 x dss (training slice).
 """
 from __future__ import annotations
@@ -35,6 +42,8 @@ ACT_CODES = {None: 0, "swish": 1, "relu": 2, "lrelu": 3, "elu": 4}  # get_act na
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _TARGET_BLOCKS = 132 * 8  # enough blocks in flight to fill the H100's 132 SMs
 _MIN_CHUNK = 8192  # elements a block streams at least
+_WARPS = 8  # warps of a statistics block
+_VEC = 8  # slices are whole 16-byte loads of bf16 (8) and fp32 (4) elements
 
 
 def num_groups(channels: int) -> int:
@@ -42,20 +51,28 @@ def num_groups(channels: int) -> int:
     return min(max(channels // 4, 1), 32)
 
 
+@functools.lru_cache(maxsize=None)
 def split_rows(rows: int, s: int) -> Tuple[int, int]:
     """(splits, chunk): cut each of `rows` rows of `s` elements into `splits`
-    slices of `chunk` elements (a multiple of 4), enough blocks to fill the
-    card without slices below _MIN_CHUNK elements."""
+    slices of `chunk` elements (a multiple of 8), enough blocks to fill the
+    card without slices below _MIN_CHUNK elements. One slice means short
+    rows: the statistics take one warp a row and one launch."""
     want = max(1, -(-_TARGET_BLOCKS // rows))
     splits = max(1, min(want, -(-s // _MIN_CHUNK), 65535))
     chunk = -(-s // splits)
-    chunk = -(-chunk // 4) * 4
+    chunk = -(-chunk // _VEC) * _VEC
     splits = -(-s // chunk)
     return splits, chunk
 
 
+def rows_per_block(cg: int) -> int:
+    """Rows a short-row statistics block owns: whole groups of `cg` rows, and
+    at least one for each of its warps where a group is smaller."""
+    return cg * max(1, _WARPS // cg)
+
+
 def _check_cuda(x: torch.Tensor, what: str) -> None:
-    if x.device.type != "cuda":
+    if not x.is_cuda:
         raise ValueError(f"{what}: expected a CPU or CUDA tensor, got {x.device}")
     if x.dtype not in _DTYPE_CODES:
         raise TypeError(f"{what}: dtype {x.dtype} not supported (float32, bfloat16)")
@@ -77,31 +94,86 @@ def channel_sums_plain(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return xf.sum(dim=2), (xf * xf).sum(dim=2)
 
 
+@functools.lru_cache(maxsize=None)
+def _stats_plan(b: int, c: int, s: int, dtype: torch.dtype, groups: int) -> tuple:
+    """The statistics launch's constants for x [B, C, S] of `dtype`, with
+    the fold of `groups` groups (0: no fold): (dtype code, rows, S, splits,
+    chunk, rows a short-row block, whether 16-byte loads fit a row, C, cg)."""
+    rows = b * c
+    splits, chunk = split_rows(rows, s)
+    cg = c // groups if groups else 1
+    vec = s % (16 // dtype.itemsize) == 0
+    return _DTYPE_CODES[dtype], rows, s, splits, chunk, rows_per_block(cg), vec, c, cg
+
+
+def _stats(x: torch.Tensor, what: str, weight: Optional[torch.Tensor] = None,
+           bias: Optional[torch.Tensor] = None, groups: int = 0,
+           eps: float = 0.0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One statistics launch on a CUDA tensor x [B, C, S]: the channel sums,
+    or with weight and bias their GroupNorm fold. Both halves of the result
+    are views of one [2, B, C] fp32 tensor. At the U-Net's low levels the
+    card's work is a few microseconds and the host's steps here are the
+    cost, so they are kept few: the launch constants are computed once per
+    shape, one allocation, no copies of fp32 parameters."""
+    _check_cuda(x, what)
+    b, c, s = x.shape
+    if groups and c % groups:
+        raise ValueError(f"{what}: {c} channels not divisible into {groups} groups")
+    code, rows, s, splits, chunk, per_block, vec, c, cg = _stats_plan(b, c, s, x.dtype, groups)
+    x_ptr = x.data_ptr()
+    w_ptr = b_ptr = None
+    if weight is not None:
+        if weight.dtype != torch.float32 or not weight.is_contiguous():
+            weight = weight.float().contiguous()
+        if bias.dtype != torch.float32 or not bias.is_contiguous():
+            bias = bias.float().contiguous()
+        if weight.shape != (c,) or bias.shape != (c,):
+            raise ValueError(f"{what}: weight / bias must be [{c}]")
+        if weight.get_device() != x.get_device() or bias.get_device() != x.get_device():
+            raise ValueError(f"{what}: all tensors must be on one device")
+        w_ptr, b_ptr = weight.data_ptr(), bias.data_ptr()
+    out = x.new_empty((2, b, c), dtype=torch.float32)
+    part = x.new_empty(2 * rows * splits, dtype=torch.float32) if splits > 1 else None
+    status = _lib().gn_channel_sums(
+        x_ptr, code, rows, s, splits, chunk, per_block, int(vec and x_ptr % 16 == 0),
+        None if part is None else part.data_ptr(), out.data_ptr(), w_ptr, b_ptr, c, cg, eps,
+        cuda_build.stream(x),
+    )
+    cuda_build.check(status, what)
+    channel_sums.launches += 1
+    return out.unbind(0)
+
+
 def channel_sums(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(sum_x, sum_x2) over axis 2 of [B, C, S], fp32, in one read of x."""
     if x.dim() != 3:
         raise ValueError(f"channel_sums expects [B, C, S], got {tuple(x.shape)}")
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return channel_sums_plain(x)
-    _check_cuda(x, "channel_sums")
-    b, c, s = x.shape
-    rows = b * c
-    splits, chunk = split_rows(rows, s)
-    part = torch.empty((2, rows, splits), dtype=torch.float32, device=x.device)
-    sums = torch.empty((b, c), dtype=torch.float32, device=x.device)
-    sumsq = torch.empty((b, c), dtype=torch.float32, device=x.device)
-    lib = _lib()
-    status = lib.gn_channel_sums(
-        x.data_ptr(), _DTYPE_CODES[x.dtype], rows, s, splits, chunk, _vec_ok(s, chunk, x),
-        part.data_ptr(), sums.data_ptr(), sumsq.data_ptr(),
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    cuda_build.check(status, "gn_channel_sums")
-    channel_sums.launches += 1
-    return sums, sumsq
+    return _stats(x, "channel_sums")
 
 
 channel_sums.launches = 0
+
+
+def gn_fold_plain(
+    x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, groups: int, eps: float = 1e-6,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    return fold_scale_shift(*channel_sums_plain(x), weight, bias, groups, x.shape[2], eps)
+
+
+def gn_fold(
+    x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, groups: int, eps: float = 1e-6,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """GroupNorm statistics of [B, C, S] folded with the affine into (a, off),
+    both [B, C] fp32, so that GroupNorm(x) = x * a + off (``fold_scale_shift``
+    of the channel sums), in one read of x. On the card it is the statistics
+    kernel with the fold inside, and counts as a ``channel_sums`` launch."""
+    if x.dim() != 3:
+        raise ValueError(f"gn_fold expects [B, C, S], got {tuple(x.shape)}")
+    if x.is_cpu:
+        return gn_fold_plain(x, weight, bias, groups, eps)
+    return _stats(x, "gn_fold", weight, bias, groups, eps)
 
 
 def group_mean_meansq(x: torch.Tensor, groups: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -173,7 +245,7 @@ def gn_apply(
     if act not in ACT_CODES:
         raise NotImplementedError(f"activation {act!r} not supported")
     out_dtype = out_dtype or x.dtype
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return gn_apply_plain(x, sums, sumsq, weight, bias, groups, eps, act, out_dtype)
     _check_cuda(x, "gn_apply")
     if out_dtype not in _DTYPE_CODES:
@@ -184,11 +256,15 @@ def gn_apply(
     for t, name in ((sums, "sums"), (sumsq, "sumsq")):
         if t.shape != (b, c) or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"gn_apply: {name} must be contiguous fp32 [{b}, {c}]")
-    weight = weight.float().contiguous()
-    bias = bias.float().contiguous()
-    if weight.device != x.device or bias.device != x.device or sums.device != x.device:
+    if weight.dtype != torch.float32 or not weight.is_contiguous():
+        weight = weight.float().contiguous()
+    if bias.dtype != torch.float32 or not bias.is_contiguous():
+        bias = bias.float().contiguous()
+    dev = x.get_device()
+    if weight.get_device() != dev or bias.get_device() != dev or sums.get_device() != dev \
+            or sumsq.get_device() != dev:
         raise ValueError("gn_apply: all tensors must be on one device")
-    y = torch.empty((b, c, s), dtype=out_dtype, device=x.device)
+    y = torch.empty_like(x, dtype=out_dtype)
     rows = b * c
     splits, chunk = split_rows(rows, s)
     lib = _lib()
@@ -196,7 +272,7 @@ def gn_apply(
         x.data_ptr(), _DTYPE_CODES[x.dtype], y.data_ptr(), _DTYPE_CODES[out_dtype],
         sums.data_ptr(), sumsq.data_ptr(), weight.data_ptr(), bias.data_ptr(),
         rows, c, groups, s, splits, chunk, float(eps), ACT_CODES[act],
-        _vec_ok(s, chunk, x, y), torch.cuda.current_stream(x.device).cuda_stream,
+        _vec_ok(s, chunk, x, y), cuda_build.stream(x),
     )
     cuda_build.check(status, "gn_apply")
     gn_apply.launches += 1
@@ -222,7 +298,9 @@ def group_norm_act(
 def _lib() -> ctypes.CDLL:
     lib = cuda_build.load("gn_stats")
     p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    lib.gn_channel_sums.argtypes = [p, i32, i64, i64, i32, i64, i32, p, p, p, p]
+    lib.gn_channel_sums.argtypes = [
+        p, i32, i64, i64, i32, i64, i32, i32, p, p, p, p, i32, i32, ctypes.c_float, p,
+    ]
     lib.gn_channel_sums.restype = i32
     lib.gn_apply.argtypes = [
         p, i32, p, i32, p, p, p, p, i64, i32, i32, i64, i32, i64, ctypes.c_float, i32, i32, p,
