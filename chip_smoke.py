@@ -34,9 +34,22 @@ Phases, one line each (any failure raises and exits non-zero):
      synthetic 24 kHz wavs (3 s full-clip, 6 s chunked into 8 lanes) with
      seeded random weights, once in fp32 and once as int8 bf16 serving;
      checks the mirrored, length-matched, finite outputs and that each
-     kernel was launched exactly as often as each forward of that run needs.
-Then a JSON line of the kernels, the card line, and the last line
-{"ok": true, "device": {...}}.
+     kernel was launched exactly as often as each forward of that run needs;
+  6. the LSGAN generator (`ncsnpp`, discriminative, full width) forward at
+     [1, 512, 1536, 2], the card against the CPU, with its exact launches a
+     forward (`PER_GENERATOR_FORWARD`) and K2's calls by level;
+  7. flops: the arithmetic of one forward on the card at each of
+     FLOPS_FORWARDS' full shapes (convolutions, matmuls, attention, and
+     K2's 1x1 products), the work the predict runs' rates are read against;
+  8. predict through the LSGAN and hybrid paths and the other samplers, fp32:
+     `experiment=LSGAN` on the 3 s and 6 s clips; on the 6 s clip the chains
+     `sgmse+gan` and `gan+sgmse` (condition=both, sde_input=denoised) at
+     N=CHAIN_N, `infer.sampler_type=ode` at N=ODE_N and `parallel_pc`
+     (PARALLEL_ARGS); per stage (SGMSE sampling, LSGAN enhance) the backbone
+     forwards and each kernel's launches, checked against the per-forward
+     counts, with NFE, sweeps, peak device memory and audio-s/s.
+Each phase prints its seconds. Then a JSON line of the kernels, the card
+line, and the last line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -63,12 +76,25 @@ GN_SHAPES = [
     (8, 256, 32, 12),  # a low level, 8 lanes
     (1, 128, 512, 1536),  # full resolution, 10 s full clip
     (8, 256, 8, 3),  # the lowest level, 8 lanes
+    (1, 384, 512, 1536),  # LSGAN generator, 10 s clip: the up path's skip concat
+    (1, 256, 256, 768),  # LSGAN generator, 10 s clip: level 1
+    (8, 128, 512, 960),  # parallel_pc on the 6 s clip: W = 8 trajectory points of [512, 960]
+    (8, 256, 512, 960),  # parallel_pc: the up path's skip concat at full resolution
 ]
 SKIP_SHAPES = [  # (B, Ci, Co, H, W)
     (8, 256, 128, 512, 192),  # up path, full-resolution block, 8 lanes
     (8, 128, 128, 256, 96),  # first down block (shortcut after the FIR downsample), 8 lanes
     (1, 256, 128, 512, 1536),  # up path, full-resolution block, 10 s full clip
     (8, 512, 256, 128, 48),  # up path at 128 x 48 (Co 256: two channel tiles), 8 lanes
+    # the LSGAN generator (ncsnpp) on a 10 s clip at batch 1
+    (1, 128, 256, 256, 768),  # level 1's first block (128 -> 256)
+    (1, 512, 256, 256, 768),  # up path, level 1
+    (1, 384, 256, 256, 768),  # up path, level 1, the skip from level 0
+    (1, 384, 128, 512, 1536),  # up path, full resolution
+    # ncsnpplarge in a parallel_pc sweep on the 6 s clip: batch W = 8 of [512, 960]
+    (8, 256, 128, 512, 960),  # up path, full resolution
+    (8, 384, 128, 256, 480),  # up path at 256 x 480, the skip from level 2
+    (8, 512, 256, 128, 240),  # up path at 128 x 240
 ]
 SKIP_RAGGED = (2, 36, 40, 5, 7)  # ragged Ci, Co and positions, scalar path: checked, not timed
 QCONV_SHAPES = [  # (B, C, O, H, W): int8 predict path, 8 lanes
@@ -98,6 +124,21 @@ PREDICT_CLIPS_S = (3, 6)  # full-clip, and >= 5 s: chunked into 8 lanes
 PREDICT_N = 10
 INT8_PREDICT_ARGS = ("model.backbone_kwargs.quant=int8_pallas",
                      "model.backbone_kwargs.dtype=bfloat16")
+# the LSGAN generator's forward: a 10 s clip (1501 frames, padded to 1536)
+GAN_FORWARD_SHAPE = (1, 512, 1536, 2)
+CHAIN_N, ODE_N = 4, 3  # ODE: 4N + 1 = 13 network evaluations
+PARALLEL_ARGS = ("infer.sampler_type=parallel_pc", "infer.N=10", "infer.window=8",
+                 "infer.tol=0.1")
+# kernel launches per forward of the LSGAN generator (ncsnpp, discriminative, fp32)
+PER_GENERATOR_FORWARD = {"channel_sums": 45, "gn_apply": 45, "fused_skip_add": 15,
+                         "qconv3x3_fused": 0}
+# the forwards whose arithmetic phase 7 counts: (backbone, kwargs, input shape)
+FLOPS_FORWARDS = [
+    ("ncsnpp", {"discriminative": True}, GAN_FORWARD_SHAPE),  # the LSGAN generator, 10 s
+    ("ncsnpplarge", {"input_channels": 4}, FORWARD_SHAPE),  # 8 chunk lanes of a 6 s clip
+    ("ncsnpplarge", {"input_channels": 6}, (1, 512, 960, 6)),  # gan+sgmse, 6 s full clip
+    ("ncsnpplarge", {"input_channels": 4}, (8, 512, 960, 4)),  # a parallel_pc sweep, W = 8
+]
 # kernel launches per ncsnpplarge forward on each predict run
 PER_FORWARD = {
     "float32": {"channel_sums": 106, "gn_apply": 106, "fused_skip_add": 34, "qconv3x3_fused": 0},
@@ -148,15 +189,35 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     with torch.inference_mode():  # as the predict path's sampler calls the kernels
-        results = kernel_phases(torch, dev)
+        results = timed("kernels", kernel_phases, torch, dev)
     runs = {label: {name: None for name in results} for label in PER_FORWARD}
     if not args.kernels:
-        forward_phase(torch, dev)
-        int8_forward_phase(torch, dev)
-        runs = {"float32": predict_phase(torch, dev, "float32", ()),
-                "int8_bfloat16": predict_phase(torch, dev, "int8_bfloat16", INT8_PREDICT_ARGS)}
+        timed("forward", forward_phase, torch, dev)
+        timed("int8_forward", int8_forward_phase, torch, dev)
+        runs = {"float32": timed("predict float32", predict_phase, torch, dev, "float32", ()),
+                "int8_bfloat16": timed("predict int8_bfloat16", predict_phase, torch, dev,
+                                       "int8_bfloat16", INT8_PREDICT_ARGS)}
+        timed("lsgan_forward", lsgan_forward_phase, torch, dev)
+        timed("flops", flops_phase, torch, dev)
+        sgmse, gan = PER_FORWARD["float32"], PER_GENERATOR_FORWARD
+        both = ("second.model.condition=both", "second.model.sde_input=denoised")
+        for label, experiment, extra, clips, per_stage in (
+                ("lsgan", "LSGAN", (), PREDICT_CLIPS_S, {"lsgan": gan}),
+                ("sgmse+gan", "SGMSE_Large", ("predict.chain=sgmse+gan",
+                                              "predict.second_experiment=LSGAN",
+                                              f"infer.N={CHAIN_N}"),
+                 (6,), {"sgmse": sgmse, "lsgan": gan}),
+                ("gan+sgmse", "LSGAN", ("predict.chain=gan+sgmse",
+                                        "predict.second_experiment=SGMSE_Large", *both,
+                                        f"infer.N={CHAIN_N}"),
+                 (6,), {"lsgan": gan, "sgmse": sgmse}),
+                ("ode", "SGMSE_Large", ("infer.sampler_type=ode", f"infer.N={ODE_N}"), (6,),
+                 {"sgmse": sgmse}),
+                ("parallel_pc", "SGMSE_Large", PARALLEL_ARGS, (6,), {"sgmse": sgmse})):
+            runs[label] = timed(f"predict {label}", stage_predict_phase, torch, dev, label,
+                                experiment, extra, clips, per_stage)
         if args.profile:
-            profile_phase(torch, dev)
+            timed("profile", profile_phase, torch, dev)
 
     line = []
     for name, cases in results.items():
@@ -181,6 +242,14 @@ def main():
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0
+
+
+def timed(name, fn, *args):
+    """fn(*args), then a line with the phase's wall seconds."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    phase("seconds", of=name, seconds=round(time.perf_counter() - t0, 2))
+    return out
 
 
 def time_ms(torch, fn, reps=20, warmup=3):
@@ -484,6 +553,7 @@ def qconv_phase(torch, dev, gen):
                 name="qconv3x3_fused", route="cuda", source="use_tpu_torch/csrc/fused_qconv.cu",
                 replaces="use_tpu/ops/pallas_qconv.py:186", **checked,
                 ms=time_ms(torch, lambda: fq.qconv3x3_fused_prepared(*run_args)),
+                device_ms=device_ms(torch, lambda: fq.qconv3x3_fused_prepared(*run_args))[0],
                 tile_ms={t: time_ms(torch, lambda: fq.qconv3x3_fused_prepared(*run_args, tile=t))
                          for t in fq.TILES},
                 prep_ms=time_ms(torch, lambda: fq.prepare_qconv_weight(w, u)),
@@ -591,7 +661,7 @@ def forward_phase(torch, dev):
     the bf16 compute path against fp32 on the card for BF16_SEEDS, and a
     broken bf16 control that the same limit must reject."""
     from use_tpu_torch.models import BackboneRegistry
-    from use_tpu_torch.models.sgmse.score_model import cast_backbone_for_inference
+    from use_tpu_torch.models.ncsnpp.ncsnpp import cast_backbone_for_inference
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -696,7 +766,7 @@ def int8_forward_phase(torch, dev):
     by image size and channels."""
     from use_tpu_torch.models import BackboneRegistry
     from use_tpu_torch.models.ncsnpp import layers
-    from use_tpu_torch.models.sgmse.score_model import cast_backbone_for_inference
+    from use_tpu_torch.models.ncsnpp.ncsnpp import cast_backbone_for_inference
     from use_tpu_torch.ops import fused_qconv
 
     gen = torch.Generator().manual_seed(0)
@@ -756,18 +826,11 @@ def predict_phase(torch, dev, label, extra_args):
     forward (one forward a sampler step and file)."""
     from use_tpu_torch import ops
     from use_tpu_torch.cli.main import main as cli_main
-    from use_tpu_torch.data.audio_io import read_wav, write_wav
 
     sr = 24000
-    rng = np.random.default_rng(3)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         src, dst = os.path.join(tmp, "in"), os.path.join(tmp, "out")
-        short_s, long_s = PREDICT_CLIPS_S
-        lengths = {"a/short.wav": short_s * sr, "b/long.wav": long_s * sr}
-        for rel, n in lengths.items():
-            tt = np.arange(n) / sr
-            wav = 0.3 * np.sin(2 * np.pi * 220 * tt) + 0.05 * rng.standard_normal(n)
-            write_wav(os.path.join(src, rel), wav.astype(np.float32), sr)
+        lengths = write_clips(src, PREDICT_CLIPS_S, sr)
         ops.reset_launch_counts()
         t0 = time.perf_counter()
         summary = cli_main(["predict", f"experiment={PREDICT_EXPERIMENT}",
@@ -776,12 +839,7 @@ def predict_phase(torch, dev, label, extra_args):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = ops.launch_counts()
-        for rel, n in lengths.items():
-            data, got_sr = read_wav(os.path.join(dst, rel))
-            if got_sr != sr or data.shape != (n,) or not np.isfinite(data).all():
-                raise AssertionError(f"predict output {rel}: sr {got_sr}, shape {data.shape}")
-        if summary["files"] != len(lengths):
-            raise AssertionError(f"predict wrote {summary['files']} files")
+        check_outputs(dst, lengths, sr, summary)
     forwards = len(lengths) * PREDICT_N
     want = {k: v * forwards for k, v in PER_FORWARD[label].items()}
     if counts != want:
@@ -795,10 +853,206 @@ def predict_phase(torch, dev, label, extra_args):
     return counts
 
 
+def write_clips(src, clips_s, sr):
+    """Synthetic wavs (a 220 Hz tone in noise) of `clips_s` seconds under
+    src/; -> {relative path: samples}."""
+    from use_tpu_torch.data.audio_io import write_wav
+
+    rng = np.random.default_rng(3)
+    lengths = {}
+    for i, secs in enumerate(clips_s):
+        n = secs * sr
+        tt = np.arange(n) / sr
+        wav = 0.3 * np.sin(2 * np.pi * 220 * tt) + 0.05 * rng.standard_normal(n)
+        rel = ("a/short.wav", "b/long.wav")[i] if len(clips_s) == 2 else f"clip{i}.wav"
+        write_wav(os.path.join(src, rel), wav.astype(np.float32), sr)
+        lengths[rel] = n
+    return lengths
+
+
+def check_outputs(dst, lengths, sr, summary):
+    """The predict run wrote every clip, mirrored, length-matched, finite."""
+    from use_tpu_torch.data.audio_io import read_wav
+
+    for rel, n in lengths.items():
+        data, got_sr = read_wav(os.path.join(dst, rel))
+        if got_sr != sr or data.shape != (n,) or not np.isfinite(data).all():
+            raise AssertionError(f"predict output {rel}: sr {got_sr}, shape {data.shape}")
+    if summary["files"] != len(lengths):
+        raise AssertionError(f"predict wrote {summary['files']} files")
+
+
+def lsgan_forward_phase(torch, dev):
+    """The shipped LSGAN generator's backbone (`ncsnpp`, discriminative, fp32,
+    full width) with seeded random weights at GAN_FORWARD_SHAPE: the card
+    (kernels) against the CPU (plain versions) within 1e-3 x max|ref|, as
+    forward_phase; the launches of one forward on the card must equal
+    PER_GENERATOR_FORWARD; K2's calls by level; the forward's time."""
+    from use_tpu_torch import ops
+    from use_tpu_torch.models import BackboneRegistry
+    from use_tpu_torch.models.ncsnpp import layers
+
+    net = BackboneRegistry.get_by_name("ncsnpp")(discriminative=True, seed=0)
+    _randomize(torch, net, seed=1)
+    x = 0.5 * torch.randn(GAN_FORWARD_SHAPE, generator=torch.Generator().manual_seed(0))
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        ref = net(x, None)
+        cpu_s = time.perf_counter() - t0
+        gnet = copy.deepcopy(net).to(dev)
+        xd = x.to(dev)
+        ops.reset_launch_counts()
+        with count_calls(layers, "fused_skip_add", lambda h: h.shape[1]) as skip_calls:
+            out = gnet(xd, None)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        err = float((out.cpu() - ref).abs().max())
+        top = float(ref.abs().max())
+        tol = 1e-3 * top
+        ms = time_ms(torch, lambda: gnet(xd, None), reps=5, warmup=1)
+    phase("lsgan_forward", backbone="ncsnpp", discriminative=True, shape=list(GAN_FORWARD_SHAPE),
+          dtype="float32", tf32=False, max_abs_err=err, tol=tol, max_abs_ref=top,
+          cpu_seconds=round(cpu_s, 2), ms=ms, launches=counts, skip_calls=by_level(skip_calls))
+    if not (torch.isfinite(out).all() and err <= tol):
+        raise AssertionError(f"lsgan forward: card vs CPU max_abs_err {err} > tol {tol}")
+    if counts != PER_GENERATOR_FORWARD:
+        raise AssertionError(f"lsgan forward: launches {counts}, expected {PER_GENERATOR_FORWARD}")
+    del net, gnet, ref, out
+    torch.cuda.empty_cache()
+
+
+def flops_phase(torch, dev):
+    """TFLOP of one forward at each of FLOPS_FORWARDS' full shapes, on the
+    card: torch.utils.flop_counter counts the convolutions, matmuls and the
+    attention as they dispatch; K2 runs outside torch's dispatch, so each of
+    its calls adds its 2 * B * S * Ci * Co here. GroupNorm, SiLU and the FIR
+    resampling are not counted."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from use_tpu_torch.models import BackboneRegistry
+    from use_tpu_torch.models.ncsnpp import layers
+
+    real = layers.fused_skip_add
+    for backbone, kwargs, shape in FLOPS_FORWARDS:
+        net = BackboneRegistry.get_by_name(backbone)(seed=0, **kwargs).to(dev)
+        x = torch.zeros(shape, device=dev)
+        t = None if kwargs.get("discriminative") else torch.full((shape[0],), 0.5, device=dev)
+        skip_flops = [0]
+
+        def counting(x, h, *args, **kw):
+            skip_flops[0] += 2 * x.shape[0] * x.shape[2] * x.shape[3] * x.shape[1] * h.shape[1]
+            return real(x, h, *args, **kw)
+
+        layers.fused_skip_add = counting
+        try:
+            with torch.inference_mode(), FlopCounterMode(display=False) as counter:
+                net(x, t)
+        finally:
+            layers.fused_skip_add = real
+        torch.cuda.synchronize()
+        total = counter.get_total_flops() + skip_flops[0]
+        phase("flops", backbone=backbone, kwargs=kwargs, shape=list(shape), tflop=total / 1e12,
+              k2_tflop=skip_flops[0] / 1e12)
+        del net, x
+        torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def stage_counts():
+    """Per stage of a predict run, "sgmse" (ScoreModel.sample) and "lsgan"
+    (LSGAN.enhance): the backbone forwards (NCSNpp.forward calls) and each
+    kernel's launches it made, summed over the run."""
+    from use_tpu_torch import ops
+    from use_tpu_torch.models.gan.lsgan import LSGAN
+    from use_tpu_torch.models.ncsnpp.ncsnpp import NCSNpp
+    from use_tpu_torch.models.sgmse.score_model import ScoreModel
+
+    stages = {}
+    forwards = [0]
+    real_forward, real_sample, real_enhance = NCSNpp.forward, ScoreModel.sample, LSGAN.enhance
+
+    def forward(self, *args, **kw):
+        forwards[0] += 1
+        return real_forward(self, *args, **kw)
+
+    def staged(name, real):
+        def run(self, *args, **kw):
+            before, f0 = ops.launch_counts(), forwards[0]
+            out = real(self, *args, **kw)
+            after = ops.launch_counts()
+            st = stages.setdefault(name, {"forwards": 0, "launches": dict.fromkeys(after, 0)})
+            st["forwards"] += forwards[0] - f0
+            for k in after:
+                st["launches"][k] += after[k] - before[k]
+            return out
+        return run
+
+    NCSNpp.forward = forward
+    ScoreModel.sample = staged("sgmse", real_sample)
+    LSGAN.enhance = staged("lsgan", real_enhance)
+    try:
+        yield stages
+    finally:
+        NCSNpp.forward, ScoreModel.sample, LSGAN.enhance = real_forward, real_sample, real_enhance
+
+
+def stage_predict_phase(torch, dev, label, experiment, extra_args, clips_s, per_stage):
+    """The CLI's predict with `extra_args` on synthetic clips of `clips_s`
+    seconds, fp32; checks the outputs, that the stages in `per_stage` ran,
+    and per stage that each kernel launched exactly per_stage[stage] times a
+    backbone forward, with the SGMSE stage's forwards equal to its NFE (pc,
+    ode) or its sweeps (parallel_pc: W trajectory points a forward) and one
+    LSGAN forward a file. Reports NFE, sweeps, peak device memory (after a
+    reset of the peak) and audio-s/s; -> the run's launches by kernel."""
+    from use_tpu_torch import ops
+    from use_tpu_torch.cli.main import main as cli_main
+
+    sr = 24000
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        src, dst = os.path.join(tmp, "in"), os.path.join(tmp, "out")
+        lengths = write_clips(src, clips_s, sr)
+        ops.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        with stage_counts() as stages:
+            summary = cli_main(["predict", f"experiment={experiment}",
+                                f"predict.data_folder={src}", f"predict.target_folder={dst}",
+                                f"device={dev}", *extra_args])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev)
+        counts = ops.launch_counts()
+        check_outputs(dst, lengths, sr, summary)
+    phase("predict", run=label, experiment=experiment, args=list(extra_args),
+          clips_s=list(clips_s), tf32=bool(torch.backends.cudnn.allow_tf32),
+          files=summary["files"], audio_seconds=summary["audio_seconds"],
+          sampling_seconds=summary["seconds"], wall_seconds=wall,
+          audio_s_per_s=summary["audio_seconds"] / summary["seconds"],
+          nfe=summary.get("nfe"), sweeps=summary.get("sweeps"), peak_memory_bytes=peak,
+          stages=stages, launches=counts)
+    if set(stages) != set(per_stage):
+        raise AssertionError(f"predict {label}: stages {sorted(stages)}, expected {sorted(per_stage)}")
+    for name, st in stages.items():
+        want = {k: v * st["forwards"] for k, v in per_stage[name].items()}
+        if st["launches"] != want:
+            raise AssertionError(f"predict {label}, stage {name}: launches {st['launches']}, "
+                                 f"expected {want} ({st['forwards']} forwards)")
+    if "lsgan" in stages and stages["lsgan"]["forwards"] != len(lengths):
+        raise AssertionError(f"predict {label}: {stages['lsgan']['forwards']} generator forwards "
+                             f"for {len(lengths)} files")
+    if "sgmse" in stages:
+        calls = summary["sweeps"] if "sweeps" in summary else summary["nfe"]
+        if stages["sgmse"]["forwards"] != calls or calls == 0:
+            raise AssertionError(f"predict {label}: {stages['sgmse']['forwards']} score-net "
+                                 f"forwards, the sampler reports {calls}")
+    return counts
+
+
 def profile_phase(torch, dev):
     """One full-width forward at the chunked predict shape (8 lanes of a 6 s
     clip): wall ms in fp32 and bf16 (median of 5, CUDA events); then for the
-    fp32, the bf16 and the int8 bf16 serving forward, the kernel time of one
+    fp32, the bf16 and the int8 bf16 serving forward, and the LSGAN
+    generator's fp32 forward at GAN_FORWARD_SHAPE, the kernel time of one
     profiled forward by name, against that forward's profiled wall time
     (`busy_share`) and against the unprofiled wall time (`unprofiled_ms`,
     median of 5, CUDA events; `unprofiled_busy_share`): the profiler's own
@@ -811,26 +1065,35 @@ def profile_phase(torch, dev):
     from torch.profiler import ProfilerActivity, profile
 
     from use_tpu_torch.models import BackboneRegistry
-    from use_tpu_torch.models.sgmse.score_model import cast_backbone_for_inference
+    from use_tpu_torch.models.ncsnpp.ncsnpp import cast_backbone_for_inference
 
-    shape = (8, 512, 192, 4)
+    shape = FORWARD_SHAPE
     x = torch.randn(shape, device=dev)
-    t = torch.full((8,), 0.5, device=dev)
+    t = torch.full((shape[0],), 0.5, device=dev)
     for dtype in ("float32", "bfloat16"):
         net = BackboneRegistry.get_by_name("ncsnpplarge")(input_channels=4, dtype=dtype).to(dev)
         cast_backbone_for_inference(net)
         with torch.inference_mode():
             phase("forward_timing", shape=list(shape), dtype=dtype, tf32=False,
                   ms=time_ms(torch, lambda: net(x, t), reps=5, warmup=2))
-    for dtype, quant in (("float32", "none"), ("bfloat16", "none"), ("bfloat16", "int8_pallas")):
-        net = BackboneRegistry.get_by_name("ncsnpplarge")(
-            input_channels=4, dtype=dtype, quant=quant).to(dev)
+    nets = [(dict(backbone="ncsnpplarge", dtype=dtype, quant=quant), (x, t))
+            for dtype, quant in (("float32", "none"), ("bfloat16", "none"),
+                                 ("bfloat16", "int8_pallas"))]
+    # the LSGAN generator, fp32 as shipped, at the 10 s clip
+    nets.append((dict(backbone="ncsnpp", dtype="float32", quant="none", discriminative=True),
+                 (torch.randn(GAN_FORWARD_SHAPE, device=dev), None)))
+    for kw, net_args in nets:
+        kw = dict(kw)
+        name = kw.pop("backbone")
+        if not kw.get("discriminative"):
+            kw["input_channels"] = 4
+        net = BackboneRegistry.get_by_name(name)(**kw).to(dev)
         cast_backbone_for_inference(net)
         with torch.inference_mode():
-            unprofiled_ms = time_ms(torch, lambda: net(x, t), reps=5, warmup=2)
+            unprofiled_ms = time_ms(torch, lambda: net(*net_args), reps=5, warmup=2)
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
-                net(x, t)
+                net(*net_args)
                 torch.cuda.synchronize()
                 wall_ms = (time.perf_counter() - t0) * 1e3
             events = prof.key_averages()
@@ -840,11 +1103,13 @@ def profile_phase(torch, dev):
             op_counts = {e.key: e.count for e in events
                          if e.device_type == DeviceType.CPU and e.key.startswith("aten::")
                          and e.count >= 20}
-            phase("profile", shape=list(shape), dtype=dtype, quant=quant, wall_ms=wall_ms,
+            phase("profile", backbone=name, shape=list(net_args[0].shape), dtype=kw["dtype"],
+                  quant=kw["quant"], wall_ms=wall_ms,
                   kernel_ms=kernel_ms, busy_share=kernel_ms / wall_ms,
                   unprofiled_ms=unprofiled_ms, unprofiled_busy_share=kernel_ms / unprofiled_ms,
                   op_counts=dict(sorted(op_counts.items(), key=lambda kv: -kv[1])))
             print(events.table(sort_by="self_" + key, row_limit=30))
+        del net
 
 
 if __name__ == "__main__":

@@ -7,6 +7,7 @@ from __future__ import annotations
 
 from typing import Any, Mapping
 
+import jax
 import numpy as np
 import torch
 
@@ -49,3 +50,46 @@ def nchw_to_nhwc(x: torch.Tensor) -> np.ndarray:
 def assert_close(got, want, rtol: float, atol: float) -> None:
     np.testing.assert_allclose(np.asarray(got, np.float32), np.asarray(want, np.float32),
                                rtol=rtol, atol=atol)
+
+
+def jax_pc_noise(rng, n_steps: int, shape, n_corr: int) -> list:
+    """use_tpu's PC sampler draws, in the order the port's `noise_fn` is
+    called: per step `split(rng, 3)` -> crandn(rz) (sampling.py:151-159),
+    then the corrector's `split(rc)` draws (sampling.py:98-100)."""
+    from use_tpu.models.sgmse.sdes import crandn
+
+    out = []
+    for _ in range(n_steps):
+        rng, rz, rc = jax.random.split(rng, 3)
+        out.append(np.array(crandn(rz, shape)))
+        for _ in range(n_corr):
+            rc, sub = jax.random.split(rc)
+            out.append(np.array(crandn(sub, shape)))
+    return out
+
+
+def replay(draws):
+    """A `noise_fn(shape)` that hands out `draws` in order, and the iterator
+    (exhausted once every draw was consumed)."""
+    it = iter(draws)
+
+    def noise_fn(shape):
+        z = next(it)
+        assert tuple(z.shape) == tuple(shape)
+        return torch.from_numpy(z)
+
+    return noise_fn, it
+
+
+def jax_position_noise(rng, shape):
+    """use_tpu's parallel PC noise as a `noise_at(p)` source: position p
+    draws crandn(fold_in(rng_z, p)) with rng_z = split(rng)[0]
+    (sampling.py:236-245)."""
+    from use_tpu.models.sgmse.sdes import crandn
+
+    rng_z, _ = jax.random.split(rng)
+
+    def noise_at(p):
+        return torch.from_numpy(np.array(crandn(jax.random.fold_in(rng_z, p), shape)))
+
+    return noise_at

@@ -86,7 +86,7 @@ def _shortcuts(net):
 
 
 def test_cast_backbone_casts_shortcut_weight_and_bias():
-    from use_tpu_torch.models.sgmse.score_model import cast_backbone_for_inference
+    from use_tpu_torch.models.ncsnpp.ncsnpp import cast_backbone_for_inference
 
     net = _tiny_net("bfloat16")
     cast_backbone_for_inference(net)
@@ -105,7 +105,7 @@ def test_shortcut_takes_cast_params_without_a_copy(quant, monkeypatch):
     """After the serving cast, K2 gets Conv_2's own bf16 weight and bias: no
     cast at any call."""
     from use_tpu_torch.models.ncsnpp import layers
-    from use_tpu_torch.models.sgmse.score_model import cast_backbone_for_inference
+    from use_tpu_torch.models.ncsnpp.ncsnpp import cast_backbone_for_inference
 
     net = _tiny_net("bfloat16", quant)
     cast_backbone_for_inference(net)
@@ -127,7 +127,7 @@ def test_cast_backbone_only_rounds_the_weights(quant):
     """The serving cast changes the forward only by rounding the weights it
     casts: a net holding the same rounded weights in fp32, cast by each layer
     at use, gives the same forward bit for bit (K2's bias included)."""
-    from use_tpu_torch.models.sgmse.score_model import cast_backbone_for_inference
+    from use_tpu_torch.models.ncsnpp.ncsnpp import cast_backbone_for_inference
 
     net = _tiny_net("bfloat16", quant)
     cast_backbone_for_inference(net)
@@ -143,7 +143,7 @@ def test_cast_backbone_only_rounds_the_weights(quant):
 
 
 def test_cast_backbone_leaves_fp32_alone():
-    from use_tpu_torch.models.sgmse.score_model import cast_backbone_for_inference
+    from use_tpu_torch.models.ncsnpp.ncsnpp import cast_backbone_for_inference
 
     net = _tiny_net("float32")
     kept = {name: (p, p.data_ptr()) for name, p in net.named_parameters()}

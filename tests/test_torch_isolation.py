@@ -58,3 +58,28 @@ def test_entry_points_default_to_cuda():
         main(["predict", "experiment=SGMSE_debug", "predict.data_folder=in",
               "predict.target_folder=out"])
     assert resolve_device("cpu").type == "cpu"
+
+
+def test_gan_and_chain_entry_points_default_to_cuda():
+    """The LSGAN generator and task, and predict for task=lsgan and both
+    chains, run on CUDA unless asked for the CPU, and raise without a card."""
+    from use_tpu_torch.cli.main import main
+    from use_tpu_torch.models.gan.generator import NCSNPPWrapper
+    from use_tpu_torch.models.gan.lsgan import LSGAN
+
+    if torch.cuda.is_available():
+        assert NCSNPPWrapper(backbone="ncsnpp6M").device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="device=cpu"):
+        NCSNPPWrapper(backbone="ncsnpp6M")
+    with pytest.raises(RuntimeError):
+        LSGAN()
+    folders = ["predict.data_folder=in", "predict.target_folder=out"]
+    for argv in (["experiment=LSGAN_debug"],
+                 ["experiment=SGMSE_debug", "predict.chain=sgmse+gan",
+                  "predict.second_experiment=LSGAN_debug"],
+                 ["experiment=LSGAN_debug", "predict.chain=gan+sgmse",
+                  "predict.second_experiment=SGMSE_debug"]):
+        with pytest.raises(RuntimeError, match="device=cpu"):
+            main(["predict", *argv, *folders])
+    assert NCSNPPWrapper(backbone="ncsnpp6M", device="cpu").device.type == "cpu"

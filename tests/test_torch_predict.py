@@ -85,7 +85,7 @@ def test_predict_int8_serving_quantizes_bf16_weights(wav_tree, monkeypatch):
 
 @pytest.mark.parametrize("argv", [
     ["train", "experiment=SGMSE_debug"],
-    ["predict", "experiment=SGMSE_debug", "predict.chain=gan+sgmse"],
+    ["predict", "experiment=SGMSE_debug", "predict.streaming=true"],
     ["predict", "experiment=SGMSE_debug", "predict.unknown=1"],
 ])
 def test_unported_commands_and_keys_exit(argv):

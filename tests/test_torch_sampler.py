@@ -13,7 +13,7 @@ import torch
 
 import use_tpu.models  # noqa: F401 (registries)
 import use_tpu_torch.models  # noqa: F401 (registries)
-from tests.helpers.torch_parity import random_params
+from tests.helpers.torch_parity import jax_pc_noise, random_params, replay
 from use_tpu.models.sgmse import sdes as jsdes
 from use_tpu.models.sgmse.score_model import ScoreModel as JScoreModel
 from use_tpu_torch.engine.convert_jax import ncsnpp_params_to_state_dict
@@ -45,18 +45,6 @@ def test_sde_marginals_match_jax(name):
     assert abs(float(z.var()) - 0.5) < 0.05
 
 
-def _jax_noise(rng, n_steps, shape, n_corr):
-    """The sampler's draws, in the order the port consumes them."""
-    out = []
-    for _ in range(n_steps):
-        rng, rz, rc = jax.random.split(rng, 3)
-        out.append(np.array(jsdes.crandn(rz, shape)))
-        for _ in range(n_corr):
-            rc, sub = jax.random.split(rc)
-            out.append(np.array(jsdes.crandn(sub, shape)))
-    return out
-
-
 def _models(corrector):
     jm = JScoreModel(**TINY, corrector=corrector)
     shapes = jax.eval_shape(jm.init_params, jax.random.PRNGKey(0))
@@ -64,17 +52,6 @@ def _models(corrector):
     tm = TScoreModel(**TINY, corrector=corrector, device="cpu")
     tm.score_net.load_state_dict(ncsnpp_params_to_state_dict(params), strict=True)
     return jm, params, tm
-
-
-def _replay(draws):
-    it = iter(draws)
-
-    def noise_fn(shape):
-        z = next(it)
-        assert tuple(z.shape) == tuple(shape)
-        return torch.from_numpy(z)
-
-    return noise_fn, it
 
 
 @pytest.mark.parametrize("corrector", ["none", "ald"])
@@ -86,7 +63,7 @@ def test_sample_wav_matches_jax(corrector):
     want = np.asarray(jm.sample(params, {"perturbed": jnp.asarray(wav)}, rng, **kw)["enhanced"])
 
     n_corr = 0 if corrector == "none" else 1
-    noise_fn, it = _replay(_jax_noise(rng, 5, (2, 32, 64, 2), n_corr))
+    noise_fn, it = replay(jax_pc_noise(rng, 5, (2, 32, 64, 2), n_corr))
     got = tm.sample({"perturbed": torch.from_numpy(wav)}, noise_fn=noise_fn, **kw)["enhanced"]
     assert next(it, None) is None  # every draw consumed
     assert got.shape == want.shape == (2, 700)
@@ -101,7 +78,7 @@ def test_sample_chunked_matches_jax():
     want = np.asarray(
         jm.sample_chunked(params, {"perturbed": jnp.asarray(wav)}, rng, **kw)["enhanced"]
     )
-    noise_fn, it = _replay(_jax_noise(rng, 3, (2, 32, 64, 2), 0))
+    noise_fn, it = replay(jax_pc_noise(rng, 3, (2, 32, 64, 2), 0))
     got = tm.sample_chunked({"perturbed": torch.from_numpy(wav)}, noise_fn=noise_fn, **kw)
     assert next(it, None) is None
     assert got["enhanced"].shape == want.shape == (1, 1500)

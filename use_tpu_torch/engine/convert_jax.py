@@ -12,6 +12,10 @@ flax->torch transpositions:
     NIN/GFP W, b                -> unchanged
     Conv2d_0_weight / _bias     -> Conv2d_0.weight / .bias (FIR up/down convs)
 
+The LSGAN generator's backbone is the same NCSN++ in discriminative mode:
+``lsgan_params_to_state_dict`` maps use_tpu's generator params onto
+``NCSNPPWrapper.net``.
+
 The input is a nested mapping of arrays (numpy, or anything np.asarray
 takes); nothing of JAX is imported.
 """
@@ -61,3 +65,11 @@ def ncsnpp_params_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Te
             parts = parts[:-1] + [leaf]
         out[".".join(parts)] = torch.from_numpy(np.ascontiguousarray(arr).copy())
     return out
+
+
+def lsgan_params_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """use_tpu LSGAN generator params (the first of ``LSGAN.init_params``)
+    -> state_dict of the port's ``NCSNPPWrapper.net``: the discriminative
+    NCSN++, which holds no time embedding (no ``m0``, no ``Dense_0``) on
+    either side."""
+    return ncsnpp_params_to_state_dict(params)

@@ -2,6 +2,7 @@
 from use_tpu_torch.models.registry import (
     BackboneRegistry,
     CorrectorRegistry,
+    GeneratorRegistry,
     PredictorRegistry,
     SDERegistry,
 )
@@ -10,10 +11,12 @@ from use_tpu_torch.models.registry import (
 from use_tpu_torch.models.ncsnpp import ncsnpp as _ncsnpp  # noqa: F401
 from use_tpu_torch.models.sgmse import sdes as _sdes  # noqa: F401
 from use_tpu_torch.models.sgmse import sampling as _sampling  # noqa: F401
+from use_tpu_torch.models.gan import generator as _generator  # noqa: F401
 
 __all__ = [
     "BackboneRegistry",
     "SDERegistry",
     "PredictorRegistry",
     "CorrectorRegistry",
+    "GeneratorRegistry",
 ]

@@ -114,7 +114,8 @@ class NCSNpp(nn.Module):
             return layers.ResnetBlockBigGANpp(
                 act=act, in_ch=in_ch, out_ch=out_ch, up=up, down=down, dropout=cfg.dropout,
                 fir=cfg.fir, fir_kernel=cfg.fir_kernel, skip_rescale=cfg.skip_rescale,
-                init_scale=cfg.init_scale, temb_dim=nf * 4, dtype=cdtype, quant=cfg.quant,
+                init_scale=cfg.init_scale, temb_dim=nf * 4 if cfg.conditional else None,
+                dtype=cdtype, quant=cfg.quant,
                 quant_min_channels=cfg.quant_min_channels, quant_k=cfg.quant_k,
             )
 
@@ -122,10 +123,14 @@ class NCSNpp(nn.Module):
             return layers.AttnBlockpp(ch, skip_rescale=cfg.skip_rescale,
                                       init_scale=cfg.init_scale, dtype=cdtype)
 
-        mods = [layers.GaussianFourierProjection(embedding_size=nf, scale=cfg.fourier_scale)]
         if cfg.conditional:
-            mods.append(layers.Linear(nf * 2, nf * 4))
-            mods.append(layers.Linear(nf * 4, nf * 4))
+            mods = [layers.GaussianFourierProjection(embedding_size=nf, scale=cfg.fourier_scale),
+                    layers.Linear(nf * 2, nf * 4), layers.Linear(nf * 4, nf * 4)]
+        else:
+            # no time embedding: nothing at index 0, so the indices stay the
+            # reference's, and no Dense_0 in the blocks (use_tpu creates
+            # neither parameter when nothing calls them)
+            mods = [nn.Identity()]
         mods.append(layers.Conv2d(total_channels, nf, dtype=cdtype))
         hs_c = [nf]
         in_ch = nf
@@ -187,12 +192,10 @@ class NCSNpp(nn.Module):
         mods = iter(self.all_modules)
 
         gfp = next(mods)
-        temb = gfp(torch.log(time_cond)) if time_cond is not None else None
+        temb = None
         if cfg.conditional:
-            temb = next(mods)(temb)
+            temb = next(mods)(gfp(torch.log(time_cond)))
             temb = next(mods)(act(temb))
-        else:
-            temb = None
 
         x = x.permute(0, 3, 1, 2)  # [B, C, F, T]
         if not cfg.centered:
@@ -251,6 +254,27 @@ class NCSNpp(nn.Module):
         d = cfg.spatial_channels
         h = h.permute(0, 2, 3, 1)  # [B, F, T, 2D]
         return torch.stack([h[..., :d], h[..., d:]], dim=-1)  # [B, F, T, D, 2]
+
+
+def cast_backbone_for_inference(net: torch.nn.Module) -> None:
+    """Cast an NCSN++ backbone's weights to its compute dtype, in place.
+
+    As use_tpu's ``cast_params_for_inference``: with a bf16 compute dtype
+    every parameter except the GroupNorm affines and 1-D parameters (biases,
+    the Gaussian-Fourier projection) becomes bf16 once, instead of at every
+    use. The BigGAN shortcut's bias is cast too: the shortcut kernel (K2)
+    takes it in the compute dtype, as the layer would cast it at every call.
+    A no-op for fp32 backbones."""
+    if net.cfg.dtype != "bfloat16":
+        return
+    with torch.no_grad():
+        for name, p in net.named_parameters():
+            if "GroupNorm" in name or p.dim() <= 1 or not p.is_floating_point():
+                continue
+            p.data = p.data.to(torch.bfloat16)
+        for m in net.modules():
+            if isinstance(m, layers.ResnetBlockBigGANpp) and m.Conv_2 is not None:
+                m.Conv_2.bias.data = m.Conv_2.bias.data.to(torch.bfloat16)
 
 
 def _variant(name: str, **overrides):

@@ -6,3 +6,4 @@ BackboneRegistry = Registry("Backbone")
 SDERegistry = Registry("SDE")
 PredictorRegistry = Registry("Predictor")
 CorrectorRegistry = Registry("Corrector")
+GeneratorRegistry = Registry("Generator")

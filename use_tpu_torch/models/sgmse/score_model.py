@@ -14,35 +14,14 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
 
-from use_tpu_torch.models.ncsnpp.layers import ResnetBlockBigGANpp
+from use_tpu_torch.models.ncsnpp.ncsnpp import cast_backbone_for_inference
 from use_tpu_torch.models.registry import BackboneRegistry, SDERegistry
 from use_tpu_torch.models.sgmse import sampling
-from use_tpu_torch.models.sgmse.sampling import NoiseFn
+from use_tpu_torch.models.sgmse.sampling import NoiseAt, NoiseFn
 from use_tpu_torch.ops import STFTConfig, istft, pad_spec, spec_back, spec_fwd, stft
 from use_tpu_torch.utils.device import resolve_device
 
 Batch = Dict[str, torch.Tensor]
-
-
-def cast_backbone_for_inference(net: torch.nn.Module) -> None:
-    """Cast an NCSN++ backbone's weights to its compute dtype, in place.
-
-    As use_tpu's ``cast_params_for_inference``: with a bf16 compute dtype
-    every parameter except the GroupNorm affines and 1-D parameters (biases,
-    the Gaussian-Fourier projection) becomes bf16 once, instead of at every
-    use. The BigGAN shortcut's bias is cast too: the shortcut kernel (K2)
-    takes it in the compute dtype, as the layer would cast it at every call.
-    A no-op for fp32 backbones."""
-    if net.cfg.dtype != "bfloat16":
-        return
-    with torch.no_grad():
-        for name, p in net.named_parameters():
-            if "GroupNorm" in name or p.dim() <= 1 or not p.is_floating_point():
-                continue
-            p.data = p.data.to(torch.bfloat16)
-        for m in net.modules():
-            if isinstance(m, ResnetBlockBigGANpp) and m.Conv_2 is not None:
-                m.Conv_2.bias.data = m.Conv_2.bias.data.to(torch.bfloat16)
 
 
 @dataclass
@@ -143,20 +122,50 @@ class ScoreModel:
         N: int = 50,
         corrector_steps: int = 1,
         snr: float = 0.5,
-        **_ignored,
-    ) -> Tuple[torch.Tensor, int]:
-        """Run the reverse process on padded spectra."""
-        if sampler_type != "pc":
-            raise NotImplementedError(
-                f"sampler_type={sampler_type!r} is not ported yet; only 'pc' (ROADMAP)"
-            )
+        noise_at: Optional[NoiseAt] = None,
+        **sampler_kwargs,
+    ) -> Tuple[torch.Tensor, Dict[str, int]]:
+        """Run the reverse process on padded spectra -> (sample, counts):
+        counts['nfe'] is the network evaluations, and for parallel_pc
+        counts['sweeps'] its sweeps.
+
+        sampler_type 'pc' and 'ode' draw through ``noise_fn``, 'parallel_pc'
+        through ``noise_at`` and takes ``window`` and ``tol`` from
+        ``sampler_kwargs`` (score_model.py:194-238)."""
         sde = self.sde_obj.copy(N=N)
-        sampler = sampling.get_pc_sampler(
-            self.predictor, self.corrector, sde,
-            lambda xt, t: self.forward_score(xt, t, conditioning), y_spec,
-            eps=self.t_eps, snr=snr, corrector_steps=corrector_steps,
-        )
-        return sampler(generator, noise_fn)
+        if sampler_type == "pc":
+            sampler = sampling.get_pc_sampler(
+                self.predictor, self.corrector, sde,
+                lambda xt, t: self.forward_score(xt, t, conditioning), y_spec,
+                eps=self.t_eps, snr=snr, corrector_steps=corrector_steps,
+            )
+            sample, nfe = sampler(generator, noise_fn)
+            return sample, {"nfe": nfe}
+        if sampler_type == "parallel_pc":
+            # the window multiplies the batch the score network sees; the
+            # conditioning tiles window-major, as the sampler's [W, B] -> [W*B]
+            base = y_spec.shape[0]
+
+            def score_fn_tiled(xt, t):
+                k = xt.shape[0] // base
+                cond = [c.repeat((k,) + (1,) * (c.dim() - 1)) if k > 1 else c
+                        for c in conditioning]
+                return self.forward_score(xt, t, cond)
+
+            sampler = sampling.get_parallel_pc_sampler(
+                self.predictor, self.corrector, sde, score_fn_tiled, y_spec,
+                eps=self.t_eps, **sampler_kwargs,
+            )
+            sample, nfe, sweeps = sampler(generator, noise_at)
+            return sample, {"nfe": nfe, "sweeps": sweeps}
+        if sampler_type == "ode":
+            sampler = sampling.get_ode_sampler(
+                sde, lambda xt, t: self.forward_score(xt, t, conditioning), y_spec,
+                eps=self.t_eps,
+            )
+            sample, nfe = sampler(generator, noise_fn)
+            return sample, {"nfe": nfe}
+        raise ValueError(f"{sampler_type} is not a valid sampler type!")
 
     @torch.inference_mode()
     def sample(
@@ -173,7 +182,9 @@ class ScoreModel:
         """Batch-dict enhancement (model_wrapper.py:262-329).
 
         Writes batch['enhanced'] (sde_input='noisy') or
-        batch['fake_sde_enhanced'] (sde_input='denoised', GAN-first hybrid).
+        batch['fake_sde_enhanced'] (sde_input='denoised', GAN-first hybrid),
+        and batch['nfe'], the sampler's network evaluations (parallel_pc:
+        also batch['sweeps']).
         """
         y = torch.as_tensor(batch["perturbed"], device=self.device)
         y_denoised_wav = batch.get("fake")
@@ -187,13 +198,14 @@ class ScoreModel:
         conditioning = self._select_cond(y_spec, y_denoised)
         sde_in = self._select_sde_input(y_spec, y_denoised)
 
-        sample, _nfe = self.sample_spec(
+        sample, counts = self.sample_spec(
             sde_in, conditioning, generator, noise_fn, sampler_type, N, corrector_steps,
             snr, **sampler_kwargs,
         )
         enhanced = self._inv_spec(sample, t_orig)
         out = dict(batch)
         out["fake_sde_enhanced" if self.sde_input == "denoised" else "enhanced"] = enhanced
+        out.update(counts)
         return out
 
     @torch.inference_mode()
@@ -247,6 +259,7 @@ class ScoreModel:
         joined = acc / torch.clamp(wacc, min=1e-8)
         res = dict(batch)
         res[key] = joined[overlap // 2 : overlap // 2 + length][None]
+        res.update({k: out[k] for k in ("nfe", "sweeps") if k in out})
         return res
 
 

@@ -80,6 +80,10 @@ class OUVESDE:
     def marginal_prob(self, x0, t, y):
         return self._mean(x0, t, y), self._std(t)
 
+    def prior_sampling(self, y, z):
+        """y + std(T) z, for z a ``crandn`` draw of y's shape (sdes.py:82-84)."""
+        return _prior(self, y, z)
+
 
 @SDERegistry.register("ouvp")
 @dataclass(frozen=True)
@@ -121,6 +125,15 @@ class OUVPSDE:
 
     def marginal_prob(self, x0, t, y):
         return self._mean(x0, t, y), self._std(t)
+
+    def prior_sampling(self, y, z):
+        """y + std(T) z, for z a ``crandn`` draw of y's shape (sdes.py:128-130)."""
+        return _prior(self, y, z)
+
+
+def _prior(sde, y, z):
+    std = sde._std(torch.ones((y.shape[0],), dtype=y.dtype, device=y.device))
+    return y + z * batch_broadcast(std, y)
 
 
 ScoreFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
