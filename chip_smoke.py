@@ -2,8 +2,9 @@
 """Chip smoke test of use_tpu_torch, the PyTorch / CUDA port, on one GPU.
 
     python3 chip_smoke.py              # the full check, one card
-    python3 chip_smoke.py --kernels    # build + per-kernel phases only
-    python3 chip_smoke.py --profile    # also profile one full-width forward
+    python3 chip_smoke.py --kernels    # build + per-kernel phases (and gradients) only
+    python3 chip_smoke.py --profile    # also profile one full-width forward and
+                                       # one training microbatch
 
 Phases, one line each (any failure raises and exits non-zero):
   1. environment: torch / CUDA versions, the card's name and power limit;
@@ -47,7 +48,31 @@ Phases, one line each (any failure raises and exits non-zero):
      N=CHAIN_N, `infer.sampler_type=ode` at N=ODE_N and `parallel_pc`
      (PARALLEL_ARGS); per stage (SGMSE sampling, LSGAN enhance) the backbone
      forwards and each kernel's launches, checked against the per-forward
-     counts, with NFE, sweeps, peak device memory and audio-s/s.
+     counts, with NFE, sweeps, peak device memory and audio-s/s;
+  9. grad_check: at training shapes, the gradients through K1's statistics
+     and apply (group_norm_act, swish and none) and through K2 on the card
+     against autograd through their plain versions on the card, within
+     GRAD_REL_TOL of each gradient's largest value, and a control broken on
+     purpose (the statistics' backward without its factor 2) that must
+     exceed it;
+ 10. train_step: one full-width ncsnpplarge microbatch of the SGMSE_Large
+     recipe ([2, 512, 512, 4] net input, fp32, remat conv_outs) through
+     train_loss, backward and one optimizer step: loss and every gradient on
+     the card against the CPU on the same weights, batch and draws
+     (each gradient within TRAIN_GRAD_REL_TOL of its own largest value; the
+     same microbatch with TF32 on is a control that must exceed it), each
+     kernel's launches per microbatch exactly TRAIN_LAUNCHES (with and
+     without remat), time and peak device memory with remat and without;
+ 11. train: the CLI's `train experiment=SGMSE_Large` on TRAIN_CLIPS
+     synth_speech clips (3 optimizer steps of batch 2 x accumulation 4),
+     with seconds per optimizer step and per microbatch, trained audio-s/s,
+     peak memory, the losses, one profiled step's device busy share and the
+     run's exact launches; then `predict ckpt_path=<out_dir>/checkpoints
+     infer.N=3` on one clip serves what was trained;
+ 12. learn: use_tpu's learning gate (tests/test_learning.py::
+     test_sgmse_learns_to_enhance) on the card at its seed 0, one run with
+     deterministic algorithms: a tiny score net overfit for 600 steps must
+     enhance held-out speech probes by more than 2 dB SI-SDR.
 Each phase prints its seconds. Then a JSON line of the kernels, the card
 line, and the last line {"ok": true, "device": {...}}.
 """
@@ -56,6 +81,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import dataclasses
 import json
 import math
 import os
@@ -80,6 +106,7 @@ GN_SHAPES = [
     (1, 256, 256, 768),  # LSGAN generator, 10 s clip: level 1
     (8, 128, 512, 960),  # parallel_pc on the 6 s clip: W = 8 trajectory points of [512, 960]
     (8, 256, 512, 960),  # parallel_pc: the up path's skip concat at full resolution
+    (2, 128, 512, 512),  # training: a microbatch of the recipe at full resolution
 ]
 SKIP_SHAPES = [  # (B, Ci, Co, H, W)
     (8, 256, 128, 512, 192),  # up path, full-resolution block, 8 lanes
@@ -95,6 +122,7 @@ SKIP_SHAPES = [  # (B, Ci, Co, H, W)
     (8, 256, 128, 512, 960),  # up path, full resolution
     (8, 384, 128, 256, 480),  # up path at 256 x 480, the skip from level 2
     (8, 512, 256, 128, 240),  # up path at 128 x 240
+    (2, 256, 128, 512, 512),  # training: up path, full resolution, a microbatch of the recipe
 ]
 SKIP_RAGGED = (2, 36, 40, 5, 7)  # ragged Ci, Co and positions, scalar path: checked, not timed
 QCONV_SHAPES = [  # (B, C, O, H, W): int8 predict path, 8 lanes
@@ -139,6 +167,35 @@ FLOPS_FORWARDS = [
     ("ncsnpplarge", {"input_channels": 6}, (1, 512, 960, 6)),  # gan+sgmse, 6 s full clip
     ("ncsnpplarge", {"input_channels": 4}, (8, 512, 960, 4)),  # a parallel_pc sweep, W = 8
 ]
+# training (phases 9-12)
+GRAD_GN_SHAPES = [(2, 128, 512, 512), (2, 256, 32, 32)]  # full resolution and a low level
+GRAD_SKIP_SHAPES = [(2, 256, 128, 512, 512), (2, 512, 256, 128, 128)]  # (B, Ci, Co, H, W)
+# gradient through a kernel's Function against autograd through its plain
+# version, both on the card in fp32, relative to the gradient's largest
+# value: the same math in another summation order (PERF.md: readings at
+# ~1e-6, the broken control at >= 1e-2)
+GRAD_REL_TOL = 1e-4
+TRAIN_EXPERIMENT = "SGMSE_Large"
+TRAIN_SHAPE = (2, 512, 512, 4)  # one microbatch of net input: batch 2, 512 bins x 512 frames
+# a gradient on the card against the CPU's: within TRAIN_GRAD_REL_TOL of its
+# own tensor's largest value, every tensor but the attention's key biases,
+# whose gradient is zero in exact arithmetic (softmax ignores a shift that
+# is the same for every key): both devices must leave them below
+# KEY_BIAS_GRAD_FLOOR of the net's largest gradient (PERF.md: fp32 readings
+# at <= 2.3e-5, the TF32 control at 2.2e-3 worst and 8.2e-4 median)
+TRAIN_GRAD_REL_TOL = 2e-4
+KEY_BIAS_GRAD_FLOOR = 1e-6
+# kernel launches per full-width microbatch (forward and backward); counted
+# on the CPU by tests/test_torch_train.py::test_remat_launch_constants_of_chip_smoke
+TRAIN_LAUNCHES = {
+    "remat": {"channel_sums": 204, "gn_apply": 204, "fused_skip_add": 68, "qconv3x3_fused": 0},
+    "no_remat": {"channel_sums": 106, "gn_apply": 106, "fused_skip_add": 34, "qconv3x3_fused": 0},
+}
+TRAIN_CLIPS, TRAIN_CLIP_S = 24, 4  # 24 clips: 3 optimizer steps of 2 x 4 an epoch
+TRAIN_PREDICT_N = 3
+CROP_S = 81760 / 24000  # a training crop: 511 hops of 160 samples at 24 kHz
+JAX_LEARN_GAIN_DB = 5.65  # tests/test_learning.py:16
+
 # kernel launches per ncsnpplarge forward on each predict run
 PER_FORWARD = {
     "float32": {"channel_sums": 106, "gn_apply": 106, "fused_skip_add": 34, "qconv3x3_fused": 0},
@@ -162,6 +219,8 @@ def main():
     ap.add_argument("--kernels", action="store_true", help="build and kernel phases only")
     ap.add_argument("--profile", action="store_true", help="profile one full-width forward")
     args = ap.parse_args()
+    # the learn phase runs cuBLAS deterministically, which needs this before its first call
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
     import torch
 
@@ -190,7 +249,8 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     with torch.inference_mode():  # as the predict path's sampler calls the kernels
         results = timed("kernels", kernel_phases, torch, dev)
-    runs = {label: {name: None for name in results} for label in PER_FORWARD}
+    timed("grad_check", grad_check_phase, torch, dev)
+    runs = {label: {name: None for name in results} for label in (*PER_FORWARD, "train")}
     if not args.kernels:
         timed("forward", forward_phase, torch, dev)
         timed("int8_forward", int8_forward_phase, torch, dev)
@@ -216,8 +276,12 @@ def main():
                 ("parallel_pc", "SGMSE_Large", PARALLEL_ARGS, (6,), {"sgmse": sgmse})):
             runs[label] = timed(f"predict {label}", stage_predict_phase, torch, dev, label,
                                 experiment, extra, clips, per_stage)
+        timed("train_step", train_step_phase, torch, dev)
+        runs["train"] = timed("train", train_phase, torch, dev)
+        timed("learn", learn_phase, torch, dev)
         if args.profile:
             timed("profile", profile_phase, torch, dev)
+            timed("profile_train", profile_train_phase, torch, dev)
 
     line = []
     for name, cases in results.items():
@@ -225,8 +289,9 @@ def main():
         entry = {k: main_case[k] for k in (
             "name", "route", "source", "replaces", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "shape", "dtype", "device_ms") if k in main_case}
-        # the count of the predict run whose path the kernel is on (K3: int8)
-        entry["launches"] = runs["int8_bfloat16" if name == "qconv3x3_fused" else "float32"][name]
+        # the count of the run whose path the kernel is on: K3 int8 serving,
+        # K1 and K2 this slice's training (forward and backward)
+        entry["launches"] = runs["int8_bfloat16" if name == "qconv3x3_fused" else "train"][name]
         entry["launches_per_run"] = {label: counts[name] for label, counts in runs.items()}
         if "prep_ms" in main_case:
             entry["prep_ms"] = main_case["prep_ms"]
@@ -1110,6 +1175,527 @@ def profile_phase(torch, dev):
                   op_counts=dict(sorted(op_counts.items(), key=lambda kv: -kv[1])))
             print(events.table(sort_by="self_" + key, row_limit=30))
         del net
+
+
+def _rel_err(got, want):
+    """max |got - want| relative to max |want|."""
+    top = float(want.abs().max())
+    return float((got - want).abs().max()) / (top if top > 0 else 1.0)
+
+
+@contextlib.contextmanager
+def sums_backward_without_factor_2(torch):
+    """A statistics backward broken on purpose, for the gradient check to
+    reject: dx = ds + x dss (the 2 of d(x^2)/dx dropped)."""
+    from use_tpu_torch.ops import gn_stats
+
+    real = gn_stats._ChannelSums.backward
+
+    def broken(ctx, ds, dss):
+        (x,) = ctx.saved_tensors
+        return (ds[:, :, None] + x.float() * dss[:, :, None]).to(x.dtype)
+
+    gn_stats._ChannelSums.backward = staticmethod(broken)
+    try:
+        yield
+    finally:
+        gn_stats._ChannelSums.backward = real
+
+
+def grad_check_phase(torch, dev):
+    """Gradients through the kernels' autograd Functions (the kernel in the
+    forward, torch ops in the backward) against autograd through their plain
+    versions, on the card in fp32, at the training shapes: K1 as
+    group_norm_act (statistics + apply, act swish and none) for x, weight
+    and bias, K2 for x, h, W and b. The cotangent is noise plus the plain
+    output, so that the statistics' share of dx is large; the control (the
+    statistics' backward without its factor 2) must fail GRAD_REL_TOL."""
+    from use_tpu_torch.ops import fused_skip as fs
+    from use_tpu_torch.ops import gn_stats as g
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+
+    def gn_grads(x, w, b, act, dy, groups, plain):
+        leaves = [t.detach().clone().requires_grad_() for t in (x, w, b)]
+        x3 = leaves[0].reshape(x.shape[0], x.shape[1], -1)
+        if plain:
+            y = g.gn_apply_plain(x3, *g.channel_sums_plain(x3), leaves[1], leaves[2], groups,
+                                 1e-6, act)
+        else:
+            y = g.gn_apply(x3, *g.channel_sums(x3), leaves[1], leaves[2], groups, 1e-6, act)
+        return torch.autograd.grad(y.reshape(x.shape), leaves, dy)
+
+    for shape in GRAD_GN_SHAPES:
+        c = shape[1]
+        groups = g.num_groups(c)
+        x = torch.randn(shape, generator=gen, device=dev) + 0.5
+        w = 1.0 + 0.1 * torch.randn((c,), generator=gen, device=dev)
+        b = 0.1 * torch.randn((c,), generator=gen, device=dev)
+        for act in ("swish", None):
+            x3 = x.reshape(shape[0], c, -1)
+            with torch.no_grad():
+                y = g.gn_apply_plain(x3, *g.channel_sums_plain(x3), w, b, groups, 1e-6, act)
+            dy = torch.randn(shape, generator=gen, device=dev) + y.reshape(shape)
+            ref = gn_grads(x, w, b, act, dy, groups, plain=True)
+            before = dict(channel_sums=g.channel_sums.launches, gn_apply=g.gn_apply.launches)
+            got = gn_grads(x, w, b, act, dy, groups, plain=False)
+            launched = {k: getattr(g, k).launches - v for k, v in before.items()}
+            with sums_backward_without_factor_2(torch):
+                ctrl = gn_grads(x, w, b, act, dy, groups, plain=False)
+            torch.cuda.synchronize()
+            errs = {n: _rel_err(a, r) for n, a, r in zip(("x", "weight", "bias"), got, ref)}
+            ctrl_err = max(_rel_err(a, r) for a, r in zip(ctrl, ref))
+            phase("grad_check", name="group_norm_act", shape=list(shape), act=act,
+                  dtype="float32", max_rel_err=errs, tol=GRAD_REL_TOL, launches=launched,
+                  control="channel_sums backward without its factor 2",
+                  control_max_rel_err=ctrl_err)
+            if not (max(errs.values()) <= GRAD_REL_TOL and all(torch.isfinite(t).all()
+                                                                for t in got)):
+                raise AssertionError(f"grad_check group_norm_act {shape} {act}: {errs} > "
+                                     f"tol {GRAD_REL_TOL}")
+            if launched != {"channel_sums": 1, "gn_apply": 1}:
+                raise AssertionError(f"grad_check group_norm_act {shape}: launches {launched}")
+            if not ctrl_err > GRAD_REL_TOL:
+                raise AssertionError(f"grad_check group_norm_act {shape} {act}: the control "
+                                     f"passes ({ctrl_err} <= {GRAD_REL_TOL})")
+        del x, x3, y, dy, ref, got, ctrl
+
+    for shape in GRAD_SKIP_SHAPES:
+        bsz, ci, co, hh, ww = shape
+        args = [torch.randn((bsz, ci, hh, ww), generator=gen, device=dev),
+                torch.randn((bsz, co, hh, ww), generator=gen, device=dev),
+                torch.randn((co, ci, 1, 1), generator=gen, device=dev) / math.sqrt(ci),
+                0.1 * torch.randn((co,), generator=gen, device=dev)]
+        dy = torch.randn((bsz, co, hh, ww), generator=gen, device=dev)
+        scale = 2 ** -0.5
+
+        def skip_grads(fn):
+            leaves = [t.detach().clone().requires_grad_() for t in args]
+            return torch.autograd.grad(fn(*leaves, scale), leaves, dy)
+
+        ref = skip_grads(fs.fused_skip_add_plain)
+        before = fs.fused_skip_add.launches
+        got = skip_grads(fs.fused_skip_add)
+        launched = fs.fused_skip_add.launches - before
+        torch.cuda.synchronize()
+        errs = {n: _rel_err(a, r) for n, a, r in zip(("x", "h", "W", "b"), got, ref)}
+        phase("grad_check", name="fused_skip_add", shape=list(shape), dtype="float32",
+              max_rel_err=errs, tol=GRAD_REL_TOL, launches=launched)
+        if not max(errs.values()) <= GRAD_REL_TOL or launched != 1:
+            raise AssertionError(f"grad_check fused_skip_add {shape}: {errs} (tol "
+                                 f"{GRAD_REL_TOL}), {launched} launches")
+        del args, dy, ref, got
+    torch.cuda.empty_cache()
+
+
+def _train_model(torch, device, remat=True):
+    """The recipe's score model (SGMSE_Large: ncsnpplarge, fp32, remat
+    conv_outs) on `device`, seeded random unit-scale weights."""
+    from use_tpu_torch.config.config import load_config
+    from use_tpu_torch.models.sgmse.score_model import ScoreModel
+
+    cfg = load_config(TRAIN_EXPERIMENT)
+    mcfg = dict(cfg["model"])
+    mcfg["backbone_kwargs"] = {**mcfg["backbone_kwargs"], "remat": remat}
+    model = ScoreModel(**mcfg, device="cpu", seed=0)
+    _randomize(torch, model.score_net, seed=1)
+    model.score_net.to(device)
+    model.device = torch.device(device)
+    return model, cfg
+
+
+def _train_batch(torch, model, seed=5):
+    """One microbatch of two clips a little longer than the crop, and the
+    loss's draws (crop start, t, z) from a CPU generator."""
+    length = model.target_len + 4000
+    rng = np.random.default_rng(seed)
+    clean = (0.3 * rng.standard_normal((TRAIN_SHAPE[0], length))).astype(np.float32)
+    noisy = (clean + 0.1 * rng.standard_normal(clean.shape)).astype(np.float32)
+    batch = {"clean": torch.from_numpy(clean), "perturbed": torch.from_numpy(noisy)}
+    return batch, model.draw_train(TRAIN_SHAPE[0], length, torch.Generator().manual_seed(seed))
+
+
+def _microbatch(torch, model, batch, draws):
+    """Forward and backward of one microbatch; -> (loss, seconds) after a
+    synchronize."""
+    dev = model.device
+    model.score_net.zero_grad(set_to_none=True)
+    t0 = time.perf_counter()
+    loss = model.train_loss({k: v.to(dev) for k, v in batch.items()},
+                            draws=(draws[0], draws[1].to(dev), draws[2].to(dev)))
+    loss.backward()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return loss.detach(), time.perf_counter() - t0
+
+
+def _grad_errors(net, want, key_biases):
+    """Each gradient of `net` against `want` (the CPU's): -> ({name: max
+    |got - want| / max |want|} over every tensor but `key_biases`, {key
+    bias: [max |got|, max |want|] / the largest |want| of all}). A tensor
+    with a gradient on one side only fails."""
+    top = max(float(g.abs().max()) for g in want.values())
+    rel, key_bias = {}, {}
+    for k, p in net.named_parameters():
+        if (p.grad is None) != (k not in want):
+            raise AssertionError(f"train_step: {k} has a gradient on one device only")
+        if p.grad is None:
+            continue
+        got = p.grad.cpu()
+        if k in key_biases:
+            key_bias[k] = [float(got.abs().max()) / top, float(want[k].abs().max()) / top]
+        else:
+            rel[k] = float((got - want[k]).abs().max()) / float(want[k].abs().max())
+    return rel, key_bias
+
+
+def _small_grads(want, rel, share):
+    """{name: [max |want| / the largest of all, its relative error]} of the
+    checked tensors whose gradient is below `share` of the net's largest."""
+    top = max(float(g.abs().max()) for g in want.values())
+    return {k: [float(want[k].abs().max()) / top, e] for k, e in rel.items()
+            if float(want[k].abs().max()) < share * top}
+
+
+def train_step_phase(torch, dev):
+    """One full-width microbatch of the recipe through train_loss and
+    backward on the CPU (plain versions) and on the card (kernels), on the
+    same weights, batch and draws: the loss within 1e-4 relative, every
+    gradient within TRAIN_GRAD_REL_TOL of its own tensor's largest value
+    (the attention's key biases, zero in exact arithmetic, below
+    KEY_BIAS_GRAD_FLOOR of the largest of all on both devices), the same
+    microbatch with TF32 on off by more than that; each kernel launched exactly
+    TRAIN_LAUNCHES["remat"] times; then one optimizer step (clip, L2, Adam)
+    leaves finite, changed weights. Then the microbatch's time and peak
+    device memory with remat (median of 3) and without, whose launches must
+    be TRAIN_LAUNCHES["no_remat"]."""
+    from use_tpu_torch import ops
+    from use_tpu_torch.engine.loop import build_train_state
+
+    cpu, cfg = _train_model(torch, "cpu")
+    batch, draws = _train_batch(torch, cpu)
+    loss_cpu, cpu_s = _microbatch(torch, cpu, batch, draws)
+    grads_cpu = {k: p.grad for k, p in cpu.score_net.named_parameters() if p.grad is not None}
+    gpu, _ = _train_model(torch, dev)
+    gpu.score_net.load_state_dict(cpu.score_net.state_dict())
+    del cpu
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    loss, _ = _microbatch(torch, gpu, batch, draws)
+    counts = ops.launch_counts()
+    peak_first = torch.cuda.max_memory_allocated(dev)
+    key_biases = {f"{name}.NIN_1.b" for name, m in gpu.score_net.named_modules()
+                  if type(m).__name__ == "AttnBlockpp"}
+    rel, key_bias = _grad_errors(gpu.score_net, grads_cpu, key_biases)
+    worst_key = max(rel, key=rel.get)
+    # the control: the same microbatch with TF32 on for cuDNN and cuBLAS
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        _microbatch(torch, gpu, batch, draws)
+    finally:
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    rel_tf32, _ = _grad_errors(gpu.score_net, grads_cpu, key_biases)
+    worst_tf32 = max(rel_tf32, key=rel_tf32.get)
+    _microbatch(torch, gpu, batch, draws)  # the fp32 gradients for the optimizer step
+    loss_err = abs(float(loss) - float(loss_cpu)) / abs(float(loss_cpu))
+    t = cfg["train"]
+    state = build_train_state(gpu, t["lr"], t["weight_decay"], t["grad_clip"])
+    before = {k: p.detach().clone() for k, p in gpu.score_net.named_parameters()}
+    state.apply_gradients()
+    moved = sum(int(not torch.equal(before[k], p)) for k, p in gpu.score_net.named_parameters())
+    finite = all(bool(torch.isfinite(p).all()) for p in gpu.score_net.parameters())
+    del before, state
+    times = []
+    for _ in range(3):
+        torch.cuda.reset_peak_memory_stats(dev)
+        times.append(_microbatch(torch, gpu, batch, draws)[1])
+    peak_remat = torch.cuda.max_memory_allocated(dev)
+    net = gpu.score_net
+    net.cfg = dataclasses.replace(net.cfg, remat=False)
+    gpu.score_net.zero_grad(set_to_none=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    _, no_remat_s = _microbatch(torch, gpu, batch, draws)
+    counts_no_remat = ops.launch_counts()
+    peak_no_remat = torch.cuda.max_memory_allocated(dev)
+    no_remat_s = min(no_remat_s, _microbatch(torch, gpu, batch, draws)[1])
+    phase("train_step", experiment=TRAIN_EXPERIMENT, shape=list(TRAIN_SHAPE), dtype="float32",
+          tf32=bool(torch.backends.cudnn.allow_tf32), remat_policy=net.cfg.remat_policy,
+          loss=float(loss), loss_cpu=float(loss_cpu), loss_rel_err=loss_err,
+          grad_tol=TRAIN_GRAD_REL_TOL, max_grad_rel_err=rel[worst_key], worst_grad=worst_key,
+          median_grad_rel_err=float(np.median(list(rel.values()))), grads_checked=len(rel),
+          grads_under_milli_of_top=_small_grads(grads_cpu, rel, 1e-3),
+          key_bias_grads_over_top=key_bias, key_bias_floor=KEY_BIAS_GRAD_FLOOR,
+          control="TF32 on", control_max_grad_rel_err=rel_tf32[worst_tf32],
+          control_worst_grad=worst_tf32,
+          control_median_grad_rel_err=float(np.median(list(rel_tf32.values()))),
+          cpu_seconds=round(cpu_s, 2),
+          params_moved=moved, params=len(list(net.parameters())), finite=finite,
+          launches=counts, launches_no_remat=counts_no_remat,
+          microbatch_s=float(np.median(times)), microbatch_s_no_remat=no_remat_s,
+          peak_memory_bytes=peak_remat, peak_memory_bytes_first=peak_first,
+          peak_memory_bytes_no_remat=peak_no_remat)
+    if not (torch.isfinite(loss) and loss_err <= 1e-4):
+        raise AssertionError(f"train_step: loss {float(loss)} vs CPU {float(loss_cpu)}")
+    if not rel[worst_key] <= TRAIN_GRAD_REL_TOL:
+        raise AssertionError(f"train_step: gradient {worst_key} off by {rel[worst_key]} of its "
+                             f"largest value (tol {TRAIN_GRAD_REL_TOL})")
+    if not max(max(v) for v in key_bias.values()) <= KEY_BIAS_GRAD_FLOOR:
+        raise AssertionError(f"train_step: attention key-bias gradients {key_bias}")
+    if not rel_tf32[worst_tf32] > TRAIN_GRAD_REL_TOL:
+        raise AssertionError(f"train_step: the TF32 control passes ({rel_tf32[worst_tf32]} <= "
+                             f"{TRAIN_GRAD_REL_TOL})")
+    if counts != TRAIN_LAUNCHES["remat"] or counts_no_remat != TRAIN_LAUNCHES["no_remat"]:
+        raise AssertionError(f"train_step: launches {counts} / {counts_no_remat}, expected "
+                             f"{TRAIN_LAUNCHES}")
+    if not finite or moved < len(list(net.parameters())) - 1:  # all but the frozen W
+        raise AssertionError(f"train_step: the optimizer step left {moved} parameters moved, "
+                             f"finite {finite}")
+    del gpu, net, grads_cpu
+    torch.cuda.empty_cache()
+
+
+def write_corpus(root, n, secs, sr=24000):
+    """n synth_speech clips of `secs` seconds and their jsonl list; -> its path."""
+    from use_tpu_torch.data.audio_io import write_wav
+    from use_tpu_torch.data.synth_speech import synth_pair
+
+    os.makedirs(root, exist_ok=True)
+    path = os.path.join(root, "corpus.jsonl")
+    with open(path, "w") as f:
+        for i in range(n):
+            clean, _ = synth_pair(int(secs * sr), i, snr_db=20.0, sr=sr)
+            wav = os.path.join(root, f"clip{i}.wav")
+            write_wav(wav, clean.astype(np.float32), sr)
+            f.write(json.dumps({"file_path": wav, "duration": float(secs),
+                                "sample_rate": sr}) + "\n")
+    return path
+
+
+@contextlib.contextmanager
+def train_steps_timed(torch, dev):
+    """Each optimizer step of the loop (engine.loop.sgmse_train_step) timed
+    to a synchronize, its microbatches counted and the loader's time before
+    it, the second one profiled (kernel time over its wall time: the busy
+    share); the eval steps (validation, test-after-fit) counted."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from use_tpu_torch.engine import loop, train
+
+    rec = {"step_s": [], "microbatches": [], "wait_s": [], "eval_steps": 0, "profiled": None}
+    real_step, real_eval = loop.sgmse_train_step, loop.sgmse_eval_step
+    last = [time.perf_counter()]
+
+    def step(model, state, micro, *args, **kw):
+        torch.cuda.synchronize(dev)
+        rec["wait_s"].append(time.perf_counter() - last[0])  # the loader's, since the last step
+        prof = None
+        if len(rec["step_s"]) == 1 and rec["profiled"] is None:
+            prof = profile(activities=[ProfilerActivity.CUDA])  # kernels only: a light trace
+            prof.__enter__()
+        t0 = time.perf_counter()
+        out = real_step(model, state, micro, *args, **kw)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        if prof is not None:
+            prof.__exit__(None, None, None)
+            events = prof.key_averages()
+            key = ("self_device_time_total" if hasattr(events[0], "self_device_time_total")
+                   else "self_cuda_time_total")
+            kernel_s = sum(getattr(e, key) for e in events
+                           if e.device_type == DeviceType.CUDA) / 1e6
+            rec["profiled"] = {"wall_s": wall, "kernel_s": kernel_s, "busy_share": kernel_s / wall}
+        else:
+            rec["step_s"].append(wall)
+            rec["microbatches"].append(len(micro))
+        last[0] = time.perf_counter()
+        return out
+
+    def eval_step(*args, **kw):
+        rec["eval_steps"] += 1
+        return real_eval(*args, **kw)
+
+    loop.sgmse_train_step, loop.sgmse_eval_step, train.sgmse_eval_step = step, eval_step, eval_step
+    try:
+        yield rec
+    finally:
+        loop.sgmse_train_step, loop.sgmse_eval_step = real_step, real_eval
+        train.sgmse_eval_step = real_eval
+
+
+def train_phase(torch, dev):
+    """`train experiment=SGMSE_Large` through the CLI, one epoch over
+    TRAIN_CLIPS synth_speech clips of TRAIN_CLIP_S seconds (the recipe's
+    data pipeline and workers, batch 2 x accumulation 4, fp32, remat): a
+    finite loss, checkpoints and optimized_metric.json; every kernel
+    launched exactly TRAIN_LAUNCHES["remat"] times a training microbatch
+    plus PER_FORWARD["float32"] times an eval batch. Then `predict
+    experiment=SGMSE_Large ckpt_path=<out_dir>/checkpoints infer.N=3` on
+    one 3 s clip, with PER_FORWARD launches a forward. -> the train run's
+    launches by kernel."""
+    from use_tpu_torch import ops
+    from use_tpu_torch.cli.main import main as cli_main
+    from use_tpu_torch.config.config import load_config
+
+    sr = 24000
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        t0 = time.perf_counter()
+        jl = write_corpus(os.path.join(tmp, "corpus"), TRAIN_CLIPS, TRAIN_CLIP_S, sr)
+        corpus_s = time.perf_counter() - t0
+        out = os.path.join(tmp, "run")
+        torch.cuda.synchronize(dev)
+        ops.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        with train_steps_timed(torch, dev) as rec:
+            summary = cli_main(["train", f"experiment={TRAIN_EXPERIMENT}",
+                                f"data.clean_json_path={jl}", f"data.noise_json_path={jl}",
+                                "data.reverb_use_FRA=true", "train.max_epochs=1",
+                                f"out_dir={out}", f"device={dev}"])
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+        with open(os.path.join(out, "optimized_metric.json")) as f:
+            record = json.load(f)
+        steps = sorted(os.listdir(os.path.join(out, "checkpoints")))
+        micro = summary["microbatches"]
+        step_s = rec["step_s"] + ([rec["profiled"]["wall_s"]] if rec["profiled"] else [])
+        want = {k: v * micro + PER_FORWARD["float32"][k] * rec["eval_steps"]
+                for k, v in TRAIN_LAUNCHES["remat"].items()}
+        timed_micro = sum(rec["microbatches"])
+        phase("train", experiment=TRAIN_EXPERIMENT, clips=TRAIN_CLIPS, clip_s=TRAIN_CLIP_S,
+              corpus_seconds=round(corpus_s, 2), tf32=bool(torch.backends.cudnn.allow_tf32),
+              optimizer_steps=summary["optimizer_steps"], microbatches=micro,
+              trained_clips=summary["clips"], eval_batches=rec["eval_steps"],
+              history=summary["history"], optimized_metric=record, checkpoints=steps,
+              fit_seconds=summary["fit_seconds"], wall_seconds=wall, step_seconds=step_s,
+              loader_wait_seconds=rec["wait_s"],
+              s_per_optimizer_step=float(np.mean(rec["step_s"])) if rec["step_s"] else None,
+              s_per_microbatch=sum(rec["step_s"]) / timed_micro if timed_micro else None,
+              trained_audio_s_per_s=(timed_micro * TRAIN_SHAPE[0] * CROP_S / sum(rec["step_s"])
+                                     if rec["step_s"] else None),
+              profiled_step=rec["profiled"], peak_memory_bytes=peak, launches=counts,
+              expected_launches=want)
+        losses = [h["train/loss_Score"] for h in summary["history"]]
+        if not (losses and all(np.isfinite(losses)) and np.isfinite(record["value"])):
+            raise AssertionError(f"train: losses {losses}, optimized metric {record}")
+        tcfg = load_config(TRAIN_EXPERIMENT)
+        per_step = tcfg["data"]["batch_size"] * tcfg["train"]["accumulate_grad_batches"]
+        if summary["optimizer_steps"] != TRAIN_CLIPS // per_step or not steps:
+            raise AssertionError(f"train: {summary['optimizer_steps']} steps, checkpoints {steps}")
+        if counts != want:
+            raise AssertionError(f"train: launches {counts}, expected {want}")
+
+        src, dst = os.path.join(tmp, "in"), os.path.join(tmp, "out")
+        lengths = write_clips(src, (3,), sr)
+        ops.reset_launch_counts()
+        summary = cli_main(["predict", f"experiment={TRAIN_EXPERIMENT}",
+                            f"ckpt_path={os.path.join(out, 'checkpoints')}",
+                            f"infer.N={TRAIN_PREDICT_N}", f"predict.data_folder={src}",
+                            f"predict.target_folder={dst}", f"device={dev}"])
+        torch.cuda.synchronize(dev)
+        pcounts = ops.launch_counts()
+        check_outputs(dst, lengths, sr, summary)
+    pwant = {k: v * TRAIN_PREDICT_N for k, v in PER_FORWARD["float32"].items()}
+    phase("predict", run="trained checkpoint", experiment=TRAIN_EXPERIMENT,
+          N=TRAIN_PREDICT_N, files=summary["files"], audio_seconds=summary["audio_seconds"],
+          sampling_seconds=summary["seconds"], launches=pcounts)
+    if pcounts != pwant:
+        raise AssertionError(f"predict of the trained checkpoint: launches {pcounts}, "
+                             f"expected {pwant}")
+    torch.cuda.empty_cache()
+    return counts
+
+
+def learn_phase(torch, dev):
+    """use_tpu's learning gate on the card (tests/test_learning.py::
+    test_sgmse_learns_to_enhance) as it runs it: one run at its seed 0
+    (tools/learn_gate.py) with deterministic algorithms, as XLA's CPU run is
+    one fixed trajectory; the loss must fall and the mean SI-SDR gain of two
+    held-out probes over their noisy input must exceed learn_gate.GATE_DB."""
+    from use_tpu_torch.tools import learn_gate
+
+    learn_gate.deterministic(torch, True)
+    try:
+        run = learn_gate.learn_run(torch, dev)
+    finally:
+        learn_gate.deterministic(torch, False)
+    phase("learn", **run, deterministic=True, gate_db=learn_gate.GATE_DB,
+          use_tpu_cpu_gain_db=JAX_LEARN_GAIN_DB)
+    if not run["loss_last_epoch"] < run["loss_first_epoch"]:
+        raise AssertionError(f"learn: the loss did not fall: {run}")
+    if not run["gain_db"] > learn_gate.GATE_DB:
+        raise AssertionError(f"learn: gain {run['gain_db']} dB <= {learn_gate.GATE_DB} dB")
+
+
+def profile_train_phase(torch, dev):
+    """One profiled full-width training microbatch of the recipe (remat
+    conv_outs): kernel time by name in the forward (train_loss) and in the
+    backward (recomputation included), and the share of the backward that
+    the GroupNorm (statistics and apply) and K2 backwards take, from
+    profiler ranges around the Functions' backwards; then the unprofiled
+    microbatch's seconds with TF32 off and on."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from use_tpu_torch.ops import fused_skip, gn_stats
+
+    model, _ = _train_model(torch, dev)
+    batch, draws = _train_batch(torch, model)
+    _microbatch(torch, model, batch, draws)  # warm
+    fns = {"gn_apply_backward": gn_stats._GNApply, "channel_sums_backward": gn_stats._ChannelSums,
+           "fused_skip_add_backward": fused_skip._FusedSkipAdd}
+    real = {k: f.backward for k, f in fns.items()}
+
+    def ranged(name, fn):
+        def backward(ctx, *grads):
+            with record_function(name):
+                return fn(ctx, *grads)
+        return staticmethod(backward)
+
+    for k, f in fns.items():
+        f.backward = ranged(k, real[k])
+    dv = torch.device(dev)
+    try:
+        model.score_net.zero_grad(set_to_none=True)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as pf:
+            loss = model.train_loss({k: v.to(dv) for k, v in batch.items()},
+                                    draws=(draws[0], draws[1].to(dv), draws[2].to(dv)))
+            torch.cuda.synchronize(dv)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as pb:
+            loss.backward()
+            torch.cuda.synchronize(dv)
+    finally:
+        for k, f in fns.items():
+            f.backward = staticmethod(real[k])
+    out = {}
+    for part, prof in (("forward", pf), ("backward", pb)):
+        events = prof.key_averages()
+        key = "device_time_total" if hasattr(events[0], "device_time_total") else "cuda_time_total"
+        kernels = {e.key: getattr(e, "self_" + key) / 1e3 for e in events
+                   if e.device_type == DeviceType.CUDA}
+        total = sum(kernels.values())
+        if not total > 0:
+            raise AssertionError(f"profile_train: the profiler recorded no kernel in the {part}")
+        ranges = {e.key: getattr(e, key) / 1e3 for e in events if e.key in fns}
+        top = dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:15])
+        out[part] = dict(kernel_ms=total, ranges_ms=ranges,
+                         range_shares={k: v / total for k, v in ranges.items()}, top_kernels_ms=top)
+        print(events.table(sort_by="self_" + key, row_limit=25))
+    # TF32 for training, an open question: the same microbatch, unprofiled,
+    # TF32 off (as the CLI sets it) and on, in turns (median of 3 each)
+    times = {False: [], True: []}
+    for tf32 in (False, True, True, False, False, True):
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = tf32
+        times[tf32].append(_microbatch(torch, model, batch, draws)[1])
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    phase("profile_train", shape=list(TRAIN_SHAPE), dtype="float32", remat_policy="conv_outs",
+          microbatch_s_tf32_off=float(np.median(times[False])),
+          microbatch_s_tf32_on=float(np.median(times[True])), **out)
 
 
 if __name__ == "__main__":

@@ -1,6 +1,7 @@
 """use_tpu_torch stands alone: importing it (every submodule) loads neither
-JAX nor any use_tpu module, no source of the port or chip_smoke.py imports
-them, and its entry points default to CUDA and raise without a card."""
+JAX (nor flax, optax, orbax) nor any use_tpu module, no source of the port
+or chip_smoke.py imports them, and its entry points default to CUDA and
+raise without a card."""
 import os
 import re
 import subprocess
@@ -10,7 +11,8 @@ import pytest
 import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|use_tpu)(\.|\s|$)", re.M)
+FORBIDDEN_ROOTS = ("jax", "jaxlib", "flax", "optax", "orbax", "use_tpu")
+FORBIDDEN = re.compile(r"^\s*(import|from)\s+(%s)(\.|\s|$)" % "|".join(FORBIDDEN_ROOTS), re.M)
 
 
 def test_import_loads_no_jax_or_use_tpu():
@@ -20,7 +22,7 @@ def test_import_loads_no_jax_or_use_tpu():
         "import use_tpu_torch, chip_smoke\n"
         "for m in pkgutil.walk_packages(use_tpu_torch.__path__, 'use_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', 'flax', 'use_tpu'))\n"
+        f"bad = sorted(n for n in sys.modules if n.split('.')[0] in {FORBIDDEN_ROOTS})\n"
         "assert not bad, bad\n"
         "print(len([n for n in sys.modules if n.startswith('use_tpu_torch')]))\n"
     )
@@ -28,7 +30,7 @@ def test_import_loads_no_jax_or_use_tpu():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 20  # every submodule was imported
+    assert int(out.stdout.strip()) >= 40  # every submodule was imported
 
 
 def test_sources_import_no_jax_or_use_tpu():
@@ -83,3 +85,15 @@ def test_gan_and_chain_entry_points_default_to_cuda():
         with pytest.raises(RuntimeError, match="device=cpu"):
             main(["predict", *argv, *folders])
     assert NCSNPPWrapper(backbone="ncsnpp6M", device="cpu").device.type == "cpu"
+
+
+def test_train_entry_points_default_to_cuda():
+    """train, its loop's model and the data pipeline's device: CUDA unless
+    asked for the CPU, raising without a card."""
+    from use_tpu_torch.cli.main import main
+
+    if torch.cuda.is_available():
+        return
+    with pytest.raises(RuntimeError, match="device=cpu"):
+        main(["train", "experiment=SGMSE_debug", "data.clean_json_path=x.jsonl",
+              "data.noise_json_path=x.jsonl"])

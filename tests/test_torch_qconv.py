@@ -303,8 +303,8 @@ def test_fused_qconv_module_prepares_its_weight_once(monkeypatch):
         want = _uncached(gn, conv, x)
         monkeypatch.setattr(tq, "quantize_weight_folded", counting)
         outs = [conv(x, *gn(x)) for _ in range(3)]
+        assert gn(x)[2] is gn(x)[2]  # one u tensor while the affine holds
     assert len(calls) == 1  # the first forward only
-    assert gn(x)[2] is gn(x)[2]  # one u tensor while the affine holds
     for out in outs:
         torch.testing.assert_close(out, want, rtol=0, atol=0)
 

@@ -1,10 +1,16 @@
-"""CLI entry point of the port: predict (folder -> folder enhancement).
+"""CLI entry point of the port: train and predict.
 
 Port of use_tpu/cli/main.py (`_split_args`, `_build_model` for task=sgmse
-and task=lsgan, `cmd_predict` with its hybrid chains, `main`):
+and task=lsgan, `resolve_auto_batch`, `_build_datamodule`, `cmd_train` for
+task=sgmse with `_test_after_fit`, `cmd_predict` with its hybrid chains,
+`main`):
 
+    python -m use_tpu_torch.cli.main train experiment=SGMSE_Large \
+        data.clean_json_path=clean.jsonl data.noise_json_path=noise.jsonl \
+        [out_dir=runs/x] [ckpt_path=runs/x/checkpoints] [device=cpu]
     python -m use_tpu_torch.cli.main predict experiment=SGMSE_Large \
-        [ckpt_path=weights.pt] predict.data_folder=in/ predict.target_folder=out/ \
+        [ckpt_path=weights.pt|run.ckpt|runs/x/checkpoints] [ckpt.use_ema=true] \
+        [ckpt.lenient=true] predict.data_folder=in/ predict.target_folder=out/ \
         [infer.N=30] [infer.sampler_type=pc|parallel_pc|ode] [device=cpu]
     python -m use_tpu_torch.cli.main predict experiment=LSGAN ...
     python -m use_tpu_torch.cli.main predict experiment=SGMSE_Large \
@@ -13,23 +19,39 @@ and task=lsgan, `cmd_predict` with its hybrid chains, `main`):
         predict.chain=gan+sgmse predict.second_experiment=SGMSE_Large \
         second.model.condition=both second.model.sde_input=denoised ...
 
-Runs on CUDA unless `device=cpu`. `ckpt_path` (and `predict.second_ckpt`
-for a chain's second stage) loads a torch state_dict of the backbone
-(.pt): the score network for task=sgmse, the generator's NCSN++ for
-task=lsgan; without one the backbone is initialized from `train.seed`.
-Sampler settings go under `infer.*` (`window` and `tol` for parallel_pc),
-and are read from the first experiment's config; `second.*` overrides go to
-the second experiment's. On CUDA, TF32 is off for cuDNN and cuBLAS, so fp32
-convolutions and matmuls run in full fp32. `train`, `eval` and
-`predict.streaming` are not ported yet.
+Runs on CUDA unless `device=cpu`; on CUDA, TF32 is off for cuDNN and
+cuBLAS, so fp32 convolutions and matmuls run in full fp32.
+
+`train` trains the score network from `train.seed` (task=sgmse), writes
+`metrics.csv`, `checkpoints/` (one step an epoch) and, after a test of the
+best checkpoint, `optimized_metric.json` under `out_dir`; `ckpt_path=`
+(a checkpoint directory) resumes.
+
+`ckpt_path` (and `predict.second_ckpt` for a chain's second stage) of
+`predict` is one of: a checkpoint directory of `train` (its best step, or
+the latest where no metric was recorded; `ckpt.use_ema=true` serves its
+EMA weights); a Lightning checkpoint (`.ckpt`, or a `.pt`/`.pth` holding a
+`state_dict`) whose backbone keys sit under `Score.score_net.` (sgmse) or
+`G.net.` (lsgan); or a bare backbone state_dict (`.pt`). Without one the
+backbone is initialized from `train.seed`. Loads are strict unless
+`ckpt.lenient=true`. Sampler settings go under `infer.*` (`window` and
+`tol` for parallel_pc), and are read from the first experiment's config;
+`second.*` overrides go to the second experiment's.
+
+Not ported yet: `eval` (and its `eval.rich` / `eval.max_files`), `train`
+of task=lsgan, `predict.streaming`.
 """
 from __future__ import annotations
 
+import json
 import logging
+import os
+import pickle
 import sys
 import time
 from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 
 from use_tpu_torch.config.config import load_config
@@ -38,7 +60,9 @@ log = logging.getLogger("use_tpu_torch")
 
 _PREDICT_KEYS = {"predict.data_folder", "predict.target_folder", "predict.chain",
                  "predict.second_experiment", "predict.second_ckpt"}
-_NOT_PORTED = {"predict.streaming", "predict.chunk_frames"}
+_EVAL_KEYS = {"eval.rich", "eval.max_files"}
+_NOT_PORTED = {"predict.streaming", "predict.chunk_frames", *_EVAL_KEYS}
+_TRUE = ("1", "true")
 # chain -> (task of the first experiment, task of the second)
 _CHAINS = {"sgmse+gan": ("sgmse", "lsgan"), "gan+sgmse": ("lsgan", "sgmse")}
 
@@ -50,10 +74,13 @@ def _split_args(argv: List[str]):
     for a in argv:
         if a.startswith("experiment="):
             experiment = a.split("=", 1)[1]
-        elif a.startswith(("ckpt_path=", "device=", "predict.")):
+        elif a.startswith(("ckpt_path=", "ckpt.lenient=", "ckpt.use_ema=", "out_dir=",
+                           "device=", "predict.", "eval.")):
             k, v = a.split("=", 1)
             if k in _NOT_PORTED:
                 raise SystemExit(f"{k} is not ported yet (ROADMAP queue 1)")
+            if k.startswith("eval."):
+                raise SystemExit(f"unknown key {k!r}; eval options are {sorted(_EVAL_KEYS)}")
             if k.startswith("predict.") and k not in _PREDICT_KEYS:
                 raise SystemExit(
                     f"unknown key {k!r}; predict options are {sorted(_PREDICT_KEYS)} "
@@ -95,13 +122,218 @@ def _build_model(cfg: Dict, device: str):
     raise SystemExit(f"unknown task {cfg['task']}")
 
 
-def _load_for_serving(model, ckpt: Optional[str]) -> None:
-    """Load a backbone state_dict (.pt) into the model, strictly, then cast
-    its weights for serving."""
-    if ckpt:
-        state = torch.load(ckpt, map_location="cpu", weights_only=True)
-        net = model.score_net if hasattr(model, "score_net") else model.generator.net
-        net.load_state_dict(state, strict=True)
+_PREFIX = {"sgmse": "Score.score_net.", "lsgan": "G.net."}  # Lightning module paths
+_MONITOR = {"sgmse": "val/loss_Score", "lsgan": "val/loss_G"}
+
+
+def _backbone(model) -> torch.nn.Module:
+    return model.score_net if hasattr(model, "score_net") else model.generator.net
+
+
+def _checkpoint_state(path: str, task: str, use_ema: bool) -> Dict[str, torch.Tensor]:
+    """The backbone state_dict that `path` names (use_tpu's
+    _load_state_params, cli/main.py:337-410): a checkpoint directory of
+    `train` (its best step, else its latest; with use_ema its EMA weights),
+    a Lightning checkpoint (backbone keys under _PREFIX[task], stripped), or
+    a bare backbone state_dict."""
+    from use_tpu_torch.engine.checkpoint import CheckpointManager, is_manager_dir
+
+    if os.path.isdir(path):
+        if not is_manager_dir(path):
+            raise SystemExit(f"ckpt_path={path}: a directory without checkpoint steps")
+        mgr = CheckpointManager(path, monitor=_MONITOR[task])
+        step = mgr.best_step()
+        state = mgr.restore(mgr.latest_step() if step is None else step)
+        if not use_ema:
+            return state["model"]
+        if state.get("ema_params") is None:
+            raise SystemExit("ckpt.use_ema=true but the checkpoint has no EMA params "
+                             "(train with train.ema_decay > 0)")
+        return state["ema_params"]
+    if use_ema:
+        raise SystemExit(f"ckpt.use_ema=true: {path} holds no EMA params (it is not a "
+                         "checkpoint directory of train)")
+    try:
+        loaded = torch.load(path, map_location="cpu", weights_only=True)
+    except pickle.UnpicklingError:
+        if not path.endswith(".ckpt"):
+            raise
+        # a Lightning .ckpt may pickle more than tensors (its hyper-parameters)
+        log.warning("ckpt_path=%s holds objects other than tensors: unpickling it in full "
+                    "(load only a checkpoint you trust)", path)
+        loaded = torch.load(path, map_location="cpu", weights_only=False)
+    prefix = _PREFIX[task]
+    lightning = "state_dict" in loaded
+    sd = loaded["state_dict"] if lightning else loaded
+    if lightning or any(k.startswith(prefix) for k in sd):
+        out = {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+        if not out:
+            raise SystemExit(f"ckpt_path={path}: no key under {prefix!r}; roots "
+                             f"{sorted({k.split('.')[0] for k in sd})}")
+        return out
+    return sd
+
+
+def _load_backbone(model, cfg: Dict, path: Optional[str], lenient: bool = False,
+                   use_ema: bool = False) -> None:
+    """Load `path` (see _checkpoint_state) into the model's backbone:
+    strictly, or with lenient=True merged shape-tolerantly into its
+    initialization (use_tpu's merge_params_lenient). A generator's
+    Lightning checkpoint may carry the time embedding's all_modules.0.W,
+    which a non-conditional net does not hold (use_tpu/models/ncsnpp/
+    ncsnpp.py:173-179): it is dropped."""
+    from use_tpu_torch.engine.checkpoint import merge_lenient_checked
+
+    if not path:
+        if use_ema:
+            raise SystemExit("ckpt.use_ema=true requires ckpt_path=")
+        return
+    net = _backbone(model)
+    sd = _checkpoint_state(path, cfg["task"], use_ema)
+    own = net.state_dict()
+    if "all_modules.0.W" in sd and "all_modules.0.W" not in own:
+        sd = {k: v for k, v in sd.items() if k != "all_modules.0.W"}
+    if lenient:
+        sd = merge_lenient_checked(own, sd, path)
+    net.load_state_dict(sd, strict=True)
+
+
+def resolve_auto_batch(cfg: Dict) -> None:
+    """data.batch_size: auto -> micro_batch_per_device (one device) and
+    train.accumulate_grad_batches: auto -> max(1, effective_batch // batch),
+    in place (use_tpu/cli/main.py:109, with n_devices 1)."""
+    d, t = cfg["data"], cfg["train"]
+    if d.get("batch_size") == "auto":
+        d["batch_size"] = int(d.get("micro_batch_per_device", 1))
+    if t.get("accumulate_grad_batches") == "auto":
+        eff = int(t.get("effective_batch", d.get("batch_size", 4)))
+        t["accumulate_grad_batches"] = max(1, eff // int(d["batch_size"]))
+
+
+def _build_datamodule(cfg: Dict):
+    from use_tpu_torch.data.datamodule import DistortDataModule
+    from use_tpu_torch.data.distort_dataset import DistortConfig
+
+    resolve_auto_batch(cfg)
+    d = dict(cfg["data"])
+    batch_size = d.pop("batch_size", 4)
+    num_workers = d.pop("num_workers", 4)
+    overfit_items = d.pop("overfit_items", None)
+    known = set(DistortConfig.__dataclass_fields__)
+    return DistortDataModule(
+        train_cfg=DistortConfig(**{k: v for k, v in d.items() if k in known}),
+        batch_size=batch_size, num_workers=num_workers, seed=cfg["train"].get("seed", 0),
+        overfit_items=overfit_items,
+    )
+
+
+def _test_split_means(model, dm) -> Dict[str, float]:
+    """Mean score-matching loss over the test split (SGMSE_module.test_step:61-63),
+    drawn from a CPU generator seeded 0."""
+    from use_tpu_torch.engine.loop import float_batch
+    from use_tpu_torch.engine.train import sgmse_eval_step
+
+    generator = torch.Generator().manual_seed(0)
+    rows = [float(sgmse_eval_step(model, float_batch(b, model.device), generator)["loss_Score"])
+            for b in dm.test_dataloader()]
+    return {"test/loss_Score": float(np.mean(rows))} if rows else {}
+
+
+def _test_after_fit(model, cfg: Dict, dm, out_dir: str, history: List[Dict], logger) -> None:
+    """Reload the best checkpoint (else the latest), test it and write
+    optimized_metric.json (use_tpu/cli/main.py:_test_after_fit; reference
+    src/train.py:90-108): the best checkpoint's monitored metric and the
+    test split's means from that same state."""
+    from use_tpu_torch.engine.checkpoint import CheckpointManager
+
+    monitor = _MONITOR[cfg["task"]]
+    mgr = CheckpointManager(os.path.join(out_dir, "checkpoints"), monitor=monitor)
+    best = mgr.best_step()
+    best = mgr.latest_step() if best is None else best
+    if best is None:
+        log.warning("no checkpoint to test after fit")
+        return
+    model.score_net.load_state_dict(mgr.restore(best, map_location=model.device)["model"])
+    means = _test_split_means(model, dm)
+    logger.log({"step": int(best), **means})
+
+    best_rows = [h for h in history if h.get("epoch") == int(best)]
+    best_val = best_rows[-1].get(monitor) if best_rows else None
+    explicit = "optimized_metric" in cfg["train"]
+    metric_name = cfg["train"].get("optimized_metric", monitor)
+    candidates = dict(means)
+    if best_val is not None and np.isfinite(best_val):
+        candidates[monitor] = float(best_val)
+    if metric_name not in candidates:
+        if explicit or not candidates:
+            raise SystemExit(f"train.optimized_metric={metric_name!r} not found; "
+                             f"available: {sorted(candidates)}")
+        metric_name = sorted(candidates)[0]  # e.g. validation never ran
+    record = {"metric": metric_name, "value": float(candidates[metric_name]),
+              "best_epoch": int(best), "monitor": {monitor: best_val}, "test": means}
+    with open(os.path.join(out_dir, "optimized_metric.json"), "w") as f:
+        json.dump(record, f, indent=2)
+    log.info("test-after-fit @ epoch %d: %s; optimized %s=%.5g", best,
+             " ".join(f"{k}={v:.5f}" for k, v in means.items()), metric_name, record["value"])
+
+
+def _cuda_fp32(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def cmd_train(experiment: str, overrides: List[str], extras: Dict[str, str]) -> Dict:
+    """Score-matching training of task=sgmse (reference src/train.py:42-131),
+    then the test of the best checkpoint. -> a summary: the fit's history,
+    optimizer steps, microbatches, clips, seconds of the fit and out_dir."""
+    from use_tpu_torch.engine import loop
+    from use_tpu_torch.utils.device import resolve_device
+    from use_tpu_torch.utils.logging import MetricLogger
+
+    cfg = load_config(experiment, overrides)
+    if cfg["task"] != "sgmse":
+        raise SystemExit(f"train of task={cfg['task']} is not ported yet (ROADMAP queue 1); "
+                         "task=sgmse is")
+    device = resolve_device(extras.get("device", "cuda"))
+    _cuda_fp32(device)
+    out_dir = extras.get("out_dir",
+                         os.path.join("runs", experiment, time.strftime("%Y%m%d-%H%M%S")))
+    ckpt_dir = os.path.join(out_dir, "checkpoints")
+    resume = extras.get("ckpt_path")
+    if resume and os.path.abspath(resume) != os.path.abspath(ckpt_dir):
+        raise SystemExit(f"ckpt_path={resume}: train resumes from its own out_dir's "
+                         f"checkpoints ({ckpt_dir})")
+    logger = MetricLogger(csv_path=os.path.join(out_dir, "metrics.csv"),
+                          tensorboard_dir=os.path.join(out_dir, "tb"))
+    model = _build_model(cfg, str(device))
+    dm = _build_datamodule(cfg)
+    t = cfg["train"]
+    t0 = time.perf_counter()
+    result = loop.fit_sgmse(
+        model, dm, lr=t["lr"], weight_decay=t["weight_decay"],
+        grad_clip=t.get("grad_clip", 100.0),
+        accumulate_grad_batches=t.get("accumulate_grad_batches", 1),
+        scheduler=t.get("scheduler"), max_epochs=t.get("max_epochs", 1),
+        seed=t.get("seed", 0), ema_decay=t.get("ema_decay", 0.0), ckpt_dir=ckpt_dir,
+        resume=bool(resume), logger=logger, rich_eval_every=t.get("rich_eval_every"),
+    )
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    fit_seconds = time.perf_counter() - t0
+    _test_after_fit(model, cfg, dm, out_dir, result.history, logger)
+    logger.close()
+    log.info("training done -> %s", out_dir)
+    return {"history": result.history, "fit_seconds": fit_seconds, "out_dir": out_dir,
+            "optimizer_steps": result.steps, "microbatches": result.microbatches,
+            "clips": result.clips}
+
+
+def _load_for_serving(model, cfg: Dict, path: Optional[str], extras: Dict[str, str]) -> None:
+    """Load `path` into the backbone (``_load_backbone`` with the ckpt.*
+    keys), then cast its weights for serving."""
+    _load_backbone(model, cfg, path, lenient=extras.get("ckpt.lenient", "").lower() in _TRUE,
+                   use_ema=extras.get("ckpt.use_ema", "").lower() in _TRUE)
     model.cast_params_for_inference()
 
 
@@ -135,12 +367,10 @@ def cmd_predict(experiment: str, overrides: List[str], extras: Dict[str, str]) -
         raise SystemExit(f"predict.chain={chain} needs predict.second_experiment=")
     device = resolve_device(extras.get("device", "cuda"))
     icfg = cfg.get("infer", {})
-    if device.type == "cuda":
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
+    _cuda_fp32(device)
 
     model = _build_model(cfg, str(device))
-    _load_for_serving(model, extras.get("ckpt_path"))
+    _load_for_serving(model, cfg, extras.get("ckpt_path"), extras)
     second = None
     if chain:
         second_cfg = load_config(extras["predict.second_experiment"], second_overrides)
@@ -148,7 +378,7 @@ def cmd_predict(experiment: str, overrides: List[str], extras: Dict[str, str]) -
         if tasks != _CHAINS[chain]:
             raise SystemExit(f"predict.chain={chain} needs tasks {_CHAINS[chain]}, got {tasks}")
         second = _build_model(second_cfg, str(device))
-        _load_for_serving(second, extras.get("predict.second_ckpt"))
+        _load_for_serving(second, second_cfg, extras.get("predict.second_ckpt"), extras)
 
     sr = int(cfg["data"].get("sampling_rate", 24000))
     dataset = LoadWavDataset(
@@ -216,10 +446,10 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     if not argv or argv[0] not in ("train", "eval", "predict"):
         raise SystemExit(__doc__)
     cmd, rest = argv[0], argv[1:]
-    if cmd != "predict":
-        raise SystemExit(f"{cmd} is not ported yet (ROADMAP queue 1); predict is")
+    if cmd == "eval":
+        raise SystemExit("eval is not ported yet (ROADMAP queue 1); train and predict are")
     experiment, overrides, extras = _split_args(rest)
-    return cmd_predict(experiment, overrides, extras)
+    return (cmd_train if cmd == "train" else cmd_predict)(experiment, overrides, extras)
 
 
 if __name__ == "__main__":

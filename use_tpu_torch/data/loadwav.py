@@ -1,8 +1,6 @@
 """Inference dataset: folder/list of wavs -> normalized 24 kHz predict batches.
 
-Port of use_tpu/data/loadwav.py with its helpers ``dsp.resample_fft``
-(use_tpu/data/dsp.py:66) and ``collate.pad_to_longest_monaural_inference``
-(use_tpu/data/collate.py:36): walk a folder (or read a list), resample to the
+Port of use_tpu/data/loadwav.py: walk a folder (or read a list), resample to the
 target rate (fft method), peak-normalize to 0.8, and carry the paths needed
 to mirror the input folder structure at the output. ``predict_batches`` is a
 plain loop over the dataset that replaces use_tpu's DataLoader.
@@ -11,21 +9,13 @@ from __future__ import annotations
 
 import os
 from dataclasses import dataclass
-from typing import Dict, Iterator, List, Optional
+from typing import Dict, Iterator, Optional
 
 import numpy as np
-import scipy.signal as sps
 
 from use_tpu_torch.data.audio_io import read_wav
-
-
-def resample_fft(x: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
-    """FFT-domain resampling (scipy.signal.resample), the reference's
-    'fft' resample_method."""
-    if orig_sr == target_sr:
-        return x
-    n_out = int(round(len(x) * target_sr / orig_sr))
-    return sps.resample(x, n_out)
+from use_tpu_torch.data.collate import pad_to_longest_monaural_inference
+from use_tpu_torch.data.dsp import resample_fft
 
 
 @dataclass
@@ -74,30 +64,6 @@ class LoadWavDataset:
             "data_folder": self.cfg.data_folder,
             "target_folder": self.cfg.target_folder,
         }
-
-
-def pad_to_longest_monaural_inference(
-    samples: List[Dict], bucket: Optional[int] = 16000
-) -> Dict:
-    """Inference collate (reference collate.py:42-73): pad 'perturbed' to the
-    longest item, rounded up to a multiple of `bucket`, and keep lengths,
-    names and the path metadata for output mirroring."""
-    max_len = max(len(s["perturbed"]) for s in samples)
-    if bucket:
-        max_len = int(-(-max_len // bucket) * bucket)
-    return {
-        "perturbed": np.stack(
-            [np.pad(s["perturbed"], (0, max_len - len(s["perturbed"]))) for s in samples]
-        ).astype(np.float32),
-        "sample_length": np.array([len(s["perturbed"]) for s in samples], np.int32),
-        "names": [s.get("name", "") for s in samples],
-        "sampling_rate": np.array(
-            [int(s.get("sampling_rate", 24000)) for s in samples], np.int32
-        ),
-        "audio_path": [s["audio_path"] for s in samples],
-        "data_folder": samples[0].get("data_folder", ""),
-        "target_folder": samples[0].get("target_folder", ""),
-    }
 
 
 def predict_batches(dataset: LoadWavDataset, batch_size: int = 1) -> Iterator[Dict]:

@@ -23,6 +23,8 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
+import torch.utils.checkpoint
+from torch.utils.checkpoint import CheckpointPolicy, create_selective_checkpoint_contexts
 
 from use_tpu_torch.models.ncsnpp import layers
 from use_tpu_torch.models.registry import BackboneRegistry
@@ -64,8 +66,12 @@ class NCSNppConfig:
     # (ops/fused_qconv.py); 'int8' (no Pallas kernel in use_tpu) is not ported
     quant_min_channels: int = 128  # gate: only convs this wide quantize
     quant_k: float = 6.0  # k-sigma analytic activation range (GroupNormAct)
-    remat: bool = False  # training concern; accepted and ignored at inference
-    remat_policy: str = "full"
+    remat: bool = False  # recompute each residual block in the backward pass
+    # (torch.utils.checkpoint per block, as use_tpu's nn.remat); a no-op
+    # where no gradient is recorded
+    remat_policy: str = "full"  # 'full': save only block inputs; 'conv_outs':
+    # also save the 3x3 convolutions' outputs, so the backward recomputes only
+    # GroupNorm, activation, FIR and shortcut (use_tpu's "ncsnpp_conv_out")
 
     def resolve(self) -> "NCSNppConfig":
         """Apply the discriminative-mode overrides (ncsnpp.py:86-92)."""
@@ -100,6 +106,8 @@ class NCSNpp(nn.Module):
             )
         if cfg.dtype not in ("float32", "bfloat16"):
             raise ValueError(f"dtype {cfg.dtype!r} (float32 | bfloat16)")
+        if cfg.remat_policy not in ("full", "conv_outs"):
+            raise ValueError(f"remat_policy {cfg.remat_policy!r} (full | conv_outs)")
         self.cfg = cfg
         self.cdtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
         cdtype = self.cdtype
@@ -182,6 +190,17 @@ class NCSNpp(nn.Module):
             if m is not self and hasattr(m, "reset_parameters"):
                 m.reset_parameters(generator)
 
+    def _resblock(self, block: nn.Module, h: torch.Tensor,
+                  temb: Optional[torch.Tensor]) -> torch.Tensor:
+        """A residual block, rematerialized in the backward under cfg.remat
+        (use_tpu/models/ncsnpp/ncsnpp.py:133-150): only the resblocks, and
+        whether or not the net is in training mode, since the loss applies
+        it in its inference setting and still differentiates through it."""
+        if not (self.cfg.remat and torch.is_grad_enabled()):
+            return block(h, temb)
+        kw = {"context_fn": _save_conv_outs} if self.cfg.remat_policy == "conv_outs" else {}
+        return torch.utils.checkpoint.checkpoint(block, h, temb, use_reentrant=False, **kw)
+
     def forward(self, x: torch.Tensor, time_cond: Optional[torch.Tensor] = None) -> torch.Tensor:
         cfg = self.cfg
         act = layers.get_act(cfg.nonlinearity)
@@ -206,26 +225,26 @@ class NCSNpp(nn.Module):
         hs = [next(mods)(x)]
         for i_level in range(num_resolutions):
             for _ in range(cfg.num_res_blocks):
-                h = next(mods)(hs[-1], temb)
+                h = self._resblock(next(mods), hs[-1], temb)
                 if self.all_resolutions[i_level] in cfg.attn_resolutions:
                     h = next(mods)(h)
                 hs.append(h)
             if i_level != num_resolutions - 1:
-                h = next(mods)(hs[-1], temb)
+                h = self._resblock(next(mods), hs[-1], temb)
                 if cfg.progressive_input == "input_skip":
                     input_pyramid = downsample_2d(input_pyramid, cfg.fir_kernel, factor=2)
                     h = next(mods)(input_pyramid, h)
                 hs.append(h)
 
         h = hs[-1]
-        h = next(mods)(h, temb)
+        h = self._resblock(next(mods), h, temb)
         h = next(mods)(h)
-        h = next(mods)(h, temb)
+        h = self._resblock(next(mods), h, temb)
 
         pyramid = None
         for i_level in reversed(range(num_resolutions)):
             for _ in range(cfg.num_res_blocks + 1):
-                h = next(mods)(torch.cat([h, hs.pop()], dim=1), temb)
+                h = self._resblock(next(mods), torch.cat([h, hs.pop()], dim=1), temb)
             if self.all_resolutions[i_level] in cfg.attn_resolutions:
                 h = next(mods)(h)
             if cfg.progressive == "output_skip":
@@ -236,7 +255,7 @@ class NCSNpp(nn.Module):
                 else:
                     pyramid = upsample_2d(pyramid, cfg.fir_kernel, factor=2) + pyramid_h
             if i_level != 0:
-                h = next(mods)(h, temb)
+                h = self._resblock(next(mods), h, temb)
 
         if cfg.progressive == "output_skip":
             h = pyramid
@@ -254,6 +273,19 @@ class NCSNpp(nn.Module):
         d = cfg.spatial_channels
         h = h.permute(0, 2, 3, 1)  # [B, F, T, 2D]
         return torch.stack([h[..., :d], h[..., d:]], dim=-1)  # [B, F, T, D, 2]
+
+
+def _conv_out_policy(ctx, op, *args, **kwargs):
+    """Selective remat 'conv_outs': keep the outputs of the blocks' 3x3
+    convolutions (groups 1; the FIR resampling convolves depthwise),
+    recompute everything else."""
+    if op is torch.ops.aten.convolution.default and args[8] == 1:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _save_conv_outs():
+    return create_selective_checkpoint_contexts(_conv_out_policy)
 
 
 def cast_backbone_for_inference(net: torch.nn.Module) -> None:

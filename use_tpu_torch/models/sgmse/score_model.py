@@ -1,11 +1,12 @@
-"""ScoreModel: the SGMSE task head (backbone + SDE + STFT + sampler), inference.
+"""ScoreModel: the SGMSE task head (backbone + SDE + STFT + sampler).
 
 Port of use_tpu/models/sgmse/score_model.py (reference
 src/models/components/sgmse/model_wrapper.py:23-329). The backbone is a torch
 module held by the model (``score_net``) on ``device``; sampling runs under
 ``torch.inference_mode``. Batch convention as use_tpu's: a dict with
 'perturbed' (and optionally 'fake') wavs [B, L], returning 'enhanced' or
-'fake_sde_enhanced'. ``train_loss`` is not ported yet (training slice).
+'fake_sde_enhanced'; training adds 'clean'. ``train_loss`` is the
+denoising score-matching loss, drawn from an explicit ``torch.Generator``.
 """
 from __future__ import annotations
 
@@ -18,10 +19,12 @@ from use_tpu_torch.models.ncsnpp.ncsnpp import cast_backbone_for_inference
 from use_tpu_torch.models.registry import BackboneRegistry, SDERegistry
 from use_tpu_torch.models.sgmse import sampling
 from use_tpu_torch.models.sgmse.sampling import NoiseAt, NoiseFn
+from use_tpu_torch.models.sgmse.sdes import batch_broadcast, crandn
 from use_tpu_torch.ops import STFTConfig, istft, pad_spec, spec_back, spec_fwd, stft
 from use_tpu_torch.utils.device import resolve_device
 
 Batch = Dict[str, torch.Tensor]
+TrainDraws = Tuple[int, torch.Tensor, torch.Tensor]  # (crop start, t [B], z [B, F, T, 2])
 
 
 @dataclass
@@ -110,6 +113,68 @@ class ScoreModel:
                 raise ValueError("sde_input='denoised' requires batch['fake']")
             return y_denoised
         raise NotImplementedError(f"Unknown sde input: {self.sde_input}")
+
+    # -- training ---------------------------------------------------------
+    @property
+    def target_len(self) -> int:
+        """Samples of a training crop: num_frames STFT frames."""
+        return (self.num_frames - 1) * self.hop_length
+
+    def draw_train(self, batch_size: int, length: int,
+                   generator: Optional[torch.Generator] = None) -> TrainDraws:
+        """The loss's random draws, in use_tpu's order (crop, t, z): the crop
+        start in [0, max(length - target_len, 1)), t ~ U[t_eps, T) per item,
+        z the complex-normal noise of the cropped spectra [B, F, num_frames, 2];
+        t and z on the generator's device (the model's without one)."""
+        dev = self.device if generator is None else generator.device
+        start = int(torch.randint(0, max(length - self.target_len, 1), (), generator=generator,
+                                  device=dev))
+        t = (torch.rand((batch_size,), generator=generator, device=dev)
+             * (self.sde_obj.T - self.t_eps) + self.t_eps)
+        z = crandn((batch_size, self.stft_cfg.freqs, self.num_frames, 2), generator, dev)
+        return start, t, z
+
+    def train_loss(self, batch: Batch, generator: Optional[torch.Generator] = None,
+                   draws: Optional[TrainDraws] = None) -> torch.Tensor:
+        """Denoising score-matching loss (model_wrapper.py:147-208;
+        use_tpu score_model.py:140-193): a random num_frames crop (or centred
+        zero padding) -> STFT -> t ~ U[t_eps, T] -> perturb with the SDE
+        marginal -> 0.5 |sigma * score + z|^2 summed per item, mean over the
+        batch. ``draws`` = (start, t, z) replaces ``draw_train``'s, so that a
+        test can feed use_tpu's; t and z may lie on another device than the
+        batch (a CPU generator's draws) and are moved to it."""
+        x, y = batch["clean"], batch["perturbed"]
+        y_denoised = batch.get("fake")
+        current_len = x.shape[-1]
+        start, t, z = draws if draws is not None else self.draw_train(
+            x.shape[0], current_len, generator)
+        t, z = t.to(x.device), z.to(x.device)
+        if current_len >= self.target_len:
+            def take(w):
+                return w[..., start : start + self.target_len]
+        else:
+            pad = self.target_len - current_len
+
+            def take(w):
+                return torch.nn.functional.pad(w, (pad // 2, pad - pad // 2))
+        x = self._spec(take(x))
+        y = self._spec(take(y))
+        if y_denoised is not None:
+            y_denoised = self._spec(take(y_denoised))
+
+        sde_input = self._select_sde_input(y, y_denoised)
+        mean, std = self.sde_obj.marginal_prob(x, t, sde_input)
+        sigmas = batch_broadcast(std, x)
+        perturbed = mean + sigmas * z
+        score = self.forward_score(perturbed, t, self._select_cond(y, y_denoised))
+        err = score * sigmas + z
+        if self.loss_type == "mse":
+            losses = torch.sum(err * err, dim=-1)  # |err|^2
+        elif self.loss_type == "mae":
+            losses = torch.sqrt(torch.sum(err * err, dim=-1) + 1e-12)
+        else:
+            raise NotImplementedError(self.loss_type)
+        return torch.mean(0.5 * torch.sum(losses.reshape(losses.shape[0], -1), dim=-1))
 
     # -- inference --------------------------------------------------------
     def sample_spec(

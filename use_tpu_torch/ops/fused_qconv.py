@@ -22,7 +22,7 @@ arithmetic in torch ops (its integer conv is a float64 conv of the int8
 values, exact whatever algorithm runs it). The wrappers take the plain
 version for CPU tensors only; for CUDA tensors they launch the kernel or
 raise. ``qconv3x3_fused.launches`` counts kernel launches. Serving only: no
-backward, as in use_tpu.
+backward, as in use_tpu; both wrappers raise when a gradient is asked for.
 """
 from __future__ import annotations
 
@@ -34,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from use_tpu_torch.ops import cuda_build
+from use_tpu_torch.ops.gn_stats import no_grad_here
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 CHUNK = 32  # input channels a chunk of the kernel's weight layout (the k of one mma)
@@ -173,6 +174,7 @@ def qconv3x3_fused_prepared(
     x [B, C, H, W] fp32 or bf16 (contiguous NCHW), gn_scale / gn_shift
     [B, C] fp32 or None (identity), bias [O] or None; output [B, O, H, W] in
     out_dtype. ``tile`` (a key of TILES) overrides ``pick_tile``."""
+    no_grad_here("qconv3x3_fused", x, gn_scale, gn_shift, bias)
     qw, sw, iu = prepared
     if x.dim() != 4 or qw.dim() != 4 or qw.shape[1] != 9 or qw.shape[3] != CHUNK:
         raise ValueError(f"qconv3x3_fused: x {tuple(x.shape)}, prepared weight {tuple(qw.shape)}")
@@ -244,6 +246,7 @@ def qconv3x3_fused(
     if weight.shape[1] != x.shape[1] or u.shape != (x.shape[1],):
         raise ValueError(f"qconv3x3_fused: weight {tuple(weight.shape)} / u {tuple(u.shape)} "
                          f"do not take {x.shape[1]} channels")
+    no_grad_here("qconv3x3_fused", weight, u)
     if prepared is None:
         prepared = prepare_qconv_weight(weight, u)
     return qconv3x3_fused_prepared(x, prepared, gn_scale, gn_shift, act, bias, out_dtype)

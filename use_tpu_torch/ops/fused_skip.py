@@ -12,6 +12,11 @@ point. Bounds and design: see the note there.
 ``fused_skip_add`` takes ``fused_skip_add_plain`` for CPU tensors; for CUDA
 tensors it launches the kernel or raises. ``fused_skip_add.launches`` counts
 kernel launches.
+
+Gradients: where an input requires one, the call runs through a
+``torch.autograd.Function`` with the same dispatch forward and a backward
+in torch ops, the products use_tpu leaves to XLA: with g = dy * scale,
+dh = g, db = sum g, dx = W^T g and dW = g x^T, summed over batch and space.
 """
 from __future__ import annotations
 
@@ -48,11 +53,39 @@ def fused_skip_add_plain(
     return out.to(h.dtype).reshape(h.shape)
 
 
+class _FusedSkipAdd(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, h, w, b, scale):
+        ctx.save_for_backward(x, w)
+        ctx.scale = scale
+        return _fused_skip_add_fwd(x, h, w, b, scale)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        bsz, ci, hh, ww = x.shape
+        g = dy.float().reshape(bsz, -1, hh * ww) * ctx.scale  # [B, Co, S]
+        need_x, need_h, need_w, need_b, _ = ctx.needs_input_grad
+        w2 = w.float().reshape(w.shape[0], -1)  # [Co, Ci]
+        dx = torch.matmul(w2.t(), g).reshape(x.shape).to(x.dtype) if need_x else None
+        dh = g.reshape(dy.shape).to(dy.dtype) if need_h else None
+        dw = (torch.matmul(g, x.float().reshape(bsz, ci, -1).transpose(1, 2)).sum(0)
+              .reshape(w.shape).to(w.dtype) if need_w else None)
+        db = g.sum((0, 2)).to(w.dtype) if need_b else None
+        return dx, dh, dw, db, None
+
+
 def fused_skip_add(
     x: torch.Tensor, h: torch.Tensor, w: torch.Tensor, b: torch.Tensor, scale: float = 1.0
 ) -> torch.Tensor:
     """(h + conv1x1(x; w, b)) * scale for x [B, Ci, H, W], h [B, Co, H, W],
     w [Co, Ci] (or [Co, Ci, 1, 1]), b [Co]; all of one dtype, output in it."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, h, w, b)):
+        return _FusedSkipAdd.apply(x, h, w, b, scale)
+    return _fused_skip_add_fwd(x, h, w, b, scale)
+
+
+def _fused_skip_add_fwd(x, h, w, b, scale) -> torch.Tensor:
     bsz, ci, co, s, w2 = _shapes(x, h, w, b)
     if x.is_cpu:
         return fused_skip_add_plain(x, h, w, b, scale)

@@ -25,7 +25,15 @@ and an ordered finalize.
 Each wrapper takes its plain torch version (``*_plain``) for a CPU tensor;
 for a CUDA tensor it launches its kernel or raises. ``<wrapper>.launches``
 counts kernel launches; ``gn_fold`` counts as ``channel_sums``. Bounds and design: see the note in csrc/gn_stats.cu.
-Not ported yet: the backward dx = ds + 2 x dss (training slice).
+
+Gradients: where an input requires one, ``channel_sums`` and ``gn_apply``
+run through ``torch.autograd.Function``s whose forward is the same
+dispatch (plain version on the CPU, kernel on the card) and whose backward
+is torch ops: ``channel_sums``' is use_tpu's custom VJP (gn_stats.py:114-117)
+dx = ds + 2 x dss; ``gn_apply``'s recomputes the fold and the
+pre-activation z from its saved inputs and hands (da, doff) back through
+``fold_scale_shift``'s own autograd to the sums and the affine. ``gn_fold``
+(int8 serving) has no gradient and raises when one is asked for.
 """
 from __future__ import annotations
 
@@ -144,13 +152,43 @@ def _stats(x: torch.Tensor, what: str, weight: Optional[torch.Tensor] = None,
     return out.unbind(0)
 
 
+def _needs_grad(*tensors: Optional[torch.Tensor]) -> bool:
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
+
+
+def no_grad_here(what: str, *tensors: Optional[torch.Tensor]) -> None:
+    """Serving-only ops raise rather than return a result without a gradient."""
+    if _needs_grad(*tensors):
+        raise RuntimeError(f"{what} has no gradient (int8 serving only); call it under "
+                           "torch.no_grad() or torch.inference_mode()")
+
+
+def _channel_sums_fwd(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    if x.is_cpu:
+        return channel_sums_plain(x)
+    return _stats(x, "channel_sums")
+
+
+class _ChannelSums(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return _channel_sums_fwd(x)
+
+    @staticmethod
+    def backward(ctx, ds, dss):
+        (x,) = ctx.saved_tensors
+        dx = torch.addcmul(ds[:, :, None], x.float(), dss[:, :, None], value=2.0)
+        return dx.to(x.dtype)
+
+
 def channel_sums(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(sum_x, sum_x2) over axis 2 of [B, C, S], fp32, in one read of x."""
     if x.dim() != 3:
         raise ValueError(f"channel_sums expects [B, C, S], got {tuple(x.shape)}")
-    if x.is_cpu:
-        return channel_sums_plain(x)
-    return _stats(x, "channel_sums")
+    if _needs_grad(x):
+        return _ChannelSums.apply(x)
+    return _channel_sums_fwd(x)
 
 
 channel_sums.launches = 0
@@ -171,6 +209,7 @@ def gn_fold(
     kernel with the fold inside, and counts as a ``channel_sums`` launch."""
     if x.dim() != 3:
         raise ValueError(f"gn_fold expects [B, C, S], got {tuple(x.shape)}")
+    no_grad_here("gn_fold", x, weight, bias)
     if x.is_cpu:
         return gn_fold_plain(x, weight, bias, groups, eps)
     return _stats(x, "gn_fold", weight, bias, groups, eps)
@@ -209,6 +248,20 @@ def fold_scale_shift(
     return a.reshape(b, c), off.reshape(b, c)
 
 
+def _act_backward(dy: torch.Tensor, z: torch.Tensor, act: Optional[str]) -> torch.Tensor:
+    """dy * act'(z), each in one pass of torch's own activation backward."""
+    code = ACT_CODES[act]
+    if code == 1:
+        return torch.ops.aten.silu_backward(dy, z)
+    if code == 2:
+        return torch.ops.aten.threshold_backward(dy, z, 0.0)
+    if code == 3:
+        return torch.ops.aten.leaky_relu_backward(dy, z, 0.2, False)
+    if code == 4:
+        return torch.ops.aten.elu_backward(dy, 1.0, 1.0, 1.0, False, z)
+    return dy
+
+
 def _act_plain(y: torch.Tensor, act: Optional[str]) -> torch.Tensor:
     code = ACT_CODES[act]
     if code == 1:
@@ -233,6 +286,37 @@ def gn_apply_plain(
     return _act_plain(y, act).to(out_dtype or x.dtype)
 
 
+class _GNApply(torch.autograd.Function):
+    """y = act(x a + off), (a, off) = fold_scale_shift(sums, sumsq, weight,
+    bias). The backward recomputes (a, off) with autograd and z = x a + off:
+    dz = dy act'(z), dx = dz a, da = sum_S dz x, doff = sum_S dz, and
+    (da, doff) go back through the fold to the sums and the affine."""
+
+    @staticmethod
+    def forward(ctx, x, sums, sumsq, weight, bias, groups, eps, act, out_dtype):
+        ctx.save_for_backward(x, sums, sumsq, weight, bias)
+        ctx.cfg = (groups, eps, act)
+        return _gn_apply_fwd(x, sums, sumsq, weight, bias, groups, eps, act, out_dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, sums, sumsq, weight, bias = ctx.saved_tensors
+        groups, eps, act = ctx.cfg
+        fold_in = [t.detach().requires_grad_(need)
+                   for t, need in zip((sums, sumsq, weight, bias), ctx.needs_input_grad[1:5])]
+        with torch.enable_grad():
+            a, off = fold_scale_shift(*fold_in, groups, x.shape[2], eps)
+        xf = x.float()
+        a3, off3 = a.detach()[:, :, None], off.detach()[:, :, None]
+        dz = _act_backward(dy.float(), torch.addcmul(off3, xf, a3), act)
+        dx = (dz * a3).to(x.dtype) if ctx.needs_input_grad[0] else None
+        wanted = [t for t in fold_in if t.requires_grad]
+        grads = iter(torch.autograd.grad((a, off), wanted, ((dz * xf).sum(2), dz.sum(2)))
+                     if wanted else ())
+        return (dx, *[next(grads) if t.requires_grad else None for t in fold_in],
+                None, None, None, None)
+
+
 def gn_apply(
     x: torch.Tensor, sums: torch.Tensor, sumsq: torch.Tensor, weight: torch.Tensor,
     bias: torch.Tensor, groups: int, eps: float = 1e-6, act: Optional[str] = None,
@@ -245,6 +329,12 @@ def gn_apply(
     if act not in ACT_CODES:
         raise NotImplementedError(f"activation {act!r} not supported")
     out_dtype = out_dtype or x.dtype
+    if _needs_grad(x, sums, sumsq, weight, bias):
+        return _GNApply.apply(x, sums, sumsq, weight, bias, groups, eps, act, out_dtype)
+    return _gn_apply_fwd(x, sums, sumsq, weight, bias, groups, eps, act, out_dtype)
+
+
+def _gn_apply_fwd(x, sums, sumsq, weight, bias, groups, eps, act, out_dtype) -> torch.Tensor:
     if x.is_cpu:
         return gn_apply_plain(x, sums, sumsq, weight, bias, groups, eps, act, out_dtype)
     _check_cuda(x, "gn_apply")
