@@ -5,6 +5,8 @@
     python3 chip_smoke.py --kernels    # build + per-kernel phases (and gradients) only
     python3 chip_smoke.py --profile    # also profile one full-width forward and
                                        # one training microbatch
+    python3 chip_smoke.py --gan        # build, kernels, then only the LSGAN
+                                       # training and eval phases (13-16)
 
 Phases, one line each (any failure raises and exits non-zero):
   1. environment: torch / CUDA versions, the card's name and power limit;
@@ -72,7 +74,36 @@ Phases, one line each (any failure raises and exits non-zero):
  12. learn: use_tpu's learning gate (tests/test_learning.py::
      test_sgmse_learns_to_enhance) on the card at its seed 0, one run with
      deterministic algorithms: a tiny score net overfit for 600 steps must
-     enhance held-out speech probes by more than 2 dB SI-SDR.
+     enhance held-out speech probes by more than 2 dB SI-SDR;
+ 13. gan_train_step: one full-width microbatch of the LSGAN recipe (the
+     `ncsnpp` generator, fp32, remat conv_outs, net input [2, 512, 480, 2];
+     the 24k_MVD bank on 76 640-sample clips): its D phase and G phase on
+     the card against the CPU on the same weights, batch and crop start
+     (the losses, and every D and G gradient within TRAIN_GRAD_REL_TOL of
+     its own tensor's largest value; the same microbatch with TF32 on is a
+     control that must exceed it), then gan_train_step with both Adam
+     steps: its exact launches (GAN_TRAIN_LAUNCHES, with remat and
+     without), seconds per microbatch and peak device memory;
+ 14. train_lsgan: the CLI's `train experiment=LSGAN` as shipped (micro 2 x
+     accumulation 16) on GAN_TRAIN_CLIPS synth_speech clips, two optimizer
+     steps: finite losses, a checkpoint of G and D, optimized_metric.json,
+     the run's exact launches (training microbatches, validation and test
+     forwards), seconds per optimizer step, trained audio-s/s, the
+     loader's wait and peak memory; then `predict experiment=LSGAN
+     ckpt_path=<out_dir>/checkpoints` on one clip, and `eval
+     experiment=LSGAN` of that checkpoint (phase 15's checks);
+ 15. eval: `eval experiment=SGMSE_Large infer.N=3 eval.max_files=2` with
+     seeded weights on EVAL_CLIPS clips: finite test losses, the rich
+     metrics (si_sdr, si_sir, si_sar, lsd, estoi; pesq_wb where the `pesq`
+     package imports), whether figures were drawn, and exact launches (per
+     backbone forward, the forwards being the test batches and the
+     sampler's steps);
+ 16. learn_lsgan: use_tpu's LSGAN learning gate (tests/test_learning.py::
+     test_lsgan_generator_learns_to_enhance) at its seed 0, probe sizes and
+     rates, six runs at once (one with deterministic algorithms, reported):
+     each G loss falls, and the median gain of the enhanced SI-SDR of
+     held-out probes over the noisy one, over the five runs without
+     deterministic algorithms, must exceed 1 dB.
 Each phase prints its seconds. Then a JSON line of the kernels, the card
 line, and the last line {"ok": true, "device": {...}}.
 """
@@ -107,6 +138,7 @@ GN_SHAPES = [
     (8, 128, 512, 960),  # parallel_pc on the 6 s clip: W = 8 trajectory points of [512, 960]
     (8, 256, 512, 960),  # parallel_pc: the up path's skip concat at full resolution
     (2, 128, 512, 512),  # training: a microbatch of the recipe at full resolution
+    (2, 128, 512, 480),  # LSGAN training: a generator microbatch at full resolution
 ]
 SKIP_SHAPES = [  # (B, Ci, Co, H, W)
     (8, 256, 128, 512, 192),  # up path, full-resolution block, 8 lanes
@@ -123,6 +155,7 @@ SKIP_SHAPES = [  # (B, Ci, Co, H, W)
     (8, 384, 128, 256, 480),  # up path at 256 x 480, the skip from level 2
     (8, 512, 256, 128, 240),  # up path at 128 x 240
     (2, 256, 128, 512, 512),  # training: up path, full resolution, a microbatch of the recipe
+    (2, 128, 256, 256, 240),  # LSGAN training: level 1's first block (128 -> 256), a microbatch
 ]
 SKIP_RAGGED = (2, 36, 40, 5, 7)  # ragged Ci, Co and positions, scalar path: checked, not timed
 QCONV_SHAPES = [  # (B, C, O, H, W): int8 predict path, 8 lanes
@@ -195,6 +228,32 @@ TRAIN_CLIPS, TRAIN_CLIP_S = 24, 4  # 24 clips: 3 optimizer steps of 2 x 4 an epo
 TRAIN_PREDICT_N = 3
 CROP_S = 81760 / 24000  # a training crop: 511 hops of 160 samples at 24 kHz
 JAX_LEARN_GAIN_DB = 5.65  # tests/test_learning.py:16
+# LSGAN training (phases 13-16)
+GAN_EXPERIMENT = "LSGAN"
+GAN_TRAIN_SHAPE = (2, 512, 480, 2)  # a microbatch of generator input: 2 clips, 512 bins x 480 frames
+# kernel launches per full-width LSGAN microbatch: the D phase's generator
+# forward without autograd (45 / 45 / 15, PER_GENERATOR_FORWARD), the G
+# phase's forward (45 / 45 / 15) and, under remat, its recomputation of the
+# residual blocks (the 40 GroupNorms and 15 shortcuts inside them); counted
+# on the CPU by tests/test_torch_gan_train.py::test_gan_launch_constants_of_chip_smoke
+GAN_TRAIN_LAUNCHES = {
+    "remat": {"channel_sums": 130, "gn_apply": 130, "fused_skip_add": 45, "qconv3x3_fused": 0},
+    "no_remat": {"channel_sums": 90, "gn_apply": 90, "fused_skip_add": 30, "qconv3x3_fused": 0},
+}
+GAN_TRAIN_CLIPS = 64  # two optimizer steps of 2 x 16 an epoch
+# the items of train_lsgan spliced to 3.5 s (the recipe's 6 s): still longer
+# than the 3.19 s crop, and the loaders' synthesis of the 64 training, 64
+# validation and 64 test items, most of that phase's time, shrinks with them
+GAN_SPLICE_S = 3.5
+GAN_CROP_S = 76640 / 24000  # a generator training crop: 479 hops of 160 samples
+EVAL_SGMSE, EVAL_CLIPS, EVAL_FILES, EVAL_N = "SGMSE_Large", 4, 2, 3
+JAX_GAN_LEARN_GAIN_DB = (1.9, 7.0)  # tests/test_learning.py:160, :183 (CPU runs)
+# the LSGAN gate's runs at seed 0, deterministic algorithms or not: the gate
+# is the median of the runs without; the deterministic run, one fixed
+# trajectory (-1.51 dB on an H100 in four calls), is reported beside them.
+# Nine of ten runs without read +3.8 to +5.6 dB, one -0.53 (PERF.md).
+LEARN_LSGAN_RUNS = (True, False, False, False, False, False)
+RICH_KEYS = {"si_sdr", "si_sir", "si_sar", "lsd", "estoi"}
 
 # kernel launches per ncsnpplarge forward on each predict run
 PER_FORWARD = {
@@ -218,6 +277,8 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--kernels", action="store_true", help="build and kernel phases only")
     ap.add_argument("--profile", action="store_true", help="profile one full-width forward")
+    ap.add_argument("--gan", action="store_true",
+                    help="build, kernels, then only the LSGAN training and eval phases")
     args = ap.parse_args()
     # the learn phase runs cuBLAS deterministically, which needs this before its first call
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -250,8 +311,11 @@ def main():
     with torch.inference_mode():  # as the predict path's sampler calls the kernels
         results = timed("kernels", kernel_phases, torch, dev)
     timed("grad_check", grad_check_phase, torch, dev)
-    runs = {label: {name: None for name in results} for label in (*PER_FORWARD, "train")}
-    if not args.kernels:
+    runs = {label: {name: None for name in results}
+            for label in (*PER_FORWARD, "train", "train_lsgan")}
+    if args.gan:
+        runs.update(gan_phases(torch, dev))
+    elif not args.kernels:
         timed("forward", forward_phase, torch, dev)
         timed("int8_forward", int8_forward_phase, torch, dev)
         runs = {"float32": timed("predict float32", predict_phase, torch, dev, "float32", ()),
@@ -279,6 +343,7 @@ def main():
         timed("train_step", train_step_phase, torch, dev)
         runs["train"] = timed("train", train_phase, torch, dev)
         timed("learn", learn_phase, torch, dev)
+        runs.update(gan_phases(torch, dev))
         if args.profile:
             timed("profile", profile_phase, torch, dev)
             timed("profile_train", profile_train_phase, torch, dev)
@@ -290,8 +355,9 @@ def main():
             "name", "route", "source", "replaces", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "shape", "dtype", "device_ms") if k in main_case}
         # the count of the run whose path the kernel is on: K3 int8 serving,
-        # K1 and K2 this slice's training (forward and backward)
-        entry["launches"] = runs["int8_bfloat16" if name == "qconv3x3_fused" else "train"][name]
+        # K1 and K2 this slice's LSGAN training (both phases, validation, test)
+        entry["launches"] = runs["int8_bfloat16" if name == "qconv3x3_fused"
+                                 else "train_lsgan"][name]
         entry["launches_per_run"] = {label: counts[name] for label, counts in runs.items()}
         if "prep_ms" in main_case:
             entry["prep_ms"] = main_case["prep_ms"]
@@ -1475,25 +1541,28 @@ def write_corpus(root, n, secs, sr=24000):
 
 
 @contextlib.contextmanager
-def train_steps_timed(torch, dev):
-    """Each optimizer step of the loop (engine.loop.sgmse_train_step) timed
+def train_steps_timed(torch, dev, task="sgmse", profile_step=True):
+    """Each optimizer step of the loop (engine.loop.<task>_train_step) timed
     to a synchronize, its microbatches counted and the loader's time before
-    it, the second one profiled (kernel time over its wall time: the busy
-    share); the eval steps (validation, test-after-fit) counted."""
+    it, the second one profiled where profile_step (kernel time over its
+    wall time: the busy share); the eval steps (validation, test-after-fit)
+    counted and timed."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from use_tpu_torch.engine import loop, train
 
-    rec = {"step_s": [], "microbatches": [], "wait_s": [], "eval_steps": 0, "profiled": None}
-    real_step, real_eval = loop.sgmse_train_step, loop.sgmse_eval_step
+    step_name, eval_name = f"{task}_train_step", f"{task}_eval_step"
+    rec = {"step_s": [], "microbatches": [], "wait_s": [], "eval_steps": 0, "eval_s": [],
+           "profiled": None}
+    real_step, real_eval = getattr(loop, step_name), getattr(loop, eval_name)
     last = [time.perf_counter()]
 
     def step(model, state, micro, *args, **kw):
         torch.cuda.synchronize(dev)
         rec["wait_s"].append(time.perf_counter() - last[0])  # the loader's, since the last step
         prof = None
-        if len(rec["step_s"]) == 1 and rec["profiled"] is None:
+        if profile_step and len(rec["step_s"]) == 1 and rec["profiled"] is None:
             prof = profile(activities=[ProfilerActivity.CUDA])  # kernels only: a light trace
             prof.__enter__()
         t0 = time.perf_counter()
@@ -1516,14 +1585,21 @@ def train_steps_timed(torch, dev):
 
     def eval_step(*args, **kw):
         rec["eval_steps"] += 1
-        return real_eval(*args, **kw)
+        t0 = time.perf_counter()
+        out = real_eval(*args, **kw)
+        torch.cuda.synchronize(dev)
+        rec["eval_s"].append(time.perf_counter() - t0)
+        return out
 
-    loop.sgmse_train_step, loop.sgmse_eval_step, train.sgmse_eval_step = step, eval_step, eval_step
+    setattr(loop, step_name, step)
+    setattr(loop, eval_name, eval_step)
+    setattr(train, eval_name, eval_step)
     try:
         yield rec
     finally:
-        loop.sgmse_train_step, loop.sgmse_eval_step = real_step, real_eval
-        train.sgmse_eval_step = real_eval
+        setattr(loop, step_name, real_step)
+        setattr(loop, eval_name, real_eval)
+        setattr(train, eval_name, real_eval)
 
 
 def train_phase(torch, dev):
@@ -1696,6 +1772,510 @@ def profile_train_phase(torch, dev):
     phase("profile_train", shape=list(TRAIN_SHAPE), dtype="float32", remat_policy="conv_outs",
           microbatch_s_tf32_off=float(np.median(times[False])),
           microbatch_s_tf32_on=float(np.median(times[True])), **out)
+
+
+# -- LSGAN training and eval (phases 13-16) -----------------------------------
+
+def gan_phases(torch, dev):
+    """Phases 13-16; -> {run label: launches by kernel} of train_lsgan and
+    the evals."""
+    timed("gan_train_step", gan_train_step_phase, torch, dev)
+    runs = timed("train_lsgan", train_lsgan_phase, torch, dev)
+    runs[f"eval {EVAL_SGMSE}"] = timed(f"eval {EVAL_SGMSE}", eval_phase, torch, dev, EVAL_SGMSE,
+                                       None, PER_FORWARD["float32"])
+    timed("learn_lsgan", learn_lsgan_phase, torch, dev)
+    return runs
+
+
+def _gan_model(torch, device, remat=True):
+    """The LSGAN recipe as the CLI builds it (the `ncsnpp` generator, fp32,
+    remat conv_outs; the 24k_MVD bank; the shipped criterion) on `device`,
+    the generator's weights seeded unit-scale random, D's seeded as Flax's."""
+    from use_tpu_torch.cli.main import _build_model
+    from use_tpu_torch.config.config import load_config
+
+    cfg = load_config(GAN_EXPERIMENT)
+    gan = _build_model(cfg, "cpu")
+    net = gan.generator.net
+    net.cfg = dataclasses.replace(net.cfg, remat=remat)
+    _randomize(torch, net, seed=1)
+    return _gan_to(torch, gan, device), cfg
+
+
+def _gan_to(torch, gan, device):
+    gan.generator.net.to(device)
+    gan.generator.device = torch.device(device)
+    gan.discriminator.to(device)
+    return gan
+
+
+def _gan_batch(torch, gan, seed=5):
+    """One microbatch of two clips a little longer than the crop, and its
+    crop start from a CPU generator."""
+    length = gan.generator.target_len + 4000
+    rng = np.random.default_rng(seed)
+    clean = (0.3 * rng.standard_normal((GAN_TRAIN_SHAPE[0], length))).astype(np.float32)
+    noisy = (clean + 0.1 * rng.standard_normal(clean.shape)).astype(np.float32)
+    batch = {"clean": torch.from_numpy(clean), "perturbed": torch.from_numpy(noisy)}
+    return batch, gan.generator.draw_start(length, torch.Generator().manual_seed(seed))
+
+
+def _gan_microbatch(torch, gan, batch, start):
+    """The D phase and the G phase of one microbatch, as gan_train_step runs
+    them, but both against the same D (no optimizer step between: a first
+    Adam step is lr sign(g), which would carry rounding-level gradients into
+    the G phase as whole steps); -> (loss_D, logs of the G phase, seconds)
+    after a synchronize, the gradients left in .grad."""
+    dev = gan.device
+    mb = {k: v.to(dev) for k, v in batch.items()}
+    gan.discriminator.zero_grad(set_to_none=True)
+    gan.generator.net.zero_grad(set_to_none=True)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        fake = gan.g_forward(mb, start=start)
+    loss_d = gan.d_loss(fake)
+    loss_d.backward()
+    d_params = list(gan.discriminator.parameters())
+    for p in d_params:
+        p.requires_grad_(False)
+    try:
+        loss_g, logs = gan.g_loss(gan.g_forward(mb, start=start))
+        loss_g.backward()
+    finally:
+        for p in d_params:
+            p.requires_grad_(True)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return loss_d.detach(), {k: float(v.detach()) for k, v in logs.items()}, time.perf_counter() - t0
+
+
+def _gan_grads(gan):
+    return {**{f"D.{k}": p.grad for k, p in gan.discriminator.named_parameters()
+               if p.grad is not None},
+            **{f"G.{k}": p.grad for k, p in gan.generator.net.named_parameters()
+               if p.grad is not None}}
+
+
+@contextlib.contextmanager
+def lrelu_branches(torch, replay=None):
+    """Each leaky ReLU of the discriminator, in call order: record its branch
+    (x > 0) as a CPU mask, or, given `replay`, take the recorded branch in
+    place of its own (the CPU then computes the function on the card's
+    side of every kink; its own branch is counted where it differs).
+    -> {"masks", "flips", "elements"}."""
+    from use_tpu_torch.models.gan import discriminators as disc
+
+    real = disc._lrelu
+    rec = {"masks": [], "flips": 0, "elements": 0}
+    branches = None if replay is None else iter(replay)
+
+    def lrelu(x):
+        if branches is None:
+            rec["masks"].append((x > 0).cpu())
+            return real(x)
+        mask = next(branches).to(x.device)
+        rec["flips"] += int((mask != (x > 0)).sum())
+        rec["elements"] += mask.numel()
+        return torch.where(mask, x, x * disc.LRELU_SLOPE)
+
+    disc._lrelu = lrelu
+    try:
+        yield rec
+    finally:
+        disc._lrelu = real
+
+
+def _gan_grad_errors(got, want, key_biases):
+    """As _grad_errors, over D's and G's gradients (names prefixed D. / G.)."""
+    top = max(float(g.abs().max()) for g in want.values())
+    if set(got) != set(want):
+        raise AssertionError(f"gan_train_step: gradients on one device only: "
+                             f"{sorted(set(got) ^ set(want))[:5]}")
+    rel, key_bias = {}, {}
+    for k, g in got.items():
+        g = g.cpu()
+        if k in key_biases:
+            key_bias[k] = [float(g.abs().max()) / top, float(want[k].abs().max()) / top]
+        else:
+            rel[k] = float((g - want[k]).abs().max()) / float(want[k].abs().max())
+    return rel, key_bias
+
+
+def kernel_busy(prof, wall_s):
+    """-> (kernel seconds summed, seconds the card ran any kernel, that
+    union over `wall_s`): the union of the kernels' intervals, since
+    kernels of other streams may overlap."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    total = union = 0.0
+    lo = hi = None
+    for a, b in spans:
+        total += b - a
+        if hi is None or a > hi:
+            union += 0.0 if hi is None else hi - lo
+            lo, hi = a, b
+        else:
+            hi = max(hi, b)
+    union += 0.0 if hi is None else hi - lo
+    return total / 1e6, union / 1e6, union / 1e6 / wall_s
+
+
+def _gan_step_launches(torch, gan, state, batch, start):
+    """One gan_train_step over the one microbatch: -> (launches, seconds)."""
+    from use_tpu_torch import ops
+    from use_tpu_torch.engine.train import gan_train_step
+
+    dev = gan.device
+    micro = [{k: v.to(dev) for k, v in batch.items()}]
+    torch.cuda.synchronize(dev)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = gan_train_step(gan, state, micro, starts=[start])
+    torch.cuda.synchronize(dev)
+    seconds = time.perf_counter() - t0
+    if not all(math.isfinite(float(v)) for v in out.values()):
+        raise AssertionError(f"gan_train_step: non-finite losses {out}")
+    return ops.launch_counts(), seconds
+
+
+def _cpu_grads(gan):
+    return {k: g.detach().cpu().clone() for k, g in _gan_grads(gan).items()}
+
+
+def gan_train_step_phase(torch, dev):
+    """One full-width LSGAN microbatch (phase 13): the D phase and the G
+    phase (against the same D) on the card (kernels) and on the CPU (plain
+    versions), on the same weights, batch and crop start, the CPU on the
+    card's branch of every leaky ReLU of D (lrelu_branches: a pre-activation
+    within rounding of 0 takes either branch, and its gradient jumps by
+    0.9 of its term; the flips are counted): loss_D and every loss_G*
+    within 1e-4 relative (the log terms 1e-3, as tests/test_torch_gan_train.py
+    argues), every D and G gradient within TRAIN_GRAD_REL_TOL of its own
+    tensor's largest value (the attention's key biases below
+    KEY_BIAS_GRAD_FLOOR of the largest of all), the same microbatch with
+    TF32 on off by more; then gan_train_step (both Adam steps): finite,
+    moved weights, launches exactly GAN_TRAIN_LAUNCHES with remat (median
+    time of 3, and one profiled: the share of its wall time the card ran a
+    kernel) and without, and peak device memory."""
+    from use_tpu_torch.engine.loop import build_gan_train_state
+
+    cpu, cfg = _gan_model(torch, "cpu")
+    batch, start = _gan_batch(torch, cpu)
+    gan = _gan_to(torch, copy.deepcopy(cpu), dev)
+    key_biases = {f"G.{name}.NIN_1.b" for name, m in gan.generator.net.named_modules()
+                  if type(m).__name__ == "AttnBlockpp"}
+    torch.cuda.reset_peak_memory_stats(dev)
+    with lrelu_branches(torch) as card:
+        loss_d, logs, first_s = _gan_microbatch(torch, gan, batch, start)
+    grads = _cpu_grads(gan)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with lrelu_branches(torch, card["masks"]):
+            _gan_microbatch(torch, gan, batch, start)
+    finally:
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    grads_tf32 = _cpu_grads(gan)
+    with lrelu_branches(torch, card["masks"]) as branches:
+        loss_d_cpu, logs_cpu, cpu_s = _gan_microbatch(torch, cpu, batch, start)
+    grads_cpu = _cpu_grads(cpu)
+    del cpu, card
+    rel, key_bias = _gan_grad_errors(grads, grads_cpu, key_biases)
+    worst = max(rel, key=rel.get)
+    worst_g = max((k for k in rel if k.startswith("G.")), key=rel.get)
+    loss_errs = {"loss_D": abs(float(loss_d) - float(loss_d_cpu)) / abs(float(loss_d_cpu)),
+                 **{k: abs(v - logs_cpu[k]) / max(abs(logs_cpu[k]), 1e-30)
+                    for k, v in logs.items()}}
+    rel_tf32, _ = _gan_grad_errors(grads_tf32, grads_cpu, key_biases)
+    worst_tf32 = max(rel_tf32, key=rel_tf32.get)
+    del grads, grads_tf32, grads_cpu
+
+    t = cfg["train"]
+    state = build_gan_train_state(gan, t["g_lr"], t["d_lr"], t["weight_decay"])
+    before = {k: p.detach().clone() for k, p in gan.generator.net.named_parameters()}
+    before_d = {k: p.detach().clone() for k, p in gan.discriminator.named_parameters()}
+    torch.cuda.reset_peak_memory_stats(dev)
+    counts, step_s = _gan_step_launches(torch, gan, state, batch, start)
+    peak_remat = torch.cuda.max_memory_allocated(dev)
+    moved = (sum(int(not torch.equal(before[k], p)) for k, p in gan.generator.net.named_parameters()),
+             sum(int(not torch.equal(before_d[k], p))
+                 for k, p in gan.discriminator.named_parameters()))
+    finite = all(bool(torch.isfinite(p).all()) for p in list(gan.generator.net.parameters())
+                 + list(gan.discriminator.parameters()))
+    del before, before_d
+    times = [step_s] + [_gan_step_launches(torch, gan, state, batch, start)[1] for _ in range(2)]
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        wall = _gan_step_launches(torch, gan, state, batch, start)[1]
+    kernel_s, busy_s, busy = kernel_busy(prof, wall)
+    profiled = {"wall_s": wall, "kernel_s": kernel_s, "kernel_union_s": busy_s, "busy_share": busy}
+    net = gan.generator.net
+    net.cfg = dataclasses.replace(net.cfg, remat=False)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    counts_no_remat, no_remat_s = _gan_step_launches(torch, gan, state, batch, start)
+    peak_no_remat = torch.cuda.max_memory_allocated(dev)
+    n_g, n_d = len(list(net.parameters())), len(list(gan.discriminator.parameters()))
+    phase("gan_train_step", experiment=GAN_EXPERIMENT, shape=list(GAN_TRAIN_SHAPE),
+          clip_samples=int(batch["clean"].shape[-1]), crop_start=start, dtype="float32",
+          tf32=bool(torch.backends.cudnn.allow_tf32), remat_policy=net.cfg.remat_policy,
+          loss_D=float(loss_d), loss_D_cpu=float(loss_d_cpu), logs=logs, logs_cpu=logs_cpu,
+          loss_rel_errs=loss_errs, grad_tol=TRAIN_GRAD_REL_TOL, max_grad_rel_err=rel[worst],
+          worst_grad=worst, median_grad_rel_err=float(np.median(list(rel.values()))),
+          grads_checked=len(rel), worst_grads=dict(sorted(rel.items(), key=lambda kv: -kv[1])[:8]),
+          worst_generator_grad=worst_g, max_generator_grad_rel_err=rel[worst_g],
+          lrelu_flips=branches["flips"], lrelu_elements=branches["elements"],
+          key_bias_grads_over_top=key_bias, key_bias_floor=KEY_BIAS_GRAD_FLOOR,
+          control="TF32 on", control_max_grad_rel_err=rel_tf32[worst_tf32],
+          control_worst_grad=worst_tf32,
+          control_median_grad_rel_err=float(np.median(list(rel_tf32.values()))),
+          cpu_seconds=round(cpu_s, 2), phases_first_s=first_s,
+          params_moved={"G": moved[0], "D": moved[1]}, params={"G": n_g, "D": n_d},
+          finite=finite, launches=counts, launches_no_remat=counts_no_remat,
+          microbatch_s=float(np.median(times)), microbatch_s_all=times,
+          microbatch_s_no_remat=no_remat_s, profiled_step=profiled, peak_memory_bytes=peak_remat,
+          peak_memory_bytes_no_remat=peak_no_remat)
+    failed = []
+    for k, e in loss_errs.items():
+        tol = 1e-3 if k in ("loss_G", "loss_G_mag_log", "loss_G_mel_log") else 1e-4
+        if not e <= tol:
+            failed.append(f"{k} card vs CPU off by {e} (tol {tol})")
+    if not rel[worst] <= TRAIN_GRAD_REL_TOL:
+        failed.append(f"gradient {worst} off by {rel[worst]} of its largest value (tol "
+                      f"{TRAIN_GRAD_REL_TOL})")
+    if key_bias and not max(max(v) for v in key_bias.values()) <= KEY_BIAS_GRAD_FLOOR:
+        failed.append(f"attention key-bias gradients {key_bias}")
+    if not rel_tf32[worst_tf32] > TRAIN_GRAD_REL_TOL:
+        failed.append(f"the TF32 control passes ({rel_tf32[worst_tf32]} <= {TRAIN_GRAD_REL_TOL})")
+    if counts != GAN_TRAIN_LAUNCHES["remat"] or counts_no_remat != GAN_TRAIN_LAUNCHES["no_remat"]:
+        failed.append(f"launches {counts} / {counts_no_remat}, expected {GAN_TRAIN_LAUNCHES}")
+    if not finite or moved[0] < n_g or moved[1] < n_d:
+        failed.append(f"the optimizer steps moved {moved} of {(n_g, n_d)} parameters, "
+                      f"finite {finite}")
+    if failed:
+        raise AssertionError("gan_train_step: " + "; ".join(failed))
+    del gan, net, state
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def forward_counts():
+    """The backbone forwards (NCSNpp.forward calls) of a run."""
+    from use_tpu_torch.models.ncsnpp.ncsnpp import NCSNpp
+
+    n = [0]
+    real = NCSNpp.forward
+
+    def forward(self, *args, **kw):
+        n[0] += 1
+        return real(self, *args, **kw)
+
+    NCSNpp.forward = forward
+    try:
+        yield n
+    finally:
+        NCSNpp.forward = real
+
+
+def eval_phase(torch, dev, experiment, ckpt, per_forward, jl=None):
+    """The CLI's `eval experiment=<experiment>` (phase 15) on EVAL_CLIPS
+    synth_speech clips (test losses of every test batch, then the rich
+    harness over EVAL_FILES utterances, SGMSE at N=EVAL_N): finite test
+    losses, the rich metrics RICH_KEYS (and pesq_wb where the package
+    imports), whether figures were drawn, and each kernel's launches
+    exactly per_forward times the backbone forwards, which are the test
+    batches plus the harness's (EVAL_N a file for SGMSE, one for LSGAN)."""
+    from use_tpu_torch import ops
+    from use_tpu_torch.cli.main import main as cli_main
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_") as tmp:
+        jl = jl or write_corpus(os.path.join(tmp, "corpus"), EVAL_CLIPS, TRAIN_CLIP_S)
+        argv = ["eval", f"experiment={experiment}", f"data.clean_json_path={jl}",
+                f"data.noise_json_path={jl}", "data.reverb_use_FRA=true",
+                f"eval.max_files={EVAL_FILES}", f"infer.N={EVAL_N}",
+                f"out_dir={os.path.join(tmp, 'eval')}", f"device={dev}"]
+        if ckpt:
+            argv.append(f"ckpt_path={ckpt}")
+        torch.cuda.synchronize(dev)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with train_steps_timed(torch, dev, "sgmse" if experiment.startswith("SGMSE") else "gan"
+                               ) as rec, forward_counts() as forwards:
+            summary = cli_main(argv)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+    harness = summary.get("files", 0) * (EVAL_N if experiment.startswith("SGMSE") else 1)
+    want_forwards = rec["eval_steps"] + harness
+    want = {k: v * forwards[0] for k, v in per_forward.items()}
+    try:
+        import pesq  # noqa: F401
+        keys = RICH_KEYS | {"pesq_wb"}
+    except ImportError:
+        keys = RICH_KEYS
+    phase("eval", experiment=experiment, ckpt=bool(ckpt), test=summary["test"],
+          rich=summary["rich"], files=summary.get("files"), figures=summary["figures"],
+          figures_drawn=summary["figures"] > 0, test_batches=rec["eval_steps"],
+          forwards=forwards[0], expected_forwards=want_forwards, launches=counts,
+          test_step_seconds=rec["eval_s"], wall_seconds=wall)
+    if not (summary["test"] and all(math.isfinite(v) for v in summary["test"].values())):
+        raise AssertionError(f"eval {experiment}: test losses {summary['test']}")
+    if set(summary["rich"] or {}) != keys or not all(math.isfinite(v)
+                                                      for v in summary["rich"].values()):
+        raise AssertionError(f"eval {experiment}: rich metrics {summary['rich']}, want {keys}")
+    if forwards[0] != want_forwards or counts != want:
+        raise AssertionError(f"eval {experiment}: {forwards[0]} forwards (want {want_forwards}), "
+                             f"launches {counts}, expected {want}")
+    torch.cuda.empty_cache()
+    return counts
+
+
+def train_lsgan_phase(torch, dev):
+    """`train experiment=LSGAN` through the CLI (phase 14), as shipped: micro
+    2 x accumulation 16, Adam 5e-4 / 2e-4, fp32, remat, 4 loader workers,
+    one epoch over GAN_TRAIN_CLIPS synth_speech clips of TRAIN_CLIP_S
+    seconds (two optimizer steps), items spliced to GAN_SPLICE_S; finite losses, a checkpoint holding G
+    and D, optimized_metric.json, every kernel launched exactly
+    GAN_TRAIN_LAUNCHES["remat"] times a microbatch plus
+    PER_GENERATOR_FORWARD times an eval batch. Then `predict
+    experiment=LSGAN ckpt_path=<out_dir>/checkpoints` on one 3 s clip
+    (PER_GENERATOR_FORWARD launches), and `eval experiment=LSGAN` of that
+    checkpoint (eval_phase). -> launches of the train run and the eval."""
+    from use_tpu_torch import ops
+    from use_tpu_torch.cli.main import main as cli_main
+    from use_tpu_torch.config.config import load_config
+    from use_tpu_torch.engine.checkpoint import CheckpointManager
+
+    sr = 24000
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_gan_") as tmp:
+        t0 = time.perf_counter()
+        jl = write_corpus(os.path.join(tmp, "corpus"), GAN_TRAIN_CLIPS, TRAIN_CLIP_S, sr)
+        corpus_s = time.perf_counter() - t0
+        out = os.path.join(tmp, "run")
+        torch.cuda.synchronize(dev)
+        ops.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        # no profiled step: the trace of 16 microbatches takes the profiler
+        # minutes to read back; gan_train_step's phase profiles one
+        with train_steps_timed(torch, dev, "gan", profile_step=False) as rec:
+            summary = cli_main(["train", f"experiment={GAN_EXPERIMENT}",
+                                f"data.clean_json_path={jl}", f"data.noise_json_path={jl}",
+                                "data.reverb_use_FRA=true", "train.max_epochs=1",
+                                f"data.speech_splice_seconds={GAN_SPLICE_S}",
+                                f"out_dir={out}", f"device={dev}"])
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+        with open(os.path.join(out, "optimized_metric.json")) as f:
+            record = json.load(f)
+        ckpts = os.path.join(out, "checkpoints")
+        steps = sorted(os.listdir(ckpts))
+        state = CheckpointManager(ckpts).restore()
+        held = {k: sorted(state[k]) for k in state}
+        del state
+        micro = summary["microbatches"]
+        step_s = rec["step_s"] + ([rec["profiled"]["wall_s"]] if rec["profiled"] else [])
+        want = {k: v * micro + PER_GENERATOR_FORWARD[k] * rec["eval_steps"]
+                for k, v in GAN_TRAIN_LAUNCHES["remat"].items()}
+        phase("train_lsgan", experiment=GAN_EXPERIMENT, clips=GAN_TRAIN_CLIPS,
+              clip_s=TRAIN_CLIP_S, splice_s=GAN_SPLICE_S, corpus_seconds=round(corpus_s, 2),
+              tf32=bool(torch.backends.cudnn.allow_tf32),
+              optimizer_steps=summary["optimizer_steps"], microbatches=micro,
+              trained_clips=summary["clips"], eval_batches=rec["eval_steps"],
+              history=summary["history"], optimized_metric=record, checkpoints=steps,
+              checkpoint_holds=held, fit_seconds=summary["fit_seconds"], wall_seconds=wall,
+              step_seconds=step_s, loader_wait_seconds=rec["wait_s"],
+              eval_step_seconds=rec["eval_s"],
+              s_per_optimizer_step=float(np.mean(step_s)) if step_s else None,
+              s_per_microbatch=sum(step_s) / micro if step_s else None,
+              trained_audio_s_per_s=(micro * GAN_TRAIN_SHAPE[0] * GAN_CROP_S / sum(step_s)
+                                     if step_s else None),
+              peak_memory_bytes=peak, launches=counts,
+              expected_launches=want)
+        hist = summary["history"]
+        losses = [h[k] for h in hist for k in ("train/loss_G", "train/loss_D")]
+        if not (losses and all(np.isfinite(losses)) and np.isfinite(record["value"])):
+            raise AssertionError(f"train_lsgan: losses {losses}, optimized metric {record}")
+        gcfg = load_config(GAN_EXPERIMENT)
+        from use_tpu_torch.cli.main import resolve_auto_batch
+
+        resolve_auto_batch(gcfg)
+        per_step = gcfg["data"]["batch_size"] * gcfg["train"]["accumulate_grad_batches"]
+        if summary["optimizer_steps"] != GAN_TRAIN_CLIPS // per_step or not steps:
+            raise AssertionError(f"train_lsgan: {summary['optimizer_steps']} steps, "
+                                 f"checkpoints {steps}")
+        if set(held) != {"g", "d"}:
+            raise AssertionError(f"train_lsgan: the checkpoint holds {sorted(held)}")
+        if counts != want:
+            raise AssertionError(f"train_lsgan: launches {counts}, expected {want}")
+
+        src, dst = os.path.join(tmp, "in"), os.path.join(tmp, "out")
+        lengths = write_clips(src, (3,), sr)
+        ops.reset_launch_counts()
+        psum = cli_main(["predict", f"experiment={GAN_EXPERIMENT}", f"ckpt_path={ckpts}",
+                         f"predict.data_folder={src}", f"predict.target_folder={dst}",
+                         f"device={dev}"])
+        torch.cuda.synchronize(dev)
+        pcounts = ops.launch_counts()
+        check_outputs(dst, lengths, sr, psum)
+        phase("predict", run="trained LSGAN checkpoint", experiment=GAN_EXPERIMENT,
+              files=psum["files"], audio_seconds=psum["audio_seconds"],
+              seconds=psum["seconds"], launches=pcounts)
+        if pcounts != PER_GENERATOR_FORWARD:
+            raise AssertionError(f"predict of the trained LSGAN: launches {pcounts}, "
+                                 f"expected {PER_GENERATOR_FORWARD}")
+        eval_counts = timed("eval LSGAN", eval_phase, torch, dev, GAN_EXPERIMENT, ckpts,
+                            PER_GENERATOR_FORWARD)
+    torch.cuda.empty_cache()
+    return {"train_lsgan": counts, "eval LSGAN": eval_counts}
+
+
+def _gan_learn_worker(det, device):
+    """One run of the LSGAN gate in a spawned process, deterministic
+    algorithms or not; TF32 off as in the parent."""
+    import torch
+
+    import use_tpu_torch.models  # noqa: F401 (registries)
+    from use_tpu_torch.tools import learn_gate
+
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    learn_gate.deterministic(torch, det)
+    return {**learn_gate.gan_learn_run(torch, device), "deterministic": det}
+
+
+def learn_lsgan_phase(torch, dev):
+    """use_tpu's LSGAN learning gate on the card (phase 16; tests/
+    test_learning.py::test_lsgan_generator_learns_to_enhance), as it runs
+    it: seed 0, its probe sizes and rates (tools/learn_gate.py
+    gan_learn_run), the LEARN_LSGAN_RUNS runs at once in spawned processes
+    on the one card (each is a small net; deterministic algorithms give one
+    result whatever runs beside them). Each run's G loss must fall, and the
+    median of the mean SI-SDR gains of the held-out probes over their noisy
+    input, over the runs without deterministic algorithms, must exceed
+    learn_gate.GAN_GATE_DB. One trajectory is one sample: this adversarial
+    probe's runs part within three steps between any two of the card's
+    algorithm choices and the CPU, and end 6 dB apart (PERF.md)."""
+    import multiprocessing
+
+    from use_tpu_torch.tools import learn_gate
+
+    with multiprocessing.get_context("spawn").Pool(len(LEARN_LSGAN_RUNS)) as pool:
+        runs = pool.starmap(_gan_learn_worker, [(det, str(dev)) for det in LEARN_LSGAN_RUNS])
+    gains = [r["gain_db"] for r in runs]
+    median = float(np.median([r["gain_db"] for r in runs if not r["deterministic"]]))
+    phase("learn_lsgan", runs=runs, gains_db=gains, median_gain_db=median,
+          deterministic_gain_db=[r["gain_db"] for r in runs if r["deterministic"]],
+          gate_db=learn_gate.GAN_GATE_DB, use_tpu_cpu_gain_db=JAX_GAN_LEARN_GAIN_DB)
+    fell = [r["loss_G_last_epoch"] < r["loss_G_first_epoch"] for r in runs]
+    if not all(fell):
+        raise AssertionError(f"learn_lsgan: the G loss did not fall: {runs}")
+    if not median > learn_gate.GAN_GATE_DB:
+        raise AssertionError(f"learn_lsgan: median gain {median} dB <= "
+                             f"{learn_gate.GAN_GATE_DB} dB ({gains})")
 
 
 if __name__ == "__main__":

@@ -90,10 +90,16 @@ def test_lsgan_params_round_trip_through_use_tpu_convert_torch():
 
 
 def test_generator_training_path_is_not_ported():
+    """The training path, which raised "not ported yet" until LSGAN
+    training came (tests/test_torch_gan_train.py holds it against
+    use_tpu's): train=True with a clean clip crops both clips to
+    target_len and writes the fake; without a clean clip it serves."""
     tg = TGenerator(**GEN, device="cpu")
     batch = {"clean": torch.zeros((1, 2000)), "perturbed": torch.zeros((1, 2000))}
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tg(batch, train=True)
+    out = tg(batch, torch.Generator().manual_seed(0), train=True)
+    assert {k: tuple(v.shape) for k, v in out.items()} == {
+        "clean": (1, tg.target_len), "perturbed": (1, tg.target_len), "fake": (1, tg.target_len)}
+    assert tg({"perturbed": torch.zeros((1, 2000))}, train=True)["fake"].shape == (1, 2000)
 
 
 def test_generator_serving_cast_gives_the_shortcut_bf16_weights():

@@ -84,11 +84,11 @@ def test_predict_int8_serving_quantizes_bf16_weights(wav_tree, monkeypatch):
 
 
 @pytest.mark.parametrize("argv", [
-    ["eval", "experiment=SGMSE_debug"],
+    ["eval", "experiment=SGMSE_debug", "eval.unknown=1"],
     ["predict", "experiment=SGMSE_debug", "predict.streaming=true"],
     ["predict", "experiment=SGMSE_debug", "predict.unknown=1"],
-    ["predict", "experiment=SGMSE_debug", "eval.rich=true"],
-    ["train", "experiment=LSGAN_debug", "device=cpu"],
+    ["predict", "experiment=LSGAN_debug", "predict.chunk_frames=4"],
+    ["train", "experiment=LSGAN_debug", "device=cpu", "predict.streaming=true"],
 ])
 def test_unported_commands_and_keys_exit(argv):
     with pytest.raises(SystemExit):

@@ -1,13 +1,16 @@
-"""CLI entry point of the port: train and predict.
+"""CLI entry point of the port: train, eval and predict.
 
-Port of use_tpu/cli/main.py (`_split_args`, `_build_model` for task=sgmse
-and task=lsgan, `resolve_auto_batch`, `_build_datamodule`, `cmd_train` for
-task=sgmse with `_test_after_fit`, `cmd_predict` with its hybrid chains,
-`main`):
+Port of use_tpu/cli/main.py (`_split_args`, `_build_model`,
+`resolve_auto_batch`, `_build_datamodule`, `cmd_train` with
+`_test_after_fit`, `cmd_eval`, `cmd_predict` with its hybrid chains,
+`main`), for task=sgmse and task=lsgan:
 
-    python -m use_tpu_torch.cli.main train experiment=SGMSE_Large \
+    python -m use_tpu_torch.cli.main train experiment=SGMSE_Large|LSGAN \
         data.clean_json_path=clean.jsonl data.noise_json_path=noise.jsonl \
         [out_dir=runs/x] [ckpt_path=runs/x/checkpoints] [device=cpu]
+    python -m use_tpu_torch.cli.main eval experiment=SGMSE_Large|LSGAN \
+        data.clean_json_path=... data.noise_json_path=... [ckpt_path=...] \
+        [eval.rich=false] [eval.max_files=4] [infer.N=50] [out_dir=...] [device=cpu]
     python -m use_tpu_torch.cli.main predict experiment=SGMSE_Large \
         [ckpt_path=weights.pt|run.ckpt|runs/x/checkpoints] [ckpt.use_ema=true] \
         [ckpt.lenient=true] predict.data_folder=in/ predict.target_folder=out/ \
@@ -22,24 +25,33 @@ task=sgmse with `_test_after_fit`, `cmd_predict` with its hybrid chains,
 Runs on CUDA unless `device=cpu`; on CUDA, TF32 is off for cuDNN and
 cuBLAS, so fp32 convolutions and matmuls run in full fp32.
 
-`train` trains the score network from `train.seed` (task=sgmse), writes
+`train` trains from `train.seed` (task=sgmse the score network; task=lsgan
+the generator and the discriminator, two optimizers), writes
 `metrics.csv`, `checkpoints/` (one step an epoch) and, after a test of the
 best checkpoint, `optimized_metric.json` under `out_dir`; `ckpt_path=`
 (a checkpoint directory) resumes.
 
+`eval` reports the test split's losses (task=sgmse `loss_Score`;
+task=lsgan every `loss_G*`, against the checkpoint's discriminator, or a
+freshly initialized one where the checkpoint holds the generator only) and
+then, unless `eval.rich=false`, enhances `eval.max_files` test utterances
+(sgmse with the `infer.*` sampler settings) and scores them: SI-SDR,
+SI-SIR, SI-SAR, LSD, ESTOI, and PESQ where the `pesq` package is installed,
+with figures and audio to TensorBoard.
+
 `ckpt_path` (and `predict.second_ckpt` for a chain's second stage) of
-`predict` is one of: a checkpoint directory of `train` (its best step, or
-the latest where no metric was recorded; `ckpt.use_ema=true` serves its
-EMA weights); a Lightning checkpoint (`.ckpt`, or a `.pt`/`.pth` holding a
-`state_dict`) whose backbone keys sit under `Score.score_net.` (sgmse) or
-`G.net.` (lsgan); or a bare backbone state_dict (`.pt`). Without one the
+`predict` and `eval` is one of: a checkpoint directory of `train` (its
+best step, or the latest where no metric was recorded; `ckpt.use_ema=true`
+serves its EMA weights; of an LSGAN run, its generator); a Lightning
+checkpoint (`.ckpt`, or a `.pt`/`.pth` holding a `state_dict`) whose
+backbone keys sit under `Score.score_net.` (sgmse) or `G.net.` (lsgan);
+or a bare backbone state_dict (`.pt`). Without one the
 backbone is initialized from `train.seed`. Loads are strict unless
 `ckpt.lenient=true`. Sampler settings go under `infer.*` (`window` and
 `tol` for parallel_pc), and are read from the first experiment's config;
 `second.*` overrides go to the second experiment's.
 
-Not ported yet: `eval` (and its `eval.rich` / `eval.max_files`), `train`
-of task=lsgan, `predict.streaming`.
+Not ported yet: `predict.streaming` (and `predict.chunk_frames`).
 """
 from __future__ import annotations
 
@@ -61,7 +73,7 @@ log = logging.getLogger("use_tpu_torch")
 _PREDICT_KEYS = {"predict.data_folder", "predict.target_folder", "predict.chain",
                  "predict.second_experiment", "predict.second_ckpt"}
 _EVAL_KEYS = {"eval.rich", "eval.max_files"}
-_NOT_PORTED = {"predict.streaming", "predict.chunk_frames", *_EVAL_KEYS}
+_NOT_PORTED = {"predict.streaming", "predict.chunk_frames"}
 _TRUE = ("1", "true")
 # chain -> (task of the first experiment, task of the second)
 _CHAINS = {"sgmse+gan": ("sgmse", "lsgan"), "gan+sgmse": ("lsgan", "sgmse")}
@@ -79,7 +91,7 @@ def _split_args(argv: List[str]):
             k, v = a.split("=", 1)
             if k in _NOT_PORTED:
                 raise SystemExit(f"{k} is not ported yet (ROADMAP queue 1)")
-            if k.startswith("eval."):
+            if k.startswith("eval.") and k not in _EVAL_KEYS:
                 raise SystemExit(f"unknown key {k!r}; eval options are {sorted(_EVAL_KEYS)}")
             if k.startswith("predict.") and k not in _PREDICT_KEYS:
                 raise SystemExit(
@@ -118,7 +130,7 @@ def _build_model(cfg: Dict, device: str):
             )
         return LSGAN(generator=gen, discriminator=cfg["model"].get("discriminator"),
                      g_loss_cfg=cfg["model"].get("g_loss"),
-                     enhanced_key=cfg["model"].get("enhanced_key", "fake"))
+                     enhanced_key=cfg["model"].get("enhanced_key", "fake"), seed=seed)
     raise SystemExit(f"unknown task {cfg['task']}")
 
 
@@ -130,20 +142,28 @@ def _backbone(model) -> torch.nn.Module:
     return model.score_net if hasattr(model, "score_net") else model.generator.net
 
 
+def _manager_state(path: str, task: str) -> Dict:
+    """The train state of a checkpoint directory's best step, else its latest."""
+    from use_tpu_torch.engine.checkpoint import CheckpointManager
+
+    mgr = CheckpointManager(path, monitor=_MONITOR[task])
+    step = mgr.best_step()
+    return mgr.restore(mgr.latest_step() if step is None else step)
+
+
 def _checkpoint_state(path: str, task: str, use_ema: bool) -> Dict[str, torch.Tensor]:
     """The backbone state_dict that `path` names (use_tpu's
     _load_state_params, cli/main.py:337-410): a checkpoint directory of
     `train` (its best step, else its latest; with use_ema its EMA weights),
     a Lightning checkpoint (backbone keys under _PREFIX[task], stripped), or
-    a bare backbone state_dict."""
-    from use_tpu_torch.engine.checkpoint import CheckpointManager, is_manager_dir
+    a bare backbone state_dict. Of an LSGAN run's directory, the generator's."""
+    from use_tpu_torch.engine.checkpoint import is_manager_dir
 
     if os.path.isdir(path):
         if not is_manager_dir(path):
             raise SystemExit(f"ckpt_path={path}: a directory without checkpoint steps")
-        mgr = CheckpointManager(path, monitor=_MONITOR[task])
-        step = mgr.best_step()
-        state = mgr.restore(mgr.latest_step() if step is None else step)
+        state = _manager_state(path, task)
+        state = state.get("g", state)  # a GANTrainState's: the generator's
         if not use_ema:
             return state["model"]
         if state.get("ema_params") is None:
@@ -227,16 +247,24 @@ def _build_datamodule(cfg: Dict):
     )
 
 
-def _test_split_means(model, dm) -> Dict[str, float]:
-    """Mean score-matching loss over the test split (SGMSE_module.test_step:61-63),
-    drawn from a CPU generator seeded 0."""
+def _test_split_means(model, task: str, dm) -> Dict[str, float]:
+    """Means over the test split (use_tpu's _test_split_means; reference
+    SGMSE_module.test_step:61-63, LSGAN_module.test_step:130-137): task=sgmse
+    the score-matching loss, drawn from a CPU generator seeded 0;
+    task=lsgan every loss_G* of gan_eval_step, against model.discriminator."""
     from use_tpu_torch.engine.loop import float_batch
-    from use_tpu_torch.engine.train import sgmse_eval_step
+    from use_tpu_torch.engine.train import gan_eval_step, sgmse_eval_step
 
-    generator = torch.Generator().manual_seed(0)
-    rows = [float(sgmse_eval_step(model, float_batch(b, model.device), generator)["loss_Score"])
-            for b in dm.test_dataloader()]
-    return {"test/loss_Score": float(np.mean(rows))} if rows else {}
+    device = model.device
+    if task == "sgmse":
+        generator = torch.Generator().manual_seed(0)
+        rows = [{k: float(v) for k, v in sgmse_eval_step(model, float_batch(b, device),
+                                                         generator).items()}
+                for b in dm.test_dataloader()]
+    else:
+        rows = [{k: float(v) for k, v in gan_eval_step(model, float_batch(b, device)).items()}
+                for b in dm.test_dataloader()]
+    return {f"test/{k}": float(np.mean([r[k] for r in rows])) for k in (rows[0] if rows else {})}
 
 
 def _test_after_fit(model, cfg: Dict, dm, out_dir: str, history: List[Dict], logger) -> None:
@@ -253,8 +281,13 @@ def _test_after_fit(model, cfg: Dict, dm, out_dir: str, history: List[Dict], log
     if best is None:
         log.warning("no checkpoint to test after fit")
         return
-    model.score_net.load_state_dict(mgr.restore(best, map_location=model.device)["model"])
-    means = _test_split_means(model, dm)
+    state = mgr.restore(best, map_location=model.device)
+    if cfg["task"] == "sgmse":
+        model.score_net.load_state_dict(state["model"])
+    else:
+        model.generator.net.load_state_dict(state["g"]["model"])
+        model.discriminator.load_state_dict(state["d"]["model"])
+    means = _test_split_means(model, cfg["task"], dm)
     logger.log({"step": int(best), **means})
 
     best_rows = [h for h in history if h.get("epoch") == int(best)]
@@ -284,17 +317,16 @@ def _cuda_fp32(device: torch.device) -> None:
 
 
 def cmd_train(experiment: str, overrides: List[str], extras: Dict[str, str]) -> Dict:
-    """Score-matching training of task=sgmse (reference src/train.py:42-131),
-    then the test of the best checkpoint. -> a summary: the fit's history,
-    optimizer steps, microbatches, clips, seconds of the fit and out_dir."""
+    """Training (reference src/train.py:42-131): task=sgmse score matching
+    (with train.rich_eval_every, the rich harness on validation utterances
+    every K epochs), task=lsgan adversarial training of G and D; then the
+    test of the best checkpoint. -> a summary: the fit's history, optimizer
+    steps, microbatches, clips, seconds of the fit and out_dir."""
     from use_tpu_torch.engine import loop
     from use_tpu_torch.utils.device import resolve_device
     from use_tpu_torch.utils.logging import MetricLogger
 
     cfg = load_config(experiment, overrides)
-    if cfg["task"] != "sgmse":
-        raise SystemExit(f"train of task={cfg['task']} is not ported yet (ROADMAP queue 1); "
-                         "task=sgmse is")
     device = resolve_device(extras.get("device", "cuda"))
     _cuda_fp32(device)
     out_dir = extras.get("out_dir",
@@ -310,14 +342,19 @@ def cmd_train(experiment: str, overrides: List[str], extras: Dict[str, str]) -> 
     dm = _build_datamodule(cfg)
     t = cfg["train"]
     t0 = time.perf_counter()
-    result = loop.fit_sgmse(
-        model, dm, lr=t["lr"], weight_decay=t["weight_decay"],
-        grad_clip=t.get("grad_clip", 100.0),
-        accumulate_grad_batches=t.get("accumulate_grad_batches", 1),
-        scheduler=t.get("scheduler"), max_epochs=t.get("max_epochs", 1),
-        seed=t.get("seed", 0), ema_decay=t.get("ema_decay", 0.0), ckpt_dir=ckpt_dir,
-        resume=bool(resume), logger=logger, rich_eval_every=t.get("rich_eval_every"),
-    )
+    common = dict(accumulate_grad_batches=t.get("accumulate_grad_batches", 1),
+                  scheduler=t.get("scheduler"), max_epochs=t.get("max_epochs", 1),
+                  seed=t.get("seed", 0), ckpt_dir=ckpt_dir, resume=bool(resume), logger=logger)
+    if cfg["task"] == "sgmse":
+        result = loop.fit_sgmse(
+            model, dm, lr=t["lr"], weight_decay=t["weight_decay"],
+            grad_clip=t.get("grad_clip", 100.0), ema_decay=t.get("ema_decay", 0.0),
+            rich_eval_every=t.get("rich_eval_every"),
+            rich_eval_files=t.get("rich_eval_files", 2), rich_eval_N=t.get("rich_eval_N", 10),
+            **common)
+    else:
+        result = loop.fit_lsgan(model, dm, g_lr=t["g_lr"], d_lr=t["d_lr"],
+                                weight_decay=t["weight_decay"], **common)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     fit_seconds = time.perf_counter() - t0
@@ -441,15 +478,91 @@ def cmd_predict(experiment: str, overrides: List[str], extras: Dict[str, str]) -
     return summary
 
 
+def _load_discriminator(model, path: Optional[str]) -> bool:
+    """Load the discriminator of an LSGAN run's checkpoint directory `path`
+    (its best step, else its latest) into model.discriminator; -> False
+    where `path` holds no discriminator."""
+    from use_tpu_torch.engine.checkpoint import is_manager_dir
+
+    if not path or not is_manager_dir(path):
+        return False
+    state = _manager_state(path, "lsgan")
+    if "d" not in state:
+        return False
+    model.discriminator.load_state_dict(state["d"]["model"])
+    return True
+
+
+def cmd_eval(experiment: str, overrides: List[str], extras: Dict[str, str]) -> Dict:
+    """Test-set evaluation of either task (reference src/eval.py:38-95;
+    use_tpu cmd_eval): the test split's mean losses, then the rich harness
+    (sgmse/util/inference.py:23-101) over eval.max_files test utterances
+    unless eval.rich=false. -> a summary: the test means, the rich metrics
+    (None with eval.rich=false), the figures drawn, the files scored and
+    out_dir."""
+    from use_tpu_torch.engine.evaluate import evaluate_model
+    from use_tpu_torch.engine.loop import first_pairs
+    from use_tpu_torch.utils.device import resolve_device
+    from use_tpu_torch.utils.logging import MetricLogger
+
+    cfg = load_config(experiment, overrides)
+    device = resolve_device(extras.get("device", "cuda"))
+    _cuda_fp32(device)
+    model = _build_model(cfg, str(device))
+    path = extras.get("ckpt_path")
+    _load_backbone(model, cfg, path, lenient=extras.get("ckpt.lenient", "").lower() in _TRUE,
+                   use_ema=extras.get("ckpt.use_ema", "").lower() in _TRUE)
+    if cfg["task"] == "lsgan" and not _load_discriminator(model, path):
+        log.warning("no discriminator in the checkpoint; the adversarial and feature terms "
+                    "use a freshly initialized D (the reconstruction terms are unaffected)")
+    out_dir = extras.get("out_dir", os.path.join("runs", experiment + "_eval",
+                                                 time.strftime("%Y%m%d-%H%M%S")))
+    logger = MetricLogger(csv_path=os.path.join(out_dir, "metrics.csv"),
+                          tensorboard_dir=os.path.join(out_dir, "tb"))
+    dm = _build_datamodule(cfg)
+    means = _test_split_means(model, cfg["task"], dm)
+    logger.log({"step": 0, **means})
+    summary = {"test": means, "rich": None, "figures": 0, "out_dir": out_dir}
+    if extras.get("eval.rich", "true").lower() not in ("0", "false"):
+        icfg = cfg.get("infer", {})
+        sr = int(cfg["data"].get("sampling_rate", 24000))
+        if cfg["task"] == "sgmse":
+            kw = dict(sampler_type=icfg.get("sampler_type", "pc"), N=int(icfg.get("N", 50)),
+                      corrector_steps=int(icfg.get("corrector_steps", 1)),
+                      snr=float(icfg.get("snr", 0.5)))
+
+            def enhance_fn(noisy, generator):
+                wav = torch.as_tensor(noisy[None], device=device)
+                return model.sample({"perturbed": wav}, generator, **kw)["enhanced"][0]
+        else:
+            def enhance_fn(noisy, generator):
+                return model.enhance({"perturbed": torch.as_tensor(noisy[None], device=device)}
+                                     )["fake"][0]
+
+        pairs = first_pairs(dm.test_dataloader(), int(extras.get("eval.max_files", 4)))
+        result = evaluate_model(lambda n, g: enhance_fn(n, g).float().cpu().numpy(), pairs,
+                                torch.Generator(device=device).manual_seed(0), sr=sr)
+        logger.log({"step": 0, **{f"test/{k}": v for k, v in result["metrics"].items()}})
+        for i, fig in enumerate(result["figures"]):
+            logger.log_figure(f"eval/example_{i}", fig, step=0)
+        for i, clips in enumerate(result["audio"]):
+            for name, wav in clips.items():
+                logger.log_audio(f"eval/{name}_{i}", wav, sr, step=0)
+        summary.update(rich=result["metrics"], figures=len(result["figures"]),
+                       files=len(pairs))
+    logger.close()
+    log.info("eval done: %s -> %s", " ".join(f"{k}={v:.5f}" for k, v in means.items()), out_dir)
+    return summary
+
+
 def main(argv: Optional[List[str]] = None) -> Dict:
     argv = list(sys.argv[1:] if argv is None else argv)
     if not argv or argv[0] not in ("train", "eval", "predict"):
         raise SystemExit(__doc__)
     cmd, rest = argv[0], argv[1:]
-    if cmd == "eval":
-        raise SystemExit("eval is not ported yet (ROADMAP queue 1); train and predict are")
     experiment, overrides, extras = _split_args(rest)
-    return (cmd_train if cmd == "train" else cmd_predict)(experiment, overrides, extras)
+    return {"train": cmd_train, "eval": cmd_eval, "predict": cmd_predict}[cmd](
+        experiment, overrides, extras)
 
 
 if __name__ == "__main__":

@@ -14,7 +14,12 @@ flax->torch transpositions:
 
 The LSGAN generator's backbone is the same NCSN++ in discriminative mode:
 ``lsgan_params_to_state_dict`` maps use_tpu's generator params onto
-``NCSNPPWrapper.net``.
+``NCSNPPWrapper.net``, and ``discriminator_params_to_state_dict`` use_tpu's
+discriminator params onto the port's discriminator, whose modules carry
+use_tpu's scope names (``MPD.period2.conv0``):
+
+    2-D conv kernel [kh, kw, I, O]      -> weight [O, I, kh, kw]
+    1-D conv kernel [k, I / groups, O]  -> weight [O, I / groups, k]
 
 The input is a nested mapping of arrays (numpy, or anything np.asarray
 takes); nothing of JAX is imported.
@@ -73,3 +78,18 @@ def lsgan_params_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Ten
     NCSN++, which holds no time embedding (no ``m0``, no ``Dense_0``) on
     either side."""
     return ncsnpp_params_to_state_dict(params)
+
+
+def discriminator_params_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """use_tpu discriminator params (the second of ``LSGAN.init_params``,
+    e.g. HifiganVocoderDiscriminator24kMVD's) -> the port's D state_dict."""
+    out: Dict[str, torch.Tensor] = {}
+    for path, value in _flatten(params):
+        arr = np.asarray(value)
+        leaf = path[-1]
+        if leaf == "kernel" and arr.ndim == 3:  # [k, I/g, O] -> [O, I/g, k]
+            leaf, arr = "weight", np.transpose(arr, (2, 1, 0))
+        else:
+            leaf, arr = _convert_leaf(leaf, arr)
+        out[".".join(path[:-1] + (leaf,))] = torch.from_numpy(np.ascontiguousarray(arr).copy())
+    return out

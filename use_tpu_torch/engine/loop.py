@@ -1,13 +1,17 @@
-"""The SGMSE training loop on one device: the Lightning-Trainer replacement.
+"""Training loops on one device: the Lightning-Trainer replacement.
 
-Port of use_tpu/engine/loop.py::fit_sgmse (loop.py:140-271): epochs of
-optimizer steps over a datamodule's train loader, each step a group of up
-to ``accumulate_grad_batches`` successive loader batches (the epoch's
-trailing partial group makes one step over fewer), the per-epoch StepLR,
-validation, a checkpoint per epoch monitored on val/loss_Score, resume,
-and a non-finite loss stopping the run (``NonFiniteLossError``). One
-``torch.Generator`` on the model's device, seeded from ``seed``, draws every
-crop, t and z of training and validation in order.
+Port of use_tpu/engine/loop.py: ``fit_sgmse`` (loop.py:140-271) and
+``fit_lsgan`` (loop.py:274-383). Epochs of optimizer steps over a
+datamodule's train loader, each step a group of up to
+``accumulate_grad_batches`` successive loader batches (the epoch's
+trailing partial group makes one step over fewer), the per-epoch StepLR
+(one for each of LSGAN's two optimizers), validation, a checkpoint per
+epoch monitored on val/loss_Score or val/loss_G, resume, and a non-finite
+loss stopping the run (``NonFiniteLossError``). One CPU ``torch.Generator``
+seeded from ``seed`` draws every crop (and SGMSE's t and z) of training
+and validation in order, so one seed trains on the same draws on either
+device. ``fit_sgmse(rich_eval_every=K)`` runs the rich metric harness
+(engine/evaluate.py) on validation utterances every K epochs.
 """
 from __future__ import annotations
 
@@ -22,8 +26,13 @@ import torch
 
 from use_tpu_torch.engine import optim
 from use_tpu_torch.engine.checkpoint import CheckpointManager
-from use_tpu_torch.engine.state import TrainState
-from use_tpu_torch.engine.train import sgmse_eval_step, sgmse_train_step
+from use_tpu_torch.engine.state import GANTrainState, TrainState
+from use_tpu_torch.engine.train import (
+    gan_eval_step,
+    gan_train_step,
+    sgmse_eval_step,
+    sgmse_train_step,
+)
 from use_tpu_torch.utils.logging import MetricLogger
 
 log = logging.getLogger("use_tpu_torch")
@@ -103,14 +112,17 @@ def fit_sgmse(
     resume: bool = False,
     logger: Optional[MetricLogger] = None,
     rich_eval_every: Optional[int] = None,
+    rich_eval_files: int = 2,
+    rich_eval_N: int = 10,
 ) -> FitResult:
     """Score-matching training (SGMSE_module semantics) of ``model.score_net``
     in place, on ``model.device``, its draws (crop, t, z) from a CPU
     generator seeded ``seed``. The backbone stays in its inference
-    setting (dropout off), as use_tpu's loss applies it with train=False."""
-    if rich_eval_every:
-        raise NotImplementedError("rich_eval_every needs engine/evaluate.py, which is not "
-                                  "ported yet (ROADMAP queue 1)")
+    setting (dropout off), as use_tpu's loss applies it with train=False.
+    Every ``rich_eval_every`` epochs the first ``rich_eval_files``
+    validation utterances are enhanced (pc sampler, N=``rich_eval_N``) and
+    scored (``val/si_sdr`` ...; the reference's per-epoch PESQ/SI-SDR/ESTOI,
+    sgmse/model.py:193-257), with figures and audio to the logger."""
     scheduler = scheduler or {"step_size": 30, "gamma": 0.5}
     device = model.device
     # the loss's draws come from the CPU's generator, so one seed trains on
@@ -149,8 +161,128 @@ def fit_sgmse(
             "lr": float(sched(epoch)),
             "time_s": time.time() - t0,
         }
+        if rich_eval_every and (epoch + 1) % rich_eval_every == 0:
+            _rich_eval(model, datamodule, logger, epoch, rich_eval_files, rich_eval_N,
+                       generator)
         logger.log(row)
         result.history.append(row)
         if mgr:
             mgr.save(epoch, state, {"val/loss_Score": row["val/loss_Score"]})
+    return result
+
+
+def first_pairs(loader, n: int) -> List[Dict[str, np.ndarray]]:
+    """The first `n` (clean, perturbed) utterances of a loader's batches."""
+    pairs: List[Dict[str, np.ndarray]] = []
+    for batch in loader:
+        for i in range(len(batch["clean"])):
+            if len(pairs) >= n:
+                return pairs
+            pairs.append({"clean": np.asarray(batch["clean"][i]),
+                          "perturbed": np.asarray(batch["perturbed"][i])})
+    return pairs
+
+
+def _rich_eval(model, datamodule, logger: MetricLogger, epoch: int, files: int, N: int,
+               generator: torch.Generator) -> Dict[str, float]:
+    """use_tpu fit_sgmse's rich harness (loop.py:231-264): enhance the first
+    `files` validation utterances with the pc sampler at N steps, log
+    val/<metric> means, figures and audio; its draws come from a generator
+    on the model's device seeded from `generator`."""
+    from use_tpu_torch.engine.evaluate import evaluate_model
+
+    device = model.device
+    sub = torch.Generator(device=device).manual_seed(
+        int(torch.randint(0, 2 ** 31 - 1, (), generator=generator)))
+
+    def enhance_fn(noisy, gen):
+        out = model.sample({"perturbed": torch.as_tensor(noisy[None], device=device)}, gen, N=N)
+        return out["enhanced"][0].float().cpu().numpy()
+
+    rich = evaluate_model(enhance_fn, first_pairs(datamodule.val_dataloader(), files), sub)
+    logger.log({"epoch": epoch, **{f"val/{k}": v for k, v in rich["metrics"].items()}})
+    for i, fig in enumerate(rich["figures"]):
+        logger.log_figure(f"val/example_{i}", fig, step=epoch)
+    for i, clips in enumerate(rich["audio"]):
+        for name, wav in clips.items():
+            logger.log_audio(f"val/{name}_{i}", wav, 24000, step=epoch)
+    return rich["metrics"]
+
+
+def build_gan_train_state(gan, g_lr: float = 5e-4, d_lr: float = 2e-4,
+                          weight_decay: float = 1e-7) -> GANTrainState:
+    """Adam with coupled L2 and no clip for each network, as use_tpu's
+    fit_lsgan (loop.py:306-307) passes no grad_clip."""
+    g_net, d_net = gan.generator.net, gan.discriminator
+    return GANTrainState(
+        g=TrainState.create(g_net, optim.adam(optim.trainable(g_net), g_lr, weight_decay)),
+        d=TrainState.create(d_net, optim.adam(optim.trainable(d_net), d_lr, weight_decay)))
+
+
+def fit_lsgan(
+    gan,
+    datamodule,
+    g_lr: float = 5e-4,
+    d_lr: float = 2e-4,
+    weight_decay: float = 1e-7,
+    accumulate_grad_batches: int = 8,
+    scheduler: Optional[Dict] = None,
+    max_epochs: int = 1,
+    seed: int = 0,
+    ckpt_dir: Optional[str] = None,
+    resume: bool = False,
+    logger: Optional[MetricLogger] = None,
+) -> FitResult:
+    """Adversarial training (GANModule.training_step semantics) of the
+    generator's backbone and the discriminator in place, on the generator's
+    device, the crops drawn from a CPU generator seeded ``seed``. Each
+    epoch validates (gan_eval_step: G's inference pass and the whole G
+    criterion against the current D, LSGAN_module.validation_step:121-128)
+    and checkpoints both networks and both optimizers on val/loss_G."""
+    scheduler = scheduler or {"step_size": 30, "gamma": 0.5}
+    device = gan.device
+    generator = torch.Generator().manual_seed(seed)
+    state = build_gan_train_state(gan, g_lr, d_lr, weight_decay)
+    g_sched, d_sched = optim.step_lr(g_lr, **scheduler), optim.step_lr(d_lr, **scheduler)
+    mgr = CheckpointManager(ckpt_dir, monitor="val/loss_G") if ckpt_dir else None
+    start_epoch = 0
+    if resume and mgr and mgr.latest_step() is not None:
+        state.load_state_dict(mgr.restore(map_location=device))
+        start_epoch = int(mgr.latest_step()) + 1  # saved at epoch N -> resume at N + 1
+
+    logger = logger or MetricLogger()
+    result = FitResult(state=state)
+    for epoch in range(start_epoch, max_epochs):
+        optim.set_learning_rate(state.g.optimizer, g_sched(epoch))
+        optim.set_learning_rate(state.d.optimizer, d_sched(epoch))
+        t0 = time.time()
+        g_losses, d_losses = [], []
+        for group in _accum_batches(datamodule.train_dataloader(), accumulate_grad_batches):
+            micro = [{k: torch.as_tensor(v, device=device) for k, v in mb.items()}
+                     for mb in group]
+            metrics = gan_train_step(gan, state, micro, generator)
+            g_loss, d_loss = float(metrics["loss_G"]), float(metrics["loss_D"])
+            _check_finite("train/loss_G", g_loss)
+            _check_finite("train/loss_D", d_loss)
+            g_losses.append(g_loss)
+            d_losses.append(d_loss)
+            result.steps += 1
+            result.microbatches += len(micro)
+            result.clips += sum(int(mb["clean"].shape[0]) for mb in micro)
+        val_rows = [{k: float(v) for k, v in gan_eval_step(gan, float_batch(b, device)).items()}
+                    for b in datamodule.val_dataloader()]
+        row = {
+            "epoch": epoch,
+            "train/loss_G": float(np.mean(g_losses)) if g_losses else math.nan,
+            "train/loss_D": float(np.mean(d_losses)) if d_losses else math.nan,
+            **{f"val/{k}": float(np.mean([r[k] for r in val_rows]))
+               for k in (val_rows[0] if val_rows else {})},
+            "lr/G": float(g_sched(epoch)),
+            "lr/D": float(d_sched(epoch)),
+            "time_s": time.time() - t0,
+        }
+        logger.log(row)
+        result.history.append(row)
+        if mgr:
+            mgr.save(epoch, state, {"val/loss_G": row.get("val/loss_G", row["train/loss_G"])})
     return result

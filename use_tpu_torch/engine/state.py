@@ -4,7 +4,8 @@ Port of use_tpu/engine/state.py::TrainState. The parameters live in the
 module and are updated in place; ``apply_gradients`` takes the gradients
 autograd left in ``.grad``: clip, then the optimizer's step (coupled L2,
 Adam), then, where ema_decay > 0, ema = d ema + (1 - d) p over every
-parameter (the frozen ones too, as use_tpu's tree map).
+parameter (the frozen ones too, as use_tpu's tree map). ``GANTrainState``
+pairs the generator's and the discriminator's for LSGAN's two optimizers.
 """
 from __future__ import annotations
 
@@ -12,7 +13,6 @@ from dataclasses import dataclass
 from typing import Dict, Optional
 
 import torch
-
 
 
 @dataclass
@@ -60,3 +60,19 @@ class TrainState:
         dev = next(self.model.parameters()).device
         ema = state.get("ema_params")
         self.ema_params = None if ema is None else {k: v.to(dev) for k, v in ema.items()}
+
+
+@dataclass
+class GANTrainState:
+    """The generator's and the discriminator's train states (LSGAN's
+    two-optimizer loop); a checkpoint holds both."""
+
+    g: TrainState
+    d: TrainState
+
+    def state_dict(self) -> Dict:
+        return {"g": self.g.state_dict(), "d": self.d.state_dict()}
+
+    def load_state_dict(self, state: Dict) -> None:
+        self.g.load_state_dict(state["g"])
+        self.d.load_state_dict(state["d"])

@@ -1,11 +1,18 @@
-"""SGMSE train and eval steps.
+"""Train and eval steps of both tasks.
 
-Port of use_tpu/engine/train.py::make_sgmse_train_step / _accum_grads and
-make_sgmse_eval_step. One optimizer step takes a group of microbatches
-(successive loader batches): each microbatch's loss is scaled by 1/k
-before its backward, so the gradients the step applies are the MEAN over
-the group, as use_tpu's (Lightning's accumulate_grad_batches), and only one
-microbatch's activations are alive at a time.
+Port of use_tpu/engine/train.py. One optimizer step takes a group of
+microbatches (successive loader batches), and only one microbatch's
+activations are alive at a time.
+
+- SGMSE (make_sgmse_train_step / _accum_grads, make_sgmse_eval_step): each
+  microbatch's loss is scaled by 1/k before its backward, so the gradients
+  the step applies are the MEAN over the group, as use_tpu's (Lightning's
+  accumulate_grad_batches).
+- LSGAN (make_gan_train_step, make_gan_eval_step; reference
+  LSGAN_module.training_step:87-119): the D phase first, each
+  microbatch's fake made without autograd, D's gradients SUMMED over the
+  group (manual_backward), then D's step; the G phase second, against the
+  updated D, on the same crops, G's gradients summed, then G's step.
 """
 from __future__ import annotations
 
@@ -13,7 +20,7 @@ from typing import Dict, List, Optional, Sequence
 
 import torch
 
-from use_tpu_torch.engine.state import TrainState
+from use_tpu_torch.engine.state import GANTrainState, TrainState
 from use_tpu_torch.models.sgmse.score_model import Batch, ScoreModel, TrainDraws
 
 
@@ -39,3 +46,52 @@ def sgmse_eval_step(model: ScoreModel, batch: Batch,
                     generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
     """The score-matching loss on one batch, no gradient (validation and test)."""
     return {"loss_Score": model.train_loss(batch, generator)}
+
+
+def gan_train_step(gan, state: GANTrainState, micro: List[Batch],
+                   generator: Optional[torch.Generator] = None,
+                   starts: Optional[Sequence[int]] = None) -> Dict[str, torch.Tensor]:
+    """One LSGAN optimizer step of each network over the microbatches
+    `micro` (use_tpu make_gan_train_step). Each microbatch's crop start is
+    drawn once from `generator` (or given in ``starts``) and serves both
+    phases. -> {"loss_D": the group's mean D loss, "loss_G*": the G
+    criterion's terms of the last microbatch}; like use_tpu's, whose
+    reported loss_G is the last microbatch's too, as its logs hold loss_G."""
+    if starts is None:
+        starts = [gan.generator.draw_start(mb["clean"].shape[-1], generator) for mb in micro]
+    # D phase: the fake without autograd, D's gradients summed
+    state.d.optimizer.zero_grad(set_to_none=True)
+    loss_d = None
+    for mb, start in zip(micro, starts):
+        with torch.no_grad():
+            mb = gan.g_forward(mb, start=start)
+        loss = gan.d_loss(mb)
+        loss.backward()
+        loss_d = loss.detach() if loss_d is None else loss_d + loss.detach()
+    state.d.apply_gradients()
+    # G phase against the updated D, which takes no gradient
+    state.g.optimizer.zero_grad(set_to_none=True)
+    d_params = [p for p in gan.discriminator.parameters() if p.requires_grad]
+    logs: Dict[str, torch.Tensor] = {}
+    try:
+        for p in d_params:
+            p.requires_grad_(False)
+        for mb, start in zip(micro, starts):
+            loss, logs = gan.g_loss(gan.g_forward(mb, start=start))
+            loss.backward()
+            logs = {k: v.detach() for k, v in logs.items()}
+    finally:
+        for p in d_params:
+            p.requires_grad_(True)
+    state.g.apply_gradients()
+    return {"loss_D": loss_d / len(micro), **logs}
+
+
+@torch.inference_mode()
+def gan_eval_step(gan, batch: Batch) -> Dict[str, torch.Tensor]:
+    """Validation and test (use_tpu make_gan_eval_step; reference
+    LSGAN_module.validation_step:121-128): the generator's inference pass
+    (no crop, frames padded to a multiple of 64) and the whole G criterion
+    against the current D, no optimizer step. -> every loss_G* term."""
+    loss, logs = gan.g_loss(gan.enhance(batch))
+    return {"loss_G": loss, **logs}

@@ -1,4 +1,4 @@
-"""The LSGAN family, serving only: the NCSN++ generator and the LSGAN task's
-``enhance``. The discriminator bank and the losses come with training."""
+"""The LSGAN family: the NCSN++ generator, the discriminator bank, the G/D
+criteria and the LSGAN task (training and serving)."""
 from use_tpu_torch.models.gan.generator import NCSNPPWrapper  # noqa: F401
 from use_tpu_torch.models.gan.lsgan import LSGAN  # noqa: F401

@@ -4,13 +4,15 @@ Port of use_tpu/models/gan/generator.py::NCSNPPWrapper (reference
 GAN/generator/ncsnpp/model_wrapper.py:19-123), inference: the compressed
 spectrogram, its frame axis padded to a multiple of 64, goes through the
 discriminative NCSN++ (2 input channels, no time conditioning, no 1/sigma
-scaling) and back to a wav of the original length. The random-crop
-training path comes with the training slice.
+scaling) and back to a wav of the original length. Training
+(``forward_train``): clean and perturbed clips cropped to
+(num_frames - 1) * hop samples at one start (or centre-padded when
+shorter), the net on the unpadded spectrogram, the fake back to a wav.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Dict, Union
+from typing import Any, Dict, Optional, Union
 
 import torch
 
@@ -60,11 +62,40 @@ class NCSNPPWrapper:
             length=length,
         )
 
-    def forward_train(self, batch: Batch, generator=None) -> Batch:
-        raise NotImplementedError(
-            "NCSNPPWrapper.forward_train (the random-crop training path) is not ported yet "
-            "(ROADMAP queue 1)"
-        )
+    def draw_start(self, length: int, generator: Optional[torch.Generator] = None) -> int:
+        """The crop start of a clip of `length` samples, uniform in
+        [0, max(length - target_len, 1)) (use_tpu's jax.random.randint),
+        from `generator` (on its device)."""
+        dev = self.device if generator is None else generator.device
+        return int(torch.randint(0, max(length - self.target_len, 1), (), generator=generator,
+                                 device=dev))
+
+    def forward_train(self, batch: Batch, generator: Optional[torch.Generator] = None,
+                      start: Optional[int] = None) -> Batch:
+        """Random crop and enhance (model_wrapper.py:88-113): clean and
+        perturbed cropped to target_len at `start` (drawn from `generator`
+        where not given), or centre-padded when shorter; the net on their
+        spectrogram, with no padding of the frame axis; writes the cropped
+        'clean' and 'perturbed' and 'fake' [B, target_len]."""
+        x, y = batch["clean"], batch["perturbed"]
+        current_len = x.shape[-1]
+        if current_len >= self.target_len:
+            if start is None:
+                start = self.draw_start(current_len, generator)
+
+            def take(w):
+                return w[..., start : start + self.target_len]
+        else:
+            pad = self.target_len - current_len
+
+            def take(w):
+                return torch.nn.functional.pad(w, (pad // 2, pad - pad // 2))
+        x, y = take(x), take(y)
+        fake_spec = self.net(self._spec(y), None)[..., 0, :]  # [B, F, T, 2]
+        out = dict(batch)
+        out["clean"], out["perturbed"] = x, y
+        out["fake"] = self._inv(fake_spec, self.target_len)
+        return out
 
     @torch.inference_mode()
     def forward_infer(self, batch: Batch) -> Batch:
@@ -77,7 +108,8 @@ class NCSNPPWrapper:
         out["fake"] = self._inv(fake_spec, y.shape[-1])
         return out
 
-    def __call__(self, batch: Batch, generator=None, train: bool = False) -> Batch:
+    def __call__(self, batch: Batch, generator: Optional[torch.Generator] = None,
+                 train: bool = False, start: Optional[int] = None) -> Batch:
         if train and "clean" in batch:
-            return self.forward_train(batch, generator)
+            return self.forward_train(batch, generator, start)
         return self.forward_infer(batch)

@@ -7,3 +7,4 @@ SDERegistry = Registry("SDE")
 PredictorRegistry = Registry("Predictor")
 CorrectorRegistry = Registry("Corrector")
 GeneratorRegistry = Registry("Generator")
+DiscriminatorRegistry = Registry("Discriminator")

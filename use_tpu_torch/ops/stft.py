@@ -61,12 +61,32 @@ def _window(cfg: STFTConfig, like: torch.Tensor) -> torch.Tensor:
     )
 
 
+def reflect_pad(x: torch.Tensor, left: int, right: Optional[int] = None) -> torch.Tensor:
+    """Reflect-pad the last axis by `left` and `right` (default `left`)
+    samples, as numpy's (and jnp.pad's) mode='reflect': a pad longer than
+    the signal reflects again at each end, where torch's reflect pad
+    raises. One gather, whose backward has a deterministic CUDA
+    implementation (torch's reflection pad's has none)."""
+    right = left if right is None else right
+    length = x.shape[-1]
+    period = max(2 * (length - 1), 1)
+    idx = torch.remainder(torch.arange(-left, length + right, device=x.device), period)
+    return x[..., torch.where(idx >= length, period - idx, idx)]
+
+
 def stft(x: torch.Tensor, cfg: STFTConfig = STFTConfig()) -> torch.Tensor:
-    """STFT of real signal [..., L] -> spectrum [..., F, T, 2]."""
+    """STFT of real signal [..., L] -> spectrum [..., F, T, 2]. A window
+    shorter than n_fft is centre-padded to it (torch.stft's and use_tpu's
+    `_dft_matrices`); the centre's reflect pad is ``reflect_pad``'s, so a pad
+    longer than the signal reflects again, as use_tpu's jnp.pad does."""
     batch_shape = x.shape[:-1]
+    x = x.reshape(-1, x.shape[-1]).float()
+    center = cfg.center
+    if center and cfg.pad_mode == "reflect":
+        x, center = reflect_pad(x, cfg.n_fft // 2), False
     spec = torch.stft(
-        x.reshape(-1, x.shape[-1]).float(), n_fft=cfg.n_fft, hop_length=cfg.hop_length,
-        win_length=cfg.wl, window=_window(cfg, x), center=cfg.center,
+        x, n_fft=cfg.n_fft, hop_length=cfg.hop_length,
+        win_length=cfg.wl, window=_window(cfg, x), center=center,
         pad_mode=cfg.pad_mode, normalized=False, onesided=True, return_complex=True,
     )  # [B, F, T] complex
     spec = torch.view_as_real(spec)

@@ -2,8 +2,9 @@
 
 Port of use_tpu/utils/logging.py::MetricLogger for one process: every
 ``log(row)`` goes to the "use_tpu_torch" logger and to a CSV file (a new
-header where the row's keys change); scalars also go to TensorBoard when
-``torch.utils.tensorboard`` imports. use_tpu's other trackers (wandb,
+header where the row's keys change); scalars, and the eval harness's
+figures and audio (``log_figure``, ``log_audio``), also go to TensorBoard
+when ``torch.utils.tensorboard`` imports. use_tpu's other trackers (wandb,
 comet, mlflow, neptune, aim) are not ported.
 """
 from __future__ import annotations
@@ -12,6 +13,8 @@ import csv
 import logging
 import os
 from typing import Dict, Optional
+
+import numpy as np
 
 log = logging.getLogger("use_tpu_torch")
 
@@ -47,6 +50,31 @@ class MetricLogger:
             for k, v in row.items():
                 if isinstance(v, (int, float)):
                     self._tb.add_scalar(k, v, step)
+
+    def log_figure(self, tag: str, fig, step: int = 0) -> None:
+        """A matplotlib figure to TensorBoard (the reference logs
+        spectrogram figures each validation epoch, sgmse/model.py:221-255),
+        then closed; a no-op without TensorBoard."""
+        if self._tb is not None:
+            try:
+                self._tb.add_figure(tag, fig, global_step=step)
+            except Exception:
+                log.warning("tensorboard add_figure failed for %s", tag)
+        try:
+            import matplotlib.pyplot as plt
+        except ImportError:
+            return
+        plt.close(fig)
+
+    def log_audio(self, tag: str, wav, sr: int, step: int = 0) -> None:
+        """An audio clip to TensorBoard (sgmse/model.py:221-233); a no-op
+        without TensorBoard."""
+        if self._tb is not None:
+            try:
+                w = np.asarray(wav, dtype=np.float32).reshape(1, -1)
+                self._tb.add_audio(tag, w, global_step=step, sample_rate=sr)
+            except Exception:
+                log.warning("tensorboard add_audio failed for %s", tag)
 
     def close(self) -> None:
         if self._tb is not None:
