@@ -7,6 +7,8 @@
                                        # one training microbatch
     python3 chip_smoke.py --gan        # build, kernels, then only the LSGAN
                                        # training and eval phases (13-16)
+    python3 chip_smoke.py --csmgan     # build, kernels, then only the CSMGAN
+                                       # phases (17-21)
 
 Phases, one line each (any failure raises and exits non-zero):
   1. environment: torch / CUDA versions, the card's name and power limit;
@@ -19,7 +21,8 @@ Phases, one line each (any failure raises and exits non-zero):
      of one call from the profiler's kernel durations (`device_ms`), so that
      the host's cost of a call and the card's are told apart. K1's
      statistics are also checked with the GroupNorm fold inside
-     (`gn_fold`), and K2 at a ragged shape. K3 (the int8 conv) is timed on
+     (`gn_fold`; its library call is torch.var_mean over each group, the
+     statistics the fold starts from), and K2 at a ragged shape. K3 (the int8 conv) is timed on
      weights prepared once (`prep_ms` times the preparation), in each of its
      tiles, also checked at a ragged shape, and a control broken on
      purpose (no edge mask) must fail its tolerance; the branch-free
@@ -66,7 +69,7 @@ Phases, one line each (any failure raises and exits non-zero):
      kernel's launches per microbatch exactly TRAIN_LAUNCHES (with and
      without remat), time and peak device memory with remat and without;
  11. train: the CLI's `train experiment=SGMSE_Large` on TRAIN_CLIPS
-     synth_speech clips (3 optimizer steps of batch 2 x accumulation 4),
+     synth_speech clips (2 optimizer steps of batch 2 x accumulation 4),
      with seconds per optimizer step and per microbatch, trained audio-s/s,
      peak memory, the losses, one profiled step's device busy share and the
      run's exact launches; then `predict ckpt_path=<out_dir>/checkpoints
@@ -85,8 +88,8 @@ Phases, one line each (any failure raises and exits non-zero):
      steps: its exact launches (GAN_TRAIN_LAUNCHES, with remat and
      without), seconds per microbatch and peak device memory;
  14. train_lsgan: the CLI's `train experiment=LSGAN` as shipped (micro 2 x
-     accumulation 16) on GAN_TRAIN_CLIPS synth_speech clips, two optimizer
-     steps: finite losses, a checkpoint of G and D, optimized_metric.json,
+     accumulation 16) on GAN_TRAIN_CLIPS synth_speech clips, one optimizer
+     step: finite losses, a checkpoint of G and D, optimized_metric.json,
      the run's exact launches (training microbatches, validation and test
      forwards), seconds per optimizer step, trained audio-s/s, the
      loader's wait and peak memory; then `predict experiment=LSGAN
@@ -103,7 +106,34 @@ Phases, one line each (any failure raises and exits non-zero):
      rates, six runs at once (one with deterministic algorithms, reported):
      each G loss falls, and the median gain of the enhanced SI-SDR of
      held-out probes over the noisy one, over the five runs without
-     deterministic algorithms, must exceed 1 dB.
+     deterministic algorithms, must exceed 1 dB;
+ 17. csmgan_forward: the CSMGAN generator (`experiment=CSMGAN`, full width,
+     weights from train.seed) offline on a 6 s clip at batch 1 and 8, the
+     card against the CPU within 1e-3 x max|ref| (fp32, TF32 off): ms a
+     forward, audio-s/s, peak memory, the CUDA kernels one forward launches
+     (profiler) and its arithmetic (flop counter);
+ 18. csmgan_stream: CSMGANStream on the card at chunk_frames 2, 4 and 8,
+     batch 1: per-chunk wall latency p50 / p99 over STREAM_CHUNKS chunks
+     after STREAM_WARMUP, the real-time factor, the algorithmic latency
+     (chunk + one hop), one profiled chunk (kernels, their time against the
+     chunk's wall time); the stream against the card's offline pass of its
+     clip and, over its first chunks, the CPU's stream (STREAM_REL_TOL);
+ 19. predict csmgan: the CLI's `predict experiment=CSMGAN` on the 3 s and 6 s
+     clips streaming (chunk_frames 2) and offline: mirrored, length-matched,
+     finite outputs; K1, K2 and K3 launched 0 times;
+ 20. csmgan_train_step: one microbatch of the CSMGAN recipe (4 whole clips
+     of 6 s, fp32; the 24k_MVD bank) through the D and G phases on the card
+     against the CPU on the card's leaky-ReLU branches (losses, every D and
+     G gradient within TRAIN_GRAD_REL_TOL of its tensor's largest; TF32 on
+     is the control that must fail), then gan_train_step with both Adam
+     steps: seconds a microbatch, peak memory, a profiled step's busy share;
+ 21. train_csmgan: the CLI's `train experiment=CSMGAN` as shipped (4 x 8)
+     for one optimizer step over CSMGAN_TRAIN_CLIPS synth_speech clips (6 s
+     items), with its validation and test: finite losses, a checkpoint of G
+     and D, seconds a step, trained audio-s/s, the loader's wait; then
+     `predict ... ckpt_path=<out_dir>/checkpoints predict.streaming=true` on
+     one clip and `eval experiment=CSMGAN` of that checkpoint (phase 15's
+     checks). CSMGAN serving and training launch none of K1, K2, K3.
 Each phase prints its seconds. Then a JSON line of the kernels, the card
 line, and the last line {"ok": true, "device": {...}}.
 """
@@ -210,6 +240,10 @@ GRAD_SKIP_SHAPES = [(2, 256, 128, 512, 512), (2, 512, 256, 128, 128)]  # (B, Ci,
 GRAD_REL_TOL = 1e-4
 TRAIN_EXPERIMENT = "SGMSE_Large"
 TRAIN_SHAPE = (2, 512, 512, 4)  # one microbatch of net input: batch 2, 512 bins x 512 frames
+# clips of the microbatch that the card and the CPU both compute (phases 10
+# and 13: the CPU's is most of those phases' time); the timings run the
+# recipe's TRAIN_SHAPE[0] / GAN_TRAIN_SHAPE[0]
+CHECK_CLIPS = 1
 # a gradient on the card against the CPU's: within TRAIN_GRAD_REL_TOL of its
 # own tensor's largest value, every tensor but the attention's key biases,
 # whose gradient is zero in exact arithmetic (softmax ignores a shift that
@@ -224,7 +258,7 @@ TRAIN_LAUNCHES = {
     "remat": {"channel_sums": 204, "gn_apply": 204, "fused_skip_add": 68, "qconv3x3_fused": 0},
     "no_remat": {"channel_sums": 106, "gn_apply": 106, "fused_skip_add": 34, "qconv3x3_fused": 0},
 }
-TRAIN_CLIPS, TRAIN_CLIP_S = 24, 4  # 24 clips: 3 optimizer steps of 2 x 4 an epoch
+TRAIN_CLIPS, TRAIN_CLIP_S = 16, 4  # 16 clips: 2 optimizer steps of 2 x 4 an epoch
 TRAIN_PREDICT_N = 3
 CROP_S = 81760 / 24000  # a training crop: 511 hops of 160 samples at 24 kHz
 JAX_LEARN_GAIN_DB = 5.65  # tests/test_learning.py:16
@@ -240,10 +274,10 @@ GAN_TRAIN_LAUNCHES = {
     "remat": {"channel_sums": 130, "gn_apply": 130, "fused_skip_add": 45, "qconv3x3_fused": 0},
     "no_remat": {"channel_sums": 90, "gn_apply": 90, "fused_skip_add": 30, "qconv3x3_fused": 0},
 }
-GAN_TRAIN_CLIPS = 64  # two optimizer steps of 2 x 16 an epoch
+GAN_TRAIN_CLIPS = 32  # one optimizer step of 2 x 16 an epoch
 # the items of train_lsgan spliced to 3.5 s (the recipe's 6 s): still longer
-# than the 3.19 s crop, and the loaders' synthesis of the 64 training, 64
-# validation and 64 test items, most of that phase's time, shrinks with them
+# than the 3.19 s crop, and the loaders' synthesis of the 32 training, 32
+# validation and 32 test items, most of that phase's time, shrinks with them
 GAN_SPLICE_S = 3.5
 GAN_CROP_S = 76640 / 24000  # a generator training crop: 479 hops of 160 samples
 EVAL_SGMSE, EVAL_CLIPS, EVAL_FILES, EVAL_N = "SGMSE_Large", 4, 2, 3
@@ -254,6 +288,23 @@ JAX_GAN_LEARN_GAIN_DB = (1.9, 7.0)  # tests/test_learning.py:160, :183 (CPU runs
 # Nine of ten runs without read +3.8 to +5.6 dB, one -0.53 (PERF.md).
 LEARN_LSGAN_RUNS = (True, False, False, False, False, False)
 RICH_KEYS = {"si_sdr", "si_sir", "si_sar", "lsd", "estoi"}
+# CSMGAN (phases 17-21)
+CSMGAN_EXPERIMENT = "CSMGAN"
+CSMGAN_CLIP_S = 6  # the forward's clip and the training clips: the recipe's 6 s items
+CSMGAN_BATCHES = (1, 8)
+# card against the CPU (and the stream against the offline pass), relative
+# to max|ref|: the forwards' limit. The cumulative norms divide by
+# sqrt(var + eps) with eps 1e-6 (2-D) and 1e-8 (1-D), so at a frame of
+# almost no variance a difference of summation order grows by up to 1e3 /
+# 1e4; the network's biases and the cumulative sums over earlier frames
+# keep its inputs' variance far from 0 (PERF.md: readings)
+CSMGAN_REL_TOL = 1e-3
+STREAM_CHUNK_FRAMES = (2, 4, 8)
+STREAM_REL_TOL = 1e-3
+STREAM_WARMUP, STREAM_CHUNKS = 5, 100  # chunks before the latency count, and counted
+STREAM_CPU_CHUNKS = 20  # the first chunks of a stream the CPU streams too
+CSMGAN_TRAIN_CLIPS = 32  # one optimizer step of 4 x 8
+NO_LAUNCHES = {"channel_sums": 0, "gn_apply": 0, "fused_skip_add": 0, "qconv3x3_fused": 0}
 
 # kernel launches per ncsnpplarge forward on each predict run
 PER_FORWARD = {
@@ -279,6 +330,8 @@ def main():
     ap.add_argument("--profile", action="store_true", help="profile one full-width forward")
     ap.add_argument("--gan", action="store_true",
                     help="build, kernels, then only the LSGAN training and eval phases")
+    ap.add_argument("--csmgan", action="store_true",
+                    help="build, kernels, then only the CSMGAN phases")
     args = ap.parse_args()
     # the learn phase runs cuBLAS deterministically, which needs this before its first call
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -315,6 +368,8 @@ def main():
             for label in (*PER_FORWARD, "train", "train_lsgan")}
     if args.gan:
         runs.update(gan_phases(torch, dev))
+    elif args.csmgan:
+        runs.update(csmgan_phases(torch, dev))
     elif not args.kernels:
         timed("forward", forward_phase, torch, dev)
         timed("int8_forward", int8_forward_phase, torch, dev)
@@ -344,6 +399,7 @@ def main():
         runs["train"] = timed("train", train_phase, torch, dev)
         timed("learn", learn_phase, torch, dev)
         runs.update(gan_phases(torch, dev))
+        runs.update(csmgan_phases(torch, dev))
         if args.profile:
             timed("profile", profile_phase, torch, dev)
             timed("profile_train", profile_train_phase, torch, dev)
@@ -513,16 +569,22 @@ def kernel_phases(torch, dev):
             graph_kernels = check_launches(
                 torch, "gn_fold", shape, dtype_name,
                 lambda: g.gn_fold(x3, weight, bias, groups, 1e-6), launches)
+            # the library call: the group statistics the fold starts from
+            # (torch.var_mean over each group's S x C/G elements); the
+            # fold's own arithmetic is not in it
+            x_groups = x3.reshape(b, groups, -1)
+            ms, lib_ms = time_pair_ms(torch, lambda: g.gn_fold(x3, weight, bias, groups, 1e-6),
+                                      lambda: torch.var_mean(x_groups, dim=2), KERNEL_REPS)
             results["channel_sums"].append(dict(
                 name="channel_sums", variant="gn_fold", **common_gn, shape=list(shape),
-                dtype=dtype_name, max_abs_err=err, tol=tol,
-                ms=time_ms(torch, lambda: g.gn_fold(x3, weight, bias, groups, 1e-6),
-                           reps=KERNEL_REPS),
+                dtype=dtype_name, max_abs_err=err, tol=tol, ms=ms,
                 device_ms=dev_ms, kernels_per_call=graph_kernels,
                 profiler_kernels_per_call=per_call, profiler_exact=exact,
                 plain_ms=time_ms(torch, lambda: g.gn_fold_plain(x3, weight, bias, groups, 1e-6),
                                  reps=KERNEL_REPS),
-                library_ms=None, bound_ms=bms, bound_by=by))
+                library_ms=lib_ms,
+                library_device_ms=device_ms(torch, lambda: torch.var_mean(x_groups, dim=2))[0],
+                bound_ms=bms, bound_by=by))
             phase("kernel", **{k: v for k, v in results["channel_sums"][-1].items()
                                if k not in ("route", "source", "replaces")})
             y = g.gn_apply(x3, sums, sumsq, weight, bias, groups, 1e-6, "swish", dt)
@@ -1370,15 +1432,15 @@ def _train_model(torch, device, remat=True):
     return model, cfg
 
 
-def _train_batch(torch, model, seed=5):
-    """One microbatch of two clips a little longer than the crop, and the
-    loss's draws (crop start, t, z) from a CPU generator."""
+def _train_batch(torch, model, clips, seed=5):
+    """One microbatch of `clips` clips a little longer than the crop, and
+    the loss's draws (crop start, t, z) from a CPU generator."""
     length = model.target_len + 4000
     rng = np.random.default_rng(seed)
-    clean = (0.3 * rng.standard_normal((TRAIN_SHAPE[0], length))).astype(np.float32)
+    clean = (0.3 * rng.standard_normal((clips, length))).astype(np.float32)
     noisy = (clean + 0.1 * rng.standard_normal(clean.shape)).astype(np.float32)
     batch = {"clean": torch.from_numpy(clean), "perturbed": torch.from_numpy(noisy)}
-    return batch, model.draw_train(TRAIN_SHAPE[0], length, torch.Generator().manual_seed(seed))
+    return batch, model.draw_train(clips, length, torch.Generator().manual_seed(seed))
 
 
 def _microbatch(torch, model, batch, draws):
@@ -1424,22 +1486,22 @@ def _small_grads(want, rel, share):
 
 
 def train_step_phase(torch, dev):
-    """One full-width microbatch of the recipe through train_loss and
-    backward on the CPU (plain versions) and on the card (kernels), on the
-    same weights, batch and draws: the loss within 1e-4 relative, every
+    """One full-width microbatch (CHECK_CLIPS clips of the recipe's crop)
+    through train_loss and backward on the CPU (plain versions) and on the
+    card (kernels), on the same weights, batch and draws: the loss within 1e-4 relative, every
     gradient within TRAIN_GRAD_REL_TOL of its own tensor's largest value
     (the attention's key biases, zero in exact arithmetic, below
     KEY_BIAS_GRAD_FLOOR of the largest of all on both devices), the same
     microbatch with TF32 on off by more than that; each kernel launched exactly
     TRAIN_LAUNCHES["remat"] times; then one optimizer step (clip, L2, Adam)
-    leaves finite, changed weights. Then the microbatch's time and peak
-    device memory with remat (median of 3) and without, whose launches must
-    be TRAIN_LAUNCHES["no_remat"]."""
+    leaves finite, changed weights. Then the recipe's microbatch
+    (TRAIN_SHAPE) time and peak device memory with remat (median of 3) and
+    without, whose launches must be TRAIN_LAUNCHES["no_remat"]."""
     from use_tpu_torch import ops
     from use_tpu_torch.engine.loop import build_train_state
 
     cpu, cfg = _train_model(torch, "cpu")
-    batch, draws = _train_batch(torch, cpu)
+    batch, draws = _train_batch(torch, cpu, CHECK_CLIPS)
     loss_cpu, cpu_s = _microbatch(torch, cpu, batch, draws)
     grads_cpu = {k: p.grad for k, p in cpu.score_net.named_parameters() if p.grad is not None}
     gpu, _ = _train_model(torch, dev)
@@ -1472,6 +1534,7 @@ def train_step_phase(torch, dev):
     moved = sum(int(not torch.equal(before[k], p)) for k, p in gpu.score_net.named_parameters())
     finite = all(bool(torch.isfinite(p).all()) for p in gpu.score_net.parameters())
     del before, state
+    batch, draws = _train_batch(torch, gpu, TRAIN_SHAPE[0])
     times = []
     for _ in range(3):
         torch.cuda.reset_peak_memory_stats(dev)
@@ -1487,7 +1550,8 @@ def train_step_phase(torch, dev):
     counts_no_remat = ops.launch_counts()
     peak_no_remat = torch.cuda.max_memory_allocated(dev)
     no_remat_s = min(no_remat_s, _microbatch(torch, gpu, batch, draws)[1])
-    phase("train_step", experiment=TRAIN_EXPERIMENT, shape=list(TRAIN_SHAPE), dtype="float32",
+    phase("train_step", experiment=TRAIN_EXPERIMENT, shape=list(TRAIN_SHAPE),
+          check_clips=CHECK_CLIPS, dtype="float32",
           tf32=bool(torch.backends.cudnn.allow_tf32), remat_policy=net.cfg.remat_policy,
           loss=float(loss), loss_cpu=float(loss_cpu), loss_rel_err=loss_err,
           grad_tol=TRAIN_GRAD_REL_TOL, max_grad_rel_err=rel[worst_key], worst_grad=worst_key,
@@ -1721,7 +1785,7 @@ def profile_train_phase(torch, dev):
     from use_tpu_torch.ops import fused_skip, gn_stats
 
     model, _ = _train_model(torch, dev)
-    batch, draws = _train_batch(torch, model)
+    batch, draws = _train_batch(torch, model, TRAIN_SHAPE[0])
     _microbatch(torch, model, batch, draws)  # warm
     fns = {"gn_apply_backward": gn_stats._GNApply, "channel_sums_backward": gn_stats._ChannelSums,
            "fused_skip_add_backward": fused_skip._FusedSkipAdd}
@@ -1780,7 +1844,8 @@ def gan_phases(torch, dev):
     """Phases 13-16; -> {run label: launches by kernel} of train_lsgan and
     the evals."""
     timed("gan_train_step", gan_train_step_phase, torch, dev)
-    runs = timed("train_lsgan", train_lsgan_phase, torch, dev)
+    runs = timed("train_lsgan", train_gan_phase, torch, dev, GAN_EXPERIMENT, GAN_TRAIN_CLIPS,
+                 GAN_SPLICE_S, GAN_CROP_S, GAN_TRAIN_LAUNCHES["remat"], PER_GENERATOR_FORWARD)
     runs[f"eval {EVAL_SGMSE}"] = timed(f"eval {EVAL_SGMSE}", eval_phase, torch, dev, EVAL_SGMSE,
                                        None, PER_FORWARD["float32"])
     timed("learn_lsgan", learn_lsgan_phase, torch, dev)
@@ -1809,12 +1874,12 @@ def _gan_to(torch, gan, device):
     return gan
 
 
-def _gan_batch(torch, gan, seed=5):
-    """One microbatch of two clips a little longer than the crop, and its
-    crop start from a CPU generator."""
+def _gan_batch(torch, gan, clips, seed=5):
+    """One microbatch of `clips` clips a little longer than the crop, and
+    its crop start from a CPU generator."""
     length = gan.generator.target_len + 4000
     rng = np.random.default_rng(seed)
-    clean = (0.3 * rng.standard_normal((GAN_TRAIN_SHAPE[0], length))).astype(np.float32)
+    clean = (0.3 * rng.standard_normal((clips, length))).astype(np.float32)
     noisy = (clean + 0.1 * rng.standard_normal(clean.shape)).astype(np.float32)
     batch = {"clean": torch.from_numpy(clean), "perturbed": torch.from_numpy(noisy)}
     return batch, gan.generator.draw_start(length, torch.Generator().manual_seed(seed))
@@ -1945,9 +2010,9 @@ def _cpu_grads(gan):
 
 
 def gan_train_step_phase(torch, dev):
-    """One full-width LSGAN microbatch (phase 13): the D phase and the G
-    phase (against the same D) on the card (kernels) and on the CPU (plain
-    versions), on the same weights, batch and crop start, the CPU on the
+    """One full-width LSGAN microbatch (phase 13; CHECK_CLIPS clips): the D
+    phase and the G phase (against the same D) on the card (kernels) and on
+    the CPU (plain versions), on the same weights, batch and crop start, the CPU on the
     card's branch of every leaky ReLU of D (lrelu_branches: a pre-activation
     within rounding of 0 takes either branch, and its gradient jumps by
     0.9 of its term; the flips are counted): loss_D and every loss_G*
@@ -1955,14 +2020,14 @@ def gan_train_step_phase(torch, dev):
     argues), every D and G gradient within TRAIN_GRAD_REL_TOL of its own
     tensor's largest value (the attention's key biases below
     KEY_BIAS_GRAD_FLOOR of the largest of all), the same microbatch with
-    TF32 on off by more; then gan_train_step (both Adam steps): finite,
-    moved weights, launches exactly GAN_TRAIN_LAUNCHES with remat (median
-    time of 3, and one profiled: the share of its wall time the card ran a
+    TF32 on off by more; then gan_train_step (both Adam steps) on the
+    recipe's microbatch (GAN_TRAIN_SHAPE): finite, moved weights, launches
+    exactly GAN_TRAIN_LAUNCHES with remat (median time of 3, and one profiled: the share of its wall time the card ran a
     kernel) and without, and peak device memory."""
     from use_tpu_torch.engine.loop import build_gan_train_state
 
     cpu, cfg = _gan_model(torch, "cpu")
-    batch, start = _gan_batch(torch, cpu)
+    batch, start = _gan_batch(torch, cpu, CHECK_CLIPS)
     gan = _gan_to(torch, copy.deepcopy(cpu), dev)
     key_biases = {f"G.{name}.NIN_1.b" for name, m in gan.generator.net.named_modules()
                   if type(m).__name__ == "AttnBlockpp"}
@@ -1995,6 +2060,8 @@ def gan_train_step_phase(torch, dev):
     state = build_gan_train_state(gan, t["g_lr"], t["d_lr"], t["weight_decay"])
     before = {k: p.detach().clone() for k, p in gan.generator.net.named_parameters()}
     before_d = {k: p.detach().clone() for k, p in gan.discriminator.named_parameters()}
+    check_samples = int(batch["clean"].shape[-1])
+    batch, start = _gan_batch(torch, gan, GAN_TRAIN_SHAPE[0])
     torch.cuda.reset_peak_memory_stats(dev)
     counts, step_s = _gan_step_launches(torch, gan, state, batch, start)
     peak_remat = torch.cuda.max_memory_allocated(dev)
@@ -2019,7 +2086,8 @@ def gan_train_step_phase(torch, dev):
     peak_no_remat = torch.cuda.max_memory_allocated(dev)
     n_g, n_d = len(list(net.parameters())), len(list(gan.discriminator.parameters()))
     phase("gan_train_step", experiment=GAN_EXPERIMENT, shape=list(GAN_TRAIN_SHAPE),
-          clip_samples=int(batch["clean"].shape[-1]), crop_start=start, dtype="float32",
+          check_clips=CHECK_CLIPS, clip_samples=check_samples, crop_start=start,
+          dtype="float32",
           tf32=bool(torch.backends.cudnn.allow_tf32), remat_policy=net.cfg.remat_policy,
           loss_D=float(loss_d), loss_D_cpu=float(loss_d_cpu), logs=logs, logs_cpu=logs_cpu,
           loss_rel_errs=loss_errs, grad_tol=TRAIN_GRAD_REL_TOL, max_grad_rel_err=rel[worst],
@@ -2061,32 +2129,34 @@ def gan_train_step_phase(torch, dev):
 
 
 @contextlib.contextmanager
-def forward_counts():
-    """The backbone forwards (NCSNpp.forward calls) of a run."""
-    from use_tpu_torch.models.ncsnpp.ncsnpp import NCSNpp
+def forward_counts(net_cls=None):
+    """The network forwards (net_cls.forward calls; NCSNpp's by default) of a run."""
+    if net_cls is None:
+        from use_tpu_torch.models.ncsnpp.ncsnpp import NCSNpp as net_cls
 
     n = [0]
-    real = NCSNpp.forward
+    real = net_cls.forward
 
     def forward(self, *args, **kw):
         n[0] += 1
         return real(self, *args, **kw)
 
-    NCSNpp.forward = forward
+    net_cls.forward = forward
     try:
         yield n
     finally:
-        NCSNpp.forward = real
+        net_cls.forward = real
 
 
-def eval_phase(torch, dev, experiment, ckpt, per_forward, jl=None):
+def eval_phase(torch, dev, experiment, ckpt, per_forward, jl=None, net_cls=None):
     """The CLI's `eval experiment=<experiment>` (phase 15) on EVAL_CLIPS
     synth_speech clips (test losses of every test batch, then the rich
     harness over EVAL_FILES utterances, SGMSE at N=EVAL_N): finite test
     losses, the rich metrics RICH_KEYS (and pesq_wb where the package
     imports), whether figures were drawn, and each kernel's launches
     exactly per_forward times the backbone forwards, which are the test
-    batches plus the harness's (EVAL_N a file for SGMSE, one for LSGAN)."""
+    batches plus the harness's (EVAL_N a file for SGMSE, one for LSGAN and
+    CSMGAN), the forwards of `net_cls` (NCSNpp by default)."""
     from use_tpu_torch import ops
     from use_tpu_torch.cli.main import main as cli_main
 
@@ -2102,7 +2172,7 @@ def eval_phase(torch, dev, experiment, ckpt, per_forward, jl=None):
         ops.reset_launch_counts()
         t0 = time.perf_counter()
         with train_steps_timed(torch, dev, "sgmse" if experiment.startswith("SGMSE") else "gan"
-                               ) as rec, forward_counts() as forwards:
+                               ) as rec, forward_counts(net_cls) as forwards:
             summary = cli_main(argv)
         torch.cuda.synchronize(dev)
         wall = time.perf_counter() - t0
@@ -2132,39 +2202,50 @@ def eval_phase(torch, dev, experiment, ckpt, per_forward, jl=None):
     return counts
 
 
-def train_lsgan_phase(torch, dev):
-    """`train experiment=LSGAN` through the CLI (phase 14), as shipped: micro
-    2 x accumulation 16, Adam 5e-4 / 2e-4, fp32, remat, 4 loader workers,
-    one epoch over GAN_TRAIN_CLIPS synth_speech clips of TRAIN_CLIP_S
-    seconds (two optimizer steps), items spliced to GAN_SPLICE_S; finite losses, a checkpoint holding G
-    and D, optimized_metric.json, every kernel launched exactly
-    GAN_TRAIN_LAUNCHES["remat"] times a microbatch plus
-    PER_GENERATOR_FORWARD times an eval batch. Then `predict
-    experiment=LSGAN ckpt_path=<out_dir>/checkpoints` on one 3 s clip
-    (PER_GENERATOR_FORWARD launches), and `eval experiment=LSGAN` of that
-    checkpoint (eval_phase). -> launches of the train run and the eval."""
+def train_gan_phase(torch, dev, experiment, clips, splice_s, crop_s, per_micro, per_forward,
+                    predict_args=(), net_cls=None):
+    """`train experiment=<experiment>` (task=lsgan) through the CLI as
+    shipped (phase 14 LSGAN: micro 2 x accumulation 16, remat; phase 21
+    CSMGAN: micro 4 x accumulation 8), Adam 5e-4 / 2e-4, fp32, 4 loader
+    workers, one epoch over `clips` synth_speech clips of TRAIN_CLIP_S
+    seconds, items spliced to `splice_s` (a microbatch trains on `crop_s`
+    seconds a clip); finite losses, one optimizer step a batch x
+    accumulation of clips, a checkpoint holding G and D,
+    optimized_metric.json, every kernel launched exactly `per_micro` times
+    a microbatch plus `per_forward` times an eval batch; seconds a step and
+    a microbatch, trained audio-s/s, the loader's wait, peak memory. Then
+    `predict ... ckpt_path=<out_dir>/checkpoints *predict_args` on one 3 s
+    clip (`per_forward` launches), and `eval` of that checkpoint
+    (eval_phase, counting `net_cls` forwards). -> launches of the train run
+    and the eval."""
     from use_tpu_torch import ops
     from use_tpu_torch.cli.main import main as cli_main
+    from use_tpu_torch.cli.main import resolve_auto_batch
     from use_tpu_torch.config.config import load_config
     from use_tpu_torch.engine.checkpoint import CheckpointManager
 
     sr = 24000
+    label = f"train_{experiment.lower()}"
+    cfg = load_config(experiment)
+    resolve_auto_batch(cfg)
+    batch = cfg["data"]["batch_size"]
+    per_step = batch * cfg["train"]["accumulate_grad_batches"]
     with tempfile.TemporaryDirectory(prefix="chip_smoke_gan_") as tmp:
         t0 = time.perf_counter()
-        jl = write_corpus(os.path.join(tmp, "corpus"), GAN_TRAIN_CLIPS, TRAIN_CLIP_S, sr)
+        jl = write_corpus(os.path.join(tmp, "corpus"), clips, TRAIN_CLIP_S, sr)
         corpus_s = time.perf_counter() - t0
         out = os.path.join(tmp, "run")
         torch.cuda.synchronize(dev)
         ops.reset_launch_counts()
         torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
-        # no profiled step: the trace of 16 microbatches takes the profiler
-        # minutes to read back; gan_train_step's phase profiles one
+        # no profiled step: the trace of a whole step takes the profiler
+        # minutes to read back; the microbatch phases profile one
         with train_steps_timed(torch, dev, "gan", profile_step=False) as rec:
-            summary = cli_main(["train", f"experiment={GAN_EXPERIMENT}",
+            summary = cli_main(["train", f"experiment={experiment}",
                                 f"data.clean_json_path={jl}", f"data.noise_json_path={jl}",
                                 "data.reverb_use_FRA=true", "train.max_epochs=1",
-                                f"data.speech_splice_seconds={GAN_SPLICE_S}",
+                                f"data.speech_splice_seconds={splice_s}",
                                 f"out_dir={out}", f"device={dev}"])
         torch.cuda.synchronize(dev)
         wall = time.perf_counter() - t0
@@ -2178,12 +2259,10 @@ def train_lsgan_phase(torch, dev):
         held = {k: sorted(state[k]) for k in state}
         del state
         micro = summary["microbatches"]
-        step_s = rec["step_s"] + ([rec["profiled"]["wall_s"]] if rec["profiled"] else [])
-        want = {k: v * micro + PER_GENERATOR_FORWARD[k] * rec["eval_steps"]
-                for k, v in GAN_TRAIN_LAUNCHES["remat"].items()}
-        phase("train_lsgan", experiment=GAN_EXPERIMENT, clips=GAN_TRAIN_CLIPS,
-              clip_s=TRAIN_CLIP_S, splice_s=GAN_SPLICE_S, corpus_seconds=round(corpus_s, 2),
-              tf32=bool(torch.backends.cudnn.allow_tf32),
+        step_s = rec["step_s"]
+        want = {k: v * micro + per_forward[k] * rec["eval_steps"] for k, v in per_micro.items()}
+        phase(label, experiment=experiment, clips=clips, clip_s=TRAIN_CLIP_S, splice_s=splice_s,
+              corpus_seconds=round(corpus_s, 2), tf32=bool(torch.backends.cudnn.allow_tf32),
               optimizer_steps=summary["optimizer_steps"], microbatches=micro,
               trained_clips=summary["clips"], eval_batches=rec["eval_steps"],
               history=summary["history"], optimized_metric=record, checkpoints=steps,
@@ -2192,46 +2271,38 @@ def train_lsgan_phase(torch, dev):
               eval_step_seconds=rec["eval_s"],
               s_per_optimizer_step=float(np.mean(step_s)) if step_s else None,
               s_per_microbatch=sum(step_s) / micro if step_s else None,
-              trained_audio_s_per_s=(micro * GAN_TRAIN_SHAPE[0] * GAN_CROP_S / sum(step_s)
-                                     if step_s else None),
-              peak_memory_bytes=peak, launches=counts,
-              expected_launches=want)
-        hist = summary["history"]
-        losses = [h[k] for h in hist for k in ("train/loss_G", "train/loss_D")]
+              trained_audio_s_per_s=(micro * batch * crop_s / sum(step_s) if step_s else None),
+              peak_memory_bytes=peak, launches=counts, expected_launches=want)
+        losses = [h[k] for h in summary["history"] for k in ("train/loss_G", "train/loss_D")]
         if not (losses and all(np.isfinite(losses)) and np.isfinite(record["value"])):
-            raise AssertionError(f"train_lsgan: losses {losses}, optimized metric {record}")
-        gcfg = load_config(GAN_EXPERIMENT)
-        from use_tpu_torch.cli.main import resolve_auto_batch
-
-        resolve_auto_batch(gcfg)
-        per_step = gcfg["data"]["batch_size"] * gcfg["train"]["accumulate_grad_batches"]
-        if summary["optimizer_steps"] != GAN_TRAIN_CLIPS // per_step or not steps:
-            raise AssertionError(f"train_lsgan: {summary['optimizer_steps']} steps, "
+            raise AssertionError(f"{label}: losses {losses}, optimized metric {record}")
+        if summary["optimizer_steps"] != clips // per_step or not steps:
+            raise AssertionError(f"{label}: {summary['optimizer_steps']} steps, "
                                  f"checkpoints {steps}")
         if set(held) != {"g", "d"}:
-            raise AssertionError(f"train_lsgan: the checkpoint holds {sorted(held)}")
+            raise AssertionError(f"{label}: the checkpoint holds {sorted(held)}")
         if counts != want:
-            raise AssertionError(f"train_lsgan: launches {counts}, expected {want}")
+            raise AssertionError(f"{label}: launches {counts}, expected {want}")
 
         src, dst = os.path.join(tmp, "in"), os.path.join(tmp, "out")
         lengths = write_clips(src, (3,), sr)
         ops.reset_launch_counts()
-        psum = cli_main(["predict", f"experiment={GAN_EXPERIMENT}", f"ckpt_path={ckpts}",
+        psum = cli_main(["predict", f"experiment={experiment}", f"ckpt_path={ckpts}",
                          f"predict.data_folder={src}", f"predict.target_folder={dst}",
-                         f"device={dev}"])
+                         f"device={dev}", *predict_args])
         torch.cuda.synchronize(dev)
         pcounts = ops.launch_counts()
         check_outputs(dst, lengths, sr, psum)
-        phase("predict", run="trained LSGAN checkpoint", experiment=GAN_EXPERIMENT,
-              files=psum["files"], audio_seconds=psum["audio_seconds"],
+        phase("predict", run=f"trained {experiment} checkpoint", experiment=experiment,
+              args=list(predict_args), files=psum["files"], audio_seconds=psum["audio_seconds"],
               seconds=psum["seconds"], launches=pcounts)
-        if pcounts != PER_GENERATOR_FORWARD:
-            raise AssertionError(f"predict of the trained LSGAN: launches {pcounts}, "
-                                 f"expected {PER_GENERATOR_FORWARD}")
-        eval_counts = timed("eval LSGAN", eval_phase, torch, dev, GAN_EXPERIMENT, ckpts,
-                            PER_GENERATOR_FORWARD)
+        if pcounts != per_forward:
+            raise AssertionError(f"predict of the trained {experiment}: launches {pcounts}, "
+                                 f"expected {per_forward}")
+        eval_counts = timed(f"eval {experiment}", eval_phase, torch, dev, experiment, ckpts,
+                            per_forward, None, net_cls)
     torch.cuda.empty_cache()
-    return {"train_lsgan": counts, "eval LSGAN": eval_counts}
+    return {label: counts, f"eval {experiment}": eval_counts}
 
 
 def _gan_learn_worker(det, device):
@@ -2276,6 +2347,464 @@ def learn_lsgan_phase(torch, dev):
     if not median > learn_gate.GAN_GATE_DB:
         raise AssertionError(f"learn_lsgan: median gain {median} dB <= "
                              f"{learn_gate.GAN_GATE_DB} dB ({gains})")
+
+
+def csmgan_phases(torch, dev):
+    """Phases 17-21; -> {run label: launches by kernel} of their CLI runs."""
+    timed("csmgan_forward", csmgan_forward_phase, torch, dev)
+    timed("csmgan_stream", csmgan_stream_phase, torch, dev)
+    runs = timed("predict csmgan", csmgan_predict_phase, torch, dev)
+    timed("csmgan_train_step", csmgan_train_step_phase, torch, dev)
+    from use_tpu_torch.models.gan.csmgan import CSMGAN
+
+    # CSMGAN trains crop-free: a microbatch trains on the whole 6 s items
+    runs.update(timed("train_csmgan", train_gan_phase, torch, dev, CSMGAN_EXPERIMENT,
+                      CSMGAN_TRAIN_CLIPS, CSMGAN_CLIP_S, CSMGAN_CLIP_S, NO_LAUNCHES,
+                      NO_LAUNCHES, ("predict.streaming=true",), CSMGAN))
+    return runs
+
+
+def _csmgan(torch, device):
+    """The CSMGAN generator as `experiment=CSMGAN` builds it (full width,
+    weights from train.seed), on the CPU and on `device`, the same weights."""
+    from use_tpu_torch.config.config import load_config
+    from use_tpu_torch.models.gan.csmgan import CSMGANWrapper
+
+    cfg = load_config(CSMGAN_EXPERIMENT)
+    gcfg = {k: v for k, v in cfg["model"]["generator"].items() if k != "name"}
+    seed = int(cfg["train"]["seed"])
+    cpu = CSMGANWrapper(**gcfg, device="cpu", seed=seed)
+    card = CSMGANWrapper(**gcfg, device=device, seed=seed)
+    card.net.load_state_dict(cpu.net.state_dict())
+    return cpu, card
+
+
+def _csmgan_pairs(batch, secs=None, sr=24000):
+    """`batch` synth_speech clips of `secs` seconds (CSMGAN_CLIP_S) and
+    their noisy versions (5 dB SNR): -> (clean, noisy), each [B, L] float32."""
+    from use_tpu_torch.data.synth_speech import synth_pair
+
+    n = int((secs or CSMGAN_CLIP_S) * sr)
+    pairs = [synth_pair(n, 40 + i, snr_db=5.0, sr=sr) for i in range(batch)]
+    return tuple(np.stack([p[j] for p in pairs]).astype(np.float32) for j in (0, 1))
+
+
+def _csmgan_clips(batch, secs=None, sr=24000):
+    """`batch` noisy synth_speech clips of `secs` seconds, [B, L]."""
+    return _csmgan_pairs(batch, secs, sr)[1]
+
+
+def _kernel_events(torch, prof):
+    """The profiler's CUDA kernels (no memcpy / memset): -> (count, ms)."""
+    from torch.autograd import DeviceType
+
+    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+          and not e.name.startswith(("Memcpy", "Memset"))]
+    return len(ev), sum(e.time_range.end - e.time_range.start for e in ev) / 1e3
+
+
+def _rel(a, b):
+    """max|a - b| / max|b|, both moved to the CPU."""
+    a, b = a.float().cpu(), b.float().cpu()
+    return float((a - b).abs().max()) / float(b.abs().max())
+
+
+def csmgan_forward_phase(torch, dev):
+    """Phase 17: the offline forward (STFT, net, iSTFT) of the shipped
+    CSMGAN on CSMGAN_BATCHES x a 6 s clip, the card against the CPU on the
+    same weights within CSMGAN_REL_TOL x max|ref|; ms a forward (median of
+    10, CUDA events), audio-s/s, peak memory; one profiled forward's CUDA
+    kernels and their time; the arithmetic of a forward (convolutions and
+    matmuls, torch.utils.flop_counter; the FFTs are not counted); K1, K2
+    and K3 not launched."""
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from use_tpu_torch import ops
+
+    cpu, card = _csmgan(torch, dev)
+    params = sum(p.numel() for p in card.net.parameters())
+    failed = []
+    for batch in CSMGAN_BATCHES:
+        wav = torch.from_numpy(_csmgan_clips(batch))
+        t0 = time.perf_counter()
+        ref = cpu.forward_infer({"perturbed": wav})["fake"]
+        cpu_s = time.perf_counter() - t0
+        x = {"perturbed": wav.to(dev)}
+        ops.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats(dev)
+        out = card.forward_infer(x)["fake"]
+        torch.cuda.synchronize(dev)
+        peak = torch.cuda.max_memory_allocated(dev)
+        counts = ops.launch_counts()
+        err = float((out.cpu() - ref).abs().max())
+        top = float(ref.abs().max())
+        ms = time_ms(torch, lambda: card.forward_infer(x), reps=10, warmup=2)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            card.forward_infer(x)
+            torch.cuda.synchronize(dev)
+        kernels, kernel_ms = _kernel_events(torch, prof)
+        with FlopCounterMode(display=False) as counter:
+            card.forward_infer(x)
+        gflop = counter.get_total_flops() / 1e9
+        phase("csmgan_forward", experiment=CSMGAN_EXPERIMENT, params=params, batch=batch,
+              clip_s=CSMGAN_CLIP_S, frames=int(ref.shape[-1]) // card.feature.hop_length + 1,
+              dtype="float32", tf32=bool(torch.backends.cudnn.allow_tf32), max_abs_err=err,
+              max_abs_ref=top, tol=CSMGAN_REL_TOL * top, ms=ms,
+              audio_s_per_s=batch * CSMGAN_CLIP_S / (ms / 1e3), peak_memory_bytes=peak,
+              kernels_per_forward=kernels, kernel_ms=kernel_ms, gflop=gflop,
+              gflop_per_audio_s=gflop / (batch * CSMGAN_CLIP_S), cpu_seconds=round(cpu_s, 2),
+              launches=counts)
+        if not (torch.isfinite(out).all() and err <= CSMGAN_REL_TOL * top):
+            failed.append(f"batch {batch}: card vs CPU max_abs_err {err} > "
+                          f"{CSMGAN_REL_TOL} x {top}")
+        if counts != NO_LAUNCHES:
+            failed.append(f"batch {batch}: launches {counts}")
+    if failed:
+        raise AssertionError("csmgan_forward: " + "; ".join(failed))
+    del cpu, card
+    torch.cuda.empty_cache()
+
+
+def csmgan_stream_phase(torch, dev):
+    """Phase 18: CSMGANStream of the shipped CSMGAN at STREAM_CHUNK_FRAMES,
+    batch 1. A session on the card streams STREAM_WARMUP + STREAM_CHUNKS
+    chunks of a clip, each step timed to a synchronize, then one profiled
+    step (its CUDA kernels and their time), then the flush: the whole output
+    against the card's offline pass of the clip, and its first
+    STREAM_CPU_CHUNKS chunks against the CPU's stream of them (the stream is
+    causal), within STREAM_REL_TOL of max|ref|. Latency p50 / p99 over the
+    STREAM_CHUNKS steps after STREAM_WARMUP; the real-time factor (p50 chunk
+    seconds over the chunk's audio seconds); the algorithmic latency (chunk
+    + one hop)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from use_tpu_torch import ops
+    from use_tpu_torch.models.gan.csmgan import CSMGANStream
+
+    sr = 24000
+    cpu, card = _csmgan(torch, dev)
+    hop = card.feature.hop_length
+    n = STREAM_WARMUP + STREAM_CHUNKS + 1  # the last step profiled
+    long_wav = torch.from_numpy(_csmgan_clips(1, secs=n * max(STREAM_CHUNK_FRAMES) * hop / sr))
+    failed = []
+    for k in STREAM_CHUNK_FRAMES:
+        cs = k * hop
+        clip = long_wav[:, : n * cs]
+        chunks = clip.to(dev).split(cs, dim=1)
+        sess = CSMGANStream(card, batch_size=1, chunk_frames=k)
+        times, parts = [], []
+        ops.reset_launch_counts()
+        with torch.inference_mode():
+            for chunk in chunks[:-1]:
+                t0 = time.perf_counter()
+                parts.append(sess.step(chunk))
+                torch.cuda.synchronize(dev)
+                times.append(time.perf_counter() - t0)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                parts.append(sess.step(chunks[-1]))
+                torch.cuda.synchronize(dev)
+                profiled_s = time.perf_counter() - t0
+            parts.append(sess.flush())
+        torch.cuda.synchronize(dev)
+        counts = ops.launch_counts()
+        stream = torch.cat(parts, dim=1)
+        offline = card.forward_infer({"perturbed": clip.to(dev)})["fake"]
+        cpu_sess = CSMGANStream(cpu, batch_size=1, chunk_frames=k)
+        t0 = time.perf_counter()
+        cpu_parts = [cpu_sess.step(c) for c in clip.split(cs, dim=1)[:STREAM_CPU_CHUNKS]]
+        cpu_s = time.perf_counter() - t0
+        head = torch.cat(cpu_parts, dim=1)
+        err_offline = _rel(stream, offline)
+        err_cpu = _rel(stream[:, : head.shape[1]], head)
+        kernels, kernel_ms = _kernel_events(torch, prof)
+        top = sorted(((e.key, e.count, getattr(e, "self_device_time_total",
+                                                 getattr(e, "self_cuda_time_total", 0)) / 1e3)
+                      for e in prof.key_averages()), key=lambda r: -r[2])[:6]
+        lat = np.array(times[STREAM_WARMUP:]) * 1e3
+        p50, p99 = float(np.percentile(lat, 50)), float(np.percentile(lat, 99))
+        chunk_ms = cs / sr * 1e3
+        phase("csmgan_stream", chunk_frames=k, chunk_ms=chunk_ms,
+              algorithmic_latency_ms=(k + 1) * hop / sr * 1e3, clip_s=clip.shape[1] / sr,
+              rel_err_vs_offline=err_offline, rel_err_vs_cpu=err_cpu, tol=STREAM_REL_TOL,
+              cpu_chunks=len(cpu_parts), cpu_seconds=round(cpu_s, 2), latency_chunks=len(lat),
+              p50_ms=p50, p99_ms=p99, mean_ms=float(lat.mean()), max_ms=float(lat.max()),
+              rtf=p50 / chunk_ms, profiled_wall_ms=profiled_s * 1e3, kernels_per_chunk=kernels,
+              kernel_ms_per_chunk=kernel_ms, top_device_ops_ms=top, launches=counts)
+        if not (stream.shape == offline.shape and torch.isfinite(stream).all()
+                and err_offline <= STREAM_REL_TOL and err_cpu <= STREAM_REL_TOL):
+            failed.append(f"chunk_frames {k}: stream vs offline {err_offline}, vs CPU {err_cpu} "
+                          f"(tol {STREAM_REL_TOL})")
+        if counts != NO_LAUNCHES:
+            failed.append(f"chunk_frames {k}: launches {counts}")
+    if failed:
+        raise AssertionError("csmgan_stream: " + "; ".join(failed))
+    del cpu, card
+    torch.cuda.empty_cache()
+
+
+def csmgan_predict_phase(torch, dev):
+    """Phase 19: `predict experiment=CSMGAN` on the 3 s and 6 s clips,
+    streaming at chunk_frames 2 and offline: outputs checked, K1, K2 and K3
+    launched 0 times, audio-s/s and peak memory. -> launches by run."""
+    from use_tpu_torch import ops
+    from use_tpu_torch.cli.main import main as cli_main
+
+    sr = 24000
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_csmgan_") as tmp:
+        src = os.path.join(tmp, "in")
+        lengths = write_clips(src, PREDICT_CLIPS_S, sr)
+        for label, extra in (("predict csmgan", ("predict.streaming=true",
+                                                 "predict.chunk_frames=2")),
+                             ("predict csmgan offline", ())):
+            dst = os.path.join(tmp, label.replace(" ", "_"))
+            ops.reset_launch_counts()
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            summary = cli_main(["predict", f"experiment={CSMGAN_EXPERIMENT}",
+                                f"predict.data_folder={src}", f"predict.target_folder={dst}",
+                                f"device={dev}", *extra])
+            torch.cuda.synchronize(dev)
+            wall = time.perf_counter() - t0
+            counts = ops.launch_counts()
+            check_outputs(dst, lengths, sr, summary)
+            phase("predict", run=label, experiment=CSMGAN_EXPERIMENT, args=list(extra),
+                  clips_s=list(PREDICT_CLIPS_S), files=summary["files"],
+                  audio_seconds=summary["audio_seconds"], sampling_seconds=summary["seconds"],
+                  wall_seconds=wall, audio_s_per_s=summary["audio_seconds"] / summary["seconds"],
+                  peak_memory_bytes=torch.cuda.max_memory_allocated(dev), launches=counts)
+            if counts != NO_LAUNCHES:
+                raise AssertionError(f"{label}: launches {counts}")
+            runs[label] = counts
+    return runs
+
+
+def _csmgan_gan(torch, device):
+    """The CSMGAN recipe as the CLI builds it (the csmgan generator, the
+    24k_MVD bank, the shipped criterion), weights from train.seed."""
+    from use_tpu_torch.cli.main import _build_model
+    from use_tpu_torch.config.config import load_config
+
+    cfg = load_config(CSMGAN_EXPERIMENT)
+    return _gan_to(torch, _build_model(cfg, "cpu"), device), cfg
+
+
+@contextlib.contextmanager
+def prelu_branches(torch, replay=None):
+    """Each PReLU (F.prelu: the generator's TCN), in call order, as
+    lrelu_branches: record its branch (x > 0, torch's own for the
+    gradient) as a CPU mask, or, given `replay`, take the recorded branch.
+    -> {"masks", "flips", "elements"}."""
+    import torch.nn.functional as F
+
+    real = F.prelu
+    rec = {"masks": [], "flips": 0, "elements": 0}
+    branches = None if replay is None else iter(replay)
+
+    def prelu(x, weight):
+        if branches is None:
+            rec["masks"].append((x > 0).cpu())
+            return real(x, weight)
+        mask = next(branches).to(x.device)
+        rec["flips"] += int((mask != (x > 0)).sum())
+        rec["elements"] += mask.numel()
+        return torch.where(mask, x, weight * x)
+
+    F.prelu = prelu
+    try:
+        yield rec
+    finally:
+        F.prelu = real
+
+
+@contextlib.contextmanager
+def mel_inputs(torch, replay=None):
+    """Each mel spectrogram the discriminator's mel bank takes, in call
+    order: record it (a CPU copy), or, given `replay`, take the recorded
+    values with this device's gradient (m + (recorded - m), the difference
+    detached). A near-null mel bin holds the DFT's rounding, whose value
+    log(mel + 1e-5) reads. -> {"mels"}."""
+    from use_tpu_torch.models.gan import discriminators as disc
+
+    real = disc.melspectrogram
+    rec = {"mels": []}
+    recorded = None if replay is None else iter(replay)
+
+    def melspectrogram(x, cfg):
+        m = real(x, cfg)
+        if recorded is None:
+            rec["mels"].append(m.detach().cpu())
+            return m
+        return m + (next(recorded).to(m.device) - m).detach()
+
+    disc.melspectrogram = melspectrogram
+    try:
+        yield rec
+    finally:
+        disc.melspectrogram = real
+
+
+def _csmgan_microbatch(torch, gan, batch, d_fake=None, prelu_replay=None):
+    """The D phase (on `d_fake` where given, else on G's fake made without
+    autograd) and the G phase (against the same D; its PReLUs inside
+    prelu_branches with `prelu_replay`), as _gan_microbatch; -> (loss_D,
+    logs of the G phase, seconds, the D phase's fake, the G phase's fake,
+    the G phase's PReLU record) after a synchronize, the gradients left in
+    .grad."""
+    dev = gan.device
+    mb = {k: v.to(dev) for k, v in batch.items()}
+    gan.discriminator.zero_grad(set_to_none=True)
+    gan.generator.net.zero_grad(set_to_none=True)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        fake = gan.g_forward(mb) if d_fake is None else {**mb, "fake": d_fake.to(dev)}
+    loss_d = gan.d_loss(fake)
+    loss_d.backward()
+    d_params = list(gan.discriminator.parameters())
+    for p in d_params:
+        p.requires_grad_(False)
+    try:
+        with prelu_branches(torch, prelu_replay) as prelus:
+            out = gan.g_forward(mb)
+        loss_g, logs = gan.g_loss(out)
+        loss_g.backward()
+    finally:
+        for p in d_params:
+            p.requires_grad_(True)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return (loss_d.detach(), {k: float(v.detach()) for k, v in logs.items()},
+            time.perf_counter() - t0, fake["fake"].detach(), out["fake"].detach(), prelus)
+
+
+def csmgan_train_step_phase(torch, dev):
+    """Phase 20: one microbatch of the CSMGAN recipe (the data's batch of
+    whole 6 s clips: CSMGAN trains crop-free), its D phase and its G phase
+    (against the same D) on the card and on the CPU on the same weights and
+    batch. The CPU computes the function the card computed wherever the
+    card's rounding picks one: each leaky ReLU of D and PReLU of G takes the
+    card's branch (lrelu_branches, prelu_branches: a flipped input's term
+    jumps by 0.9 / 0.99), D's phase runs on the card's fake, and D's mel
+    bank reads the card's mel spectrograms (mel_inputs). CSMGAN leaves its
+    top (Nyquist) bin empty, so its fakes have almost no energy near 12
+    kHz, where a bin holds the DFT's rounding: log(mel + 1e-5) in D, and
+    the criterion's two log terms (log(32768 |X| + 1e-6), the log mel),
+    read it (PERF.md: D's mel convs 2.4e-3 of their largest between card
+    and CPU, the log terms' gradient 0.52). So the gradients compared are
+    those of the criterion without the two log terms: every D and G
+    gradient within TRAIN_GRAD_REL_TOL of its tensor's largest, and the
+    same microbatch with TF32 on off by more; the losses within 1e-4, the
+    log terms' values on each device's G-phase fake within 1e-3. Then gan_train_step with the shipped criterion and both Adam
+    steps: finite, moved weights, no K1/K2/K3 launch, seconds a microbatch
+    (median of 3), one profiled step's busy share, peak device memory."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from use_tpu_torch.engine.loop import build_gan_train_state
+    from use_tpu_torch.models.gan import losses
+
+    cpu, cfg = _csmgan_gan(torch, "cpu")
+    shipped = cpu.g_loss_cfg
+    clips = int(cfg["data"]["batch_size"])
+    clean, noisy = _csmgan_pairs(clips)
+    batch = {"clean": torch.from_numpy(clean), "perturbed": torch.from_numpy(noisy)}
+    gan = _gan_to(torch, copy.deepcopy(cpu), dev)
+    cpu.g_loss_cfg = gan.g_loss_cfg = dataclasses.replace(shipped, alpha_mag_log=0.0,
+                                                          alpha_mel_log=0.0)
+    torch.cuda.reset_peak_memory_stats(dev)
+    with lrelu_branches(torch) as card, mel_inputs(torch) as mels:
+        loss_d, logs, first_s, d_fake, g_fake, prelus = _csmgan_microbatch(torch, gan, batch)
+    grads = _cpu_grads(gan)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with lrelu_branches(torch, card["masks"]), mel_inputs(torch, mels["mels"]):
+            _csmgan_microbatch(torch, gan, batch, d_fake, prelus["masks"])
+    finally:
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    grads_tf32 = _cpu_grads(gan)
+    with lrelu_branches(torch, card["masks"]) as branches, mel_inputs(torch, mels["mels"]):
+        loss_d_cpu, logs_cpu, cpu_s, _, g_fake_cpu, prelus_cpu = _csmgan_microbatch(
+            torch, cpu, batch, d_fake.cpu(), prelus["masks"])
+    grads_cpu = _cpu_grads(cpu)
+    del cpu, card, mels
+    rel, _ = _gan_grad_errors(grads, grads_cpu, set())
+    worst = max(rel, key=rel.get)
+    worst_g = max((k for k in rel if k.startswith("G.")), key=rel.get)
+    worst_d = max((k for k in rel if k.startswith("D.")), key=rel.get)
+    loss_errs = {"loss_D": abs(float(loss_d) - float(loss_d_cpu)) / abs(float(loss_d_cpu)),
+                 **{k: abs(v - logs_cpu[k]) / max(abs(logs_cpu[k]), 1e-30)
+                    for k, v in logs.items() if logs_cpu[k] != 0.0}}
+    log_terms = {}
+    for name, fake, cl in (("card", g_fake, batch["clean"].to(dev)),
+                           ("cpu", g_fake_cpu, batch["clean"])):
+        with torch.no_grad():
+            terms = losses.wav_spec_convergence(cl, fake, shipped)
+        log_terms[name] = {k: float(terms[k]) for k in ("mag_log", "mel_log")}
+    log_errs = {k: abs(log_terms["card"][k] - log_terms["cpu"][k]) / abs(log_terms["cpu"][k])
+                for k in ("mag_log", "mel_log")}
+    rel_tf32, _ = _gan_grad_errors(grads_tf32, grads_cpu, set())
+    worst_tf32 = max(rel_tf32, key=rel_tf32.get)
+    del grads, grads_tf32, grads_cpu
+
+    gan.g_loss_cfg = shipped
+    t = cfg["train"]
+    state = build_gan_train_state(gan, t["g_lr"], t["d_lr"], t["weight_decay"])
+    before = {k: p.detach().clone() for k, p in gan.generator.net.named_parameters()}
+    torch.cuda.reset_peak_memory_stats(dev)
+    counts, step_s = _gan_step_launches(torch, gan, state, batch, 0)
+    peak = torch.cuda.max_memory_allocated(dev)
+    moved = sum(int(not torch.equal(before[k], p)) for k, p in gan.generator.net.named_parameters())
+    finite = all(bool(torch.isfinite(p).all()) for p in list(gan.generator.net.parameters())
+                 + list(gan.discriminator.parameters()))
+    del before
+    times = [step_s] + [_gan_step_launches(torch, gan, state, batch, 0)[1] for _ in range(2)]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        wall = _gan_step_launches(torch, gan, state, batch, 0)[1]
+    kernel_s, busy_s, busy = kernel_busy(prof, wall)
+    n_g = len(list(gan.generator.net.parameters()))
+    phase("csmgan_train_step", experiment=CSMGAN_EXPERIMENT, clips=clips,
+          clip_samples=int(clean.shape[-1]), dtype="float32",
+          tf32=bool(torch.backends.cudnn.allow_tf32), criterion="shipped without mag_log, mel_log",
+          loss_D=float(loss_d), loss_D_cpu=float(loss_d_cpu), logs=logs, logs_cpu=logs_cpu,
+          loss_rel_errs=loss_errs, log_terms=log_terms, log_term_rel_errs=log_errs,
+          grad_tol=TRAIN_GRAD_REL_TOL, max_grad_rel_err=rel[worst], worst_grad=worst,
+          median_grad_rel_err=float(np.median(list(rel.values()))), grads_checked=len(rel),
+          worst_grads=dict(sorted(rel.items(), key=lambda kv: -kv[1])[:8]),
+          worst_generator_grad=worst_g, max_generator_grad_rel_err=rel[worst_g],
+          worst_discriminator_grad=worst_d, max_discriminator_grad_rel_err=rel[worst_d],
+          lrelu_flips=branches["flips"], lrelu_elements=branches["elements"],
+          prelu_flips=prelus_cpu["flips"], prelu_elements=prelus_cpu["elements"],
+          control="TF32 on", control_max_grad_rel_err=rel_tf32[worst_tf32],
+          control_worst_grad=worst_tf32,
+          control_median_grad_rel_err=float(np.median(list(rel_tf32.values()))),
+          cpu_seconds=round(cpu_s, 2), phases_first_s=first_s, params_moved_G=moved,
+          params_G=n_g, finite=finite, launches=counts, microbatch_s=float(np.median(times)),
+          microbatch_s_all=times, trained_audio_s_per_s=clips * CSMGAN_CLIP_S / np.median(times),
+          profiled_step={"wall_s": wall, "kernel_s": kernel_s, "kernel_union_s": busy_s,
+                         "busy_share": busy},
+          peak_memory_bytes=peak)
+    failed = []
+    for k, e in loss_errs.items():
+        if not e <= 1e-4:
+            failed.append(f"{k} card vs CPU off by {e} (tol 1e-4)")
+    for k, e in log_errs.items():
+        if not e <= 1e-3:
+            failed.append(f"{k} card vs CPU off by {e} (tol 1e-3)")
+    if not rel[worst] <= TRAIN_GRAD_REL_TOL:
+        failed.append(f"gradient {worst} off by {rel[worst]} of its largest value (tol "
+                      f"{TRAIN_GRAD_REL_TOL})")
+    if not rel_tf32[worst_tf32] > TRAIN_GRAD_REL_TOL:
+        failed.append(f"the TF32 control passes ({rel_tf32[worst_tf32]} <= {TRAIN_GRAD_REL_TOL})")
+    if counts != NO_LAUNCHES:
+        failed.append(f"launches {counts}")
+    # the last TCN block's res_out reaches no output: no gradient, not moved
+    if not finite or moved < n_g - 2:
+        failed.append(f"the optimizer step moved {moved} of {n_g} G parameters, finite {finite}")
+    if failed:
+        raise AssertionError("csmgan_train_step: " + "; ".join(failed))
+    del gan, state
+    torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

@@ -218,5 +218,11 @@ def test_cli_predict_with_ode_and_parallel_samplers(wav_tree, sampler):
 
 
 def test_cli_streaming_is_not_ported(wav_tree):
-    with pytest.raises(SystemExit, match="not ported yet"):
+    """Streaming is ported for the csmgan generator only
+    (tests/test_torch_csmgan.py): the LSGAN generator is refused up front
+    with use_tpu's message, as is a chain."""
+    with pytest.raises(SystemExit, match="streamable generator"):
         _predict(wav_tree, "out", "LSGAN_debug", "predict.streaming=true")
+    with pytest.raises(SystemExit, match="streamable generator"):
+        _predict(wav_tree, "out", "LSGAN_debug", "predict.streaming=true",
+                 "predict.chain=gan+sgmse", "predict.second_experiment=SGMSE_debug")

@@ -3,19 +3,22 @@
 Port of use_tpu/cli/main.py (`_split_args`, `_build_model`,
 `resolve_auto_batch`, `_build_datamodule`, `cmd_train` with
 `_test_after_fit`, `cmd_eval`, `cmd_predict` with its hybrid chains,
-`main`), for task=sgmse and task=lsgan:
+`main`), for task=sgmse and task=lsgan (generator `ncsnpp_wrapper`, the
+LSGAN recipe, or `csmgan`, the CSMGAN recipe):
 
-    python -m use_tpu_torch.cli.main train experiment=SGMSE_Large|LSGAN \
+    python -m use_tpu_torch.cli.main train experiment=SGMSE_Large|LSGAN|CSMGAN \
         data.clean_json_path=clean.jsonl data.noise_json_path=noise.jsonl \
         [out_dir=runs/x] [ckpt_path=runs/x/checkpoints] [device=cpu]
-    python -m use_tpu_torch.cli.main eval experiment=SGMSE_Large|LSGAN \
+    python -m use_tpu_torch.cli.main eval experiment=SGMSE_Large|LSGAN|CSMGAN \
         data.clean_json_path=... data.noise_json_path=... [ckpt_path=...] \
         [eval.rich=false] [eval.max_files=4] [infer.N=50] [out_dir=...] [device=cpu]
     python -m use_tpu_torch.cli.main predict experiment=SGMSE_Large \
         [ckpt_path=weights.pt|run.ckpt|runs/x/checkpoints] [ckpt.use_ema=true] \
         [ckpt.lenient=true] predict.data_folder=in/ predict.target_folder=out/ \
         [infer.N=30] [infer.sampler_type=pc|parallel_pc|ode] [device=cpu]
-    python -m use_tpu_torch.cli.main predict experiment=LSGAN ...
+    python -m use_tpu_torch.cli.main predict experiment=LSGAN|CSMGAN ...
+    python -m use_tpu_torch.cli.main predict experiment=CSMGAN predict.streaming=true \
+        [predict.chunk_frames=4] ...
     python -m use_tpu_torch.cli.main predict experiment=SGMSE_Large \
         predict.chain=sgmse+gan predict.second_experiment=LSGAN [predict.second_ckpt=g.pt] ...
     python -m use_tpu_torch.cli.main predict experiment=LSGAN \
@@ -24,6 +27,11 @@ Port of use_tpu/cli/main.py (`_split_args`, `_build_model`,
 
 Runs on CUDA unless `device=cpu`; on CUDA, TF32 is off for cuDNN and
 cuBLAS, so fp32 convolutions and matmuls run in full fp32.
+
+`predict.streaming=true` (task=lsgan with the csmgan generator, no chain)
+enhances each file chunk by chunk through a CSMGANStream session of
+`predict.chunk_frames` STFT frames a chunk (default 4, at least 2), reused
+from file to file where the batch allows.
 
 `train` trains from `train.seed` (task=sgmse the score network; task=lsgan
 the generator and the discriminator, two optimizers), writes
@@ -50,8 +58,6 @@ backbone is initialized from `train.seed`. Loads are strict unless
 `ckpt.lenient=true`. Sampler settings go under `infer.*` (`window` and
 `tol` for parallel_pc), and are read from the first experiment's config;
 `second.*` overrides go to the second experiment's.
-
-Not ported yet: `predict.streaming` (and `predict.chunk_frames`).
 """
 from __future__ import annotations
 
@@ -71,9 +77,9 @@ from use_tpu_torch.config.config import load_config
 log = logging.getLogger("use_tpu_torch")
 
 _PREDICT_KEYS = {"predict.data_folder", "predict.target_folder", "predict.chain",
-                 "predict.second_experiment", "predict.second_ckpt"}
+                 "predict.second_experiment", "predict.second_ckpt", "predict.streaming",
+                 "predict.chunk_frames"}
 _EVAL_KEYS = {"eval.rich", "eval.max_files"}
-_NOT_PORTED = {"predict.streaming", "predict.chunk_frames"}
 _TRUE = ("1", "true")
 # chain -> (task of the first experiment, task of the second)
 _CHAINS = {"sgmse+gan": ("sgmse", "lsgan"), "gan+sgmse": ("lsgan", "sgmse")}
@@ -89,8 +95,6 @@ def _split_args(argv: List[str]):
         elif a.startswith(("ckpt_path=", "ckpt.lenient=", "ckpt.use_ema=", "out_dir=",
                            "device=", "predict.", "eval.")):
             k, v = a.split("=", 1)
-            if k in _NOT_PORTED:
-                raise SystemExit(f"{k} is not ported yet (ROADMAP queue 1)")
             if k.startswith("eval.") and k not in _EVAL_KEYS:
                 raise SystemExit(f"unknown key {k!r}; eval options are {sorted(_EVAL_KEYS)}")
             if k.startswith("predict.") and k not in _PREDICT_KEYS:
@@ -110,6 +114,7 @@ def _split_args(argv: List[str]):
 
 def _build_model(cfg: Dict, device: str):
     import use_tpu_torch.models  # noqa: F401 (populate the registries)
+    from use_tpu_torch.models.gan.generator import GENERATOR_INTERFACE
     from use_tpu_torch.models.gan.lsgan import LSGAN
     from use_tpu_torch.models.registry import GeneratorRegistry
     from use_tpu_torch.models.sgmse.score_model import ScoreModel
@@ -121,12 +126,12 @@ def _build_model(cfg: Dict, device: str):
         gcfg = dict(cfg["model"]["generator"])
         gen_name = gcfg.pop("name", "ncsnpp_wrapper")
         gen = GeneratorRegistry.get_by_name(gen_name)(**gcfg, device=device, seed=seed)
-        missing = [a for a in ("net", "target_len", "forward_infer") if not hasattr(gen, a)]
+        missing = [a for a in GENERATOR_INTERFACE if not hasattr(gen, a)]
         if missing:
             raise SystemExit(
                 f"model.generator.name={gen_name} resolves {type(gen).__name__}, which "
                 f"lacks the LSGAN generator interface ({', '.join(missing)}); the usable "
-                "generator for the GAN task is ncsnpp_wrapper"
+                "generators for the GAN task are ncsnpp_wrapper and csmgan"
             )
         return LSGAN(generator=gen, discriminator=cfg["model"].get("discriminator"),
                      g_loss_cfg=cfg["model"].get("g_loss"),
@@ -406,7 +411,13 @@ def cmd_predict(experiment: str, overrides: List[str], extras: Dict[str, str]) -
     icfg = cfg.get("infer", {})
     _cuda_fp32(device)
 
+    streaming = extras.get("predict.streaming", "").lower() in _TRUE
+    chunk_frames = int(extras.get("predict.chunk_frames", "4"))
+    if streaming:
+        _check_streaming(cfg, chain, chunk_frames)
     model = _build_model(cfg, str(device))
+    if streaming:
+        _check_stream_frontend(model.generator.feature)
     _load_for_serving(model, cfg, extras.get("ckpt_path"), extras)
     second = None
     if chain:
@@ -451,6 +462,7 @@ def cmd_predict(experiment: str, overrides: List[str], extras: Dict[str, str]) -
 
     t0 = time.perf_counter()
     n_done, audio_s = 0, 0.0
+    session = None  # the CSMGANStream that streaming reuses from file to file
     for batch in predict_batches(dataset):
         wav = torch.as_tensor(batch["perturbed"], device=device)
         if chain == "sgmse+gan":
@@ -460,6 +472,9 @@ def cmd_predict(experiment: str, overrides: List[str], extras: Dict[str, str]) -
             enhanced = run_sgmse(second, {"perturbed": wav, "fake": fake})
         elif cfg["task"] == "sgmse":
             enhanced = run_sgmse(model, {"perturbed": wav})
+        elif streaming:
+            enhanced, session = model.generator.enhance_streaming(
+                wav, chunk_frames=chunk_frames, session=session)
         else:
             enhanced = model.enhance({"perturbed": wav})["fake"]
         enhanced = enhanced.float().cpu().numpy()
@@ -476,6 +491,41 @@ def cmd_predict(experiment: str, overrides: List[str], extras: Dict[str, str]) -
     if cfg["task"] == "sgmse" or chain:
         summary.update(counts)
     return summary
+
+
+def _check_streaming(cfg: Dict, chain: Optional[str], chunk_frames: int) -> None:
+    """predict.streaming's conditions on the config, checked before the
+    model is built (use_tpu/cli/main.py:469-501): task=lsgan with a
+    streamable generator and no chain, chunk_frames >= 2."""
+    import use_tpu_torch.models  # noqa: F401 (populate the registries)
+    from use_tpu_torch.models.registry import GeneratorRegistry
+
+    name = dict(cfg["model"].get("generator") or {}).get("name", "ncsnpp_wrapper")
+    if chain or cfg["task"] != "lsgan" or not hasattr(
+            GeneratorRegistry.get_by_name(name), "enhance_streaming"):
+        raise SystemExit(
+            "predict.streaming=true requires task=lsgan with a "
+            "streamable generator (model.generator.name=csmgan) and no "
+            "predict.chain"
+        )
+    if chunk_frames < 2:
+        raise SystemExit(
+            f"predict.chunk_frames={chunk_frames} invalid: streaming "
+            "needs >= 2 frames per chunk (the first chunk primes the "
+            "centered-STFT reflection)"
+        )
+
+
+def _check_stream_frontend(feat) -> None:
+    """The streaming front-end's framing: win_length == n_fft == 2 * hop."""
+    if feat.cfg.wl != feat.n_fft or feat.n_fft != 2 * feat.hop_length:
+        raise SystemExit(
+            "predict.streaming=true requires the generator front-end to "
+            "satisfy win_length == n_fft == 2*hop (got n_fft="
+            f"{feat.n_fft}, win_length={feat.cfg.wl}, "
+            f"hop={feat.hop_length}); use the csmgan defaults or adjust "
+            "model.generator.* overrides"
+        )
 
 
 def _load_discriminator(model, path: Optional[str]) -> bool:

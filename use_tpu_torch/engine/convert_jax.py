@@ -21,6 +21,19 @@ use_tpu's scope names (``MPD.period2.conv0``):
     2-D conv kernel [kh, kw, I, O]      -> weight [O, I, kh, kw]
     1-D conv kernel [k, I / groups, O]  -> weight [O, I / groups, k]
 
+``csmgan_params_to_state_dict`` maps use_tpu's CSMGAN params onto the
+port's CSMGAN, whose keys are the reference's torch module paths (the
+inverse of convert_torch.py::convert_csmgan_state_dict, :358):
+
+    conv kernel [kh, kw, I, O] / [k, I, O] -> weight [O, I, kh, kw] / [O, I, k]
+    PReLU negative_slope ()               -> weight [1]
+    cumulative-norm and GLFB gains [C]    -> [1, C, 1] (1-D) / [1, C, 1, 1] (2-D)
+    GroupNorm scale / bias (norm='IN')    -> weight / bias
+
+and the decoder's PixelShuffle convs get their output channels permuted:
+use_tpu splits channels scale-major (o = s * C + c), torch scale-minor
+(o = c * 2 + s).
+
 The input is a nested mapping of arrays (numpy, or anything np.asarray
 takes); nothing of JAX is imported.
 """
@@ -92,4 +105,73 @@ def discriminator_params_to_state_dict(params: Mapping[str, Any]) -> Dict[str, t
         else:
             leaf, arr = _convert_leaf(leaf, arr)
         out[".".join(path[:-1] + (leaf,))] = torch.from_numpy(np.ascontiguousarray(arr).copy())
+    return out
+
+
+# use_tpu's GLFB scopes (the path under enc{i}_glfb{d} / dec{i}_glfb{d} up to
+# the leaf) -> the reference's first_block / second_block Sequential indices;
+# the gate holds index 3 of the first and 2 of the second
+_GLFB_KEYS = {
+    (): "",  # the block's own beta / gamma
+    ("CumLN2d_0",): "first_block.0.",
+    ("GroupNorm_0",): "first_block.0.",
+    ("Conv_0",): "first_block.1.",
+    ("CausalConv2d_0", "Conv_0"): "first_block.2.conv.",
+    ("SeChannelModule_0", "CausalConv2d_0", "Conv_0"): "first_block.4.conv.conv.",
+    ("SeFreqModule_0", "CausalConv2d_0", "Conv_0"): "first_block.5.conv.conv.",
+    ("Conv_1",): "first_block.6.",
+    ("CumLN2d_1",): "second_block.0.",
+    ("GroupNorm_1",): "second_block.0.",
+    ("Conv_2",): "second_block.1.",
+    ("Conv_3",): "second_block.3.",
+}
+_DEPTHCONV_KEYS = {"Conv_0": "conv1d", "PReLU_0": "nonlinearity1", "CumLN1d_0": "reg1",
+                   "Conv_1": "dconv1d", "PReLU_1": "nonlinearity2", "CumLN1d_1": "reg2",
+                   "Conv_2": "res_out", "Conv_3": "skip_out"}
+_TCN_KEYS = {"CumLN1d_0": "LN", "Conv_0": "BN", "PReLU_0": "output.0", "Conv_1": "output.1"}
+
+
+def _csmgan_key(path) -> str:
+    """A use_tpu CSMGAN param path (without its leaf) -> the port's module path."""
+    top, rest = path[0], tuple(path[1:])
+    if top in ("in_proj", "out_proj"):
+        return f"{top}.conv."
+    for prefix, side in (("enc", "encoder"), ("dec", "decoder")):
+        if top.startswith(prefix) and "_glfb" in top:
+            i, d = top[len(prefix):].split("_glfb")
+            return f"{side}.{i}.glfb.{d}." + _GLFB_KEYS[rest]
+    if top.startswith("down"):
+        return f"encoder.{top[4:]}.conv."
+    if top.startswith("up"):
+        return f"decoder.{top[2:]}.deconv.conv.conv."
+    if top == "bottleneck":
+        if rest[0].startswith("DepthConv1d_"):
+            return f"bottleneck.TCN.{rest[0].split('_')[1]}.{_DEPTHCONV_KEYS[rest[1]]}."
+        return f"bottleneck.{_TCN_KEYS[rest[0]]}."
+    raise KeyError("/".join(path))
+
+
+def csmgan_params_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """use_tpu CSMGAN params (``CSMGANWrapper.init_params``) -> state_dict of
+    the port's ``CSMGANWrapper.net`` (its decoder upsamples frequency x2)."""
+    out: Dict[str, torch.Tensor] = {}
+    for path, value in _flatten(params):
+        arr = np.asarray(value)
+        leaf, scope = path[-1], path[:-1]
+        if leaf == "kernel":
+            if scope[0].startswith("up"):
+                # use_tpu's channel s * C + c is torch's c * 2 + s
+                o = arr.shape[-1]
+                arr = arr[..., [(t % 2) * (o // 2) + t // 2 for t in range(o)]]
+            arr = np.transpose(arr, (3, 2, 0, 1) if arr.ndim == 4 else (2, 1, 0))
+            leaf = "weight"
+        elif leaf == "negative_slope":
+            arr, leaf = arr.reshape(1), "weight"
+        elif leaf == "scale":
+            leaf = "weight"
+        elif leaf in ("gain", "gamma", "beta") or (leaf == "bias" and scope
+                                                   and scope[-1].startswith("CumLN")):
+            arr = arr.reshape((1, -1, 1) if scope and scope[-1].startswith("CumLN1d")
+                              else (1, -1, 1, 1))
+        out[_csmgan_key(scope) + leaf] = torch.from_numpy(np.ascontiguousarray(arr).copy())
     return out

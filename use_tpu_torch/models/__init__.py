@@ -13,6 +13,7 @@ from use_tpu_torch.models.ncsnpp import ncsnpp as _ncsnpp  # noqa: F401
 from use_tpu_torch.models.sgmse import sdes as _sdes  # noqa: F401
 from use_tpu_torch.models.sgmse import sampling as _sampling  # noqa: F401
 from use_tpu_torch.models.gan import generator as _generator  # noqa: F401
+from use_tpu_torch.models.gan import csmgan as _csmgan  # noqa: F401
 from use_tpu_torch.models.gan import discriminators as _discriminators  # noqa: F401
 
 __all__ = [

@@ -12,15 +12,41 @@ shorter), the net on the unpadded spectrogram, the fake back to a wav.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Dict, Optional, Union
+from typing import Any, Dict, Optional, Protocol, Union
 
 import torch
 
+from use_tpu_torch.models.ncsnpp.ncsnpp import cast_backbone_for_inference
 from use_tpu_torch.models.registry import BackboneRegistry, GeneratorRegistry
 from use_tpu_torch.ops import STFTConfig, istft, pad_spec, spec_back, spec_fwd, stft
 from use_tpu_torch.utils.device import resolve_device
 
 Batch = Dict[str, torch.Tensor]
+
+
+class Generator(Protocol):
+    """What the LSGAN task, the engine and the CLI ask of a generator
+    (NCSNPPWrapper, csmgan.CSMGANWrapper): its trainable network, the clip
+    length its discriminator is built for, its device, a crop start for a
+    training clip, the training pass (``__call__`` with train=True and that
+    start), serving (``forward_infer``) and the serving cast."""
+
+    net: torch.nn.Module
+    target_len: int
+    device: torch.device
+
+    def draw_start(self, length: int, generator: Optional[torch.Generator] = None) -> int: ...
+
+    def forward_infer(self, batch: Batch) -> Batch: ...
+
+    def cast_for_inference(self) -> None: ...
+
+    def __call__(self, batch: Batch, generator: Optional[torch.Generator] = None,
+                 train: bool = False, start: Optional[int] = None) -> Batch: ...
+
+
+# the attributes the CLI checks a registered generator for
+GENERATOR_INTERFACE = ("net", "target_len", "draw_start", "forward_infer", "cast_for_inference")
 
 
 @GeneratorRegistry.register("ncsnpp_wrapper")
@@ -61,6 +87,11 @@ class NCSNPPWrapper:
             spec_back(spec, self.spec_factor, self.spec_abs_exponent), self.stft_cfg,
             length=length,
         )
+
+    def cast_for_inference(self) -> None:
+        """Cast the backbone to its compute dtype, in place, as ScoreModel
+        serves its own (``cast_backbone_for_inference``)."""
+        cast_backbone_for_inference(self.net)
 
     def draw_start(self, length: int, generator: Optional[torch.Generator] = None) -> int:
         """The crop start of a clip of `length` samples, uniform in

@@ -1,10 +1,12 @@
-"""LSGAN task: the generator, the discriminator bank and the criteria.
+"""LSGAN task: a generator, the discriminator bank and the criteria.
 
 Port of use_tpu/models/gan/lsgan.py (reference src/models/LSGAN_module.py):
 ``g_forward`` (the generator's random-crop training pass), ``d_loss`` and
 ``g_loss`` (each through ``_disc_batch``: D on the fake and on the clean
 clip), the interface engine/train.py's gan_train_step and gan_eval_step
-drive, and ``enhance`` for serving. D is built from its DiscriminatorRegistry
+drive, and ``enhance`` for serving. The generator is any of the
+``Generator`` interface (generator.py): NCSNPPWrapper, the default, or
+CSMGANWrapper. D is built from its DiscriminatorRegistry
 name and seeded from ``seed``; the G criterion from the config's g_loss.
 """
 from __future__ import annotations
@@ -15,8 +17,7 @@ from typing import Any, Dict, Optional, Tuple, Union
 import torch
 
 from use_tpu_torch.models.gan import losses
-from use_tpu_torch.models.gan.generator import NCSNPPWrapper
-from use_tpu_torch.models.ncsnpp.ncsnpp import cast_backbone_for_inference
+from use_tpu_torch.models.gan.generator import Generator, NCSNPPWrapper
 from use_tpu_torch.models.registry import DiscriminatorRegistry
 
 Batch = Dict[str, Any]
@@ -31,7 +32,7 @@ class LSGAN:
     g_loss_cfg: a HifiganGLossConfig, or the config's g_loss mapping.
     """
 
-    generator: NCSNPPWrapper = None
+    generator: Generator = None
     discriminator: Union[str, torch.nn.Module, None] = None
     g_loss_cfg: Union[losses.HifiganGLossConfig, Dict[str, Any], None] = None
     enhanced_key: str = "fake"
@@ -59,9 +60,9 @@ class LSGAN:
         return self.generator.device
 
     def cast_params_for_inference(self) -> None:
-        """Cast the generator's backbone to its compute dtype, in place, as
-        ScoreModel serves its own (``cast_backbone_for_inference``)."""
-        cast_backbone_for_inference(self.generator.net)
+        """Cast the generator's weights for serving, in place (the
+        generator's ``cast_for_inference``)."""
+        self.generator.cast_for_inference()
 
     # -- engine interface ----------------------------------------------------
     def g_forward(self, batch: Batch, generator: Optional[torch.Generator] = None,

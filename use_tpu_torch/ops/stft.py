@@ -61,6 +61,38 @@ def _window(cfg: STFTConfig, like: torch.Tensor) -> torch.Tensor:
     )
 
 
+def _padded_window(n_fft: int, win_length: int, window: str) -> np.ndarray:
+    """The window centre-padded to n_fft, as torch.stft pads a shorter one."""
+    w = get_window(window, win_length)
+    lpad = (n_fft - win_length) // 2
+    return np.pad(w, (lpad, n_fft - win_length - lpad))
+
+
+def window_sq(n_fft: int, win_length: int, window: str) -> np.ndarray:
+    """The squared window over n_fft samples, float32: the envelope an
+    overlap-add of synthesized frames is divided by (use_tpu
+    stft.py::_window_sq)."""
+    return (_padded_window(n_fft, win_length, window) ** 2).astype(np.float32)
+
+
+def frames_rfft(frames: torch.Tensor, cfg: STFTConfig) -> torch.Tensor:
+    """Windowed one-sided DFT of frames [..., n_fft] -> [..., F, 2]: one
+    frame of ``stft`` (use_tpu's ``frames @ _dft_matrices()[0]``)."""
+    w = torch.as_tensor(_padded_window(cfg.n_fft, cfg.wl, cfg.window), dtype=torch.float32,
+                        device=frames.device)
+    return torch.view_as_real(torch.fft.rfft(frames.float() * w, n=cfg.n_fft))
+
+
+def frames_irfft(spec: torch.Tensor, cfg: STFTConfig) -> torch.Tensor:
+    """Windowed frame synthesis [..., F, 2] -> [..., n_fft], before the
+    overlap-add (use_tpu's ``spec @ _dft_matrices()[1]``): the imaginary
+    parts of the DC and Nyquist bins do not enter, as in the matrix."""
+    w = torch.as_tensor(_padded_window(cfg.n_fft, cfg.wl, cfg.window), dtype=torch.float32,
+                        device=spec.device)
+    z = torch.view_as_complex(spec.float().contiguous())
+    return torch.fft.irfft(z, n=cfg.n_fft) * w
+
+
 def reflect_pad(x: torch.Tensor, left: int, right: Optional[int] = None) -> torch.Tensor:
     """Reflect-pad the last axis by `left` and `right` (default `left`)
     samples, as numpy's (and jnp.pad's) mode='reflect': a pad longer than
