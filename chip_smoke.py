@@ -9,6 +9,7 @@
                                        # training and eval phases (13-16)
     python3 chip_smoke.py --csmgan     # build, kernels, then only the CSMGAN
                                        # phases (17-21)
+    python3 chip_smoke.py --int8conv   # build, kernels, then only phases 22-25
 
 Phases, one line each (any failure raises and exits non-zero):
   1. environment: torch / CUDA versions, the card's name and power limit;
@@ -27,7 +28,11 @@ Phases, one line each (any failure raises and exits non-zero):
      tiles, also checked at a ragged shape, and a control broken on
      purpose (no edge mask) must fail its tolerance; the branch-free
      reciprocal of its SiLU is checked against IEEE 1/d at every float of
-     [1, 2^126), the range it is used on;
+     [1, 2^126), the range it is used on. The int8conv path's two kernels,
+     K1's apply with its int8 epilogue (GN_INT8_SHAPES) and the s8 conv
+     (qconv3x3_s8, K3's core on an int8 operand, at K3's shapes, each
+     tile, and with a per-sample post-scale), must be bit-equal (atol 0)
+     to their plain versions;
   4. forward: full-width ncsnpplarge with seeded random weights on
      [8, 512, 192, 4] (the predict path's 8 chunk lanes, one t each), the
      card (kernels) against the CPU (plain versions), TF32 off; and its bf16
@@ -133,7 +138,23 @@ Phases, one line each (any failure raises and exits non-zero):
      and D, seconds a step, trained audio-s/s, the loader's wait; then
      `predict ... ckpt_path=<out_dir>/checkpoints predict.streaming=true` on
      one clip and `eval experiment=CSMGAN` of that checkpoint (phase 15's
-     checks). CSMGAN serving and training launch none of K1, K2, K3.
+     checks). CSMGAN serving and training launch none of K1, K2, K3;
+ 22. int8conv_forward: the int8 network of quant='int8' (full-width
+     ncsnpplarge at [8, 512, 192, 4], fp32 and bf16): K1's int8 apply and
+     the s8 conv on the card against their plain versions on the card,
+     within INT8_REL_TOL of max|plain|, a control with the producer's scale
+     u left out of the weights that must exceed it, and each forward's
+     launches exactly PER_FORWARD["int8conv_bfloat16"] (K3 none);
+ 23. ddpm_forward: ncsnpplarge with DDPM blocks and residual pyramids
+     (DDPM_KWARGS), FIR on and off, at DDPM_SHAPE: the card against the
+     CPU within 1e-3 x max|ref|, launches exactly PER_DDPM_FORWARD;
+ 24. predict int8conv_bfloat16: `predict experiment=SGMSE_Large
+     model.backbone_kwargs.quant=int8 model.backbone_kwargs.dtype=bfloat16`
+     as phase 5 runs it (audio-s/s, peak memory, exact launches);
+ 25. npz_predict: `predict ckpt_path=<x>.npz` (use_tpu's flat naming of
+     scripts/export_use_tpu_params.py, written here by ``flax_flat``, since
+     the card's machine has no JAX) against the same weights as a
+     state_dict, SGMSE_Large and LSGAN: the same wavs, bit for bit.
 Each phase prints its seconds. Then a JSON line of the kernels, the card
 line, and the last line {"ok": true, "device": {...}}.
 """
@@ -305,17 +326,51 @@ STREAM_WARMUP, STREAM_CHUNKS = 5, 100  # chunks before the latency count, and co
 STREAM_CPU_CHUNKS = 20  # the first chunks of a stream the CPU streams too
 CSMGAN_TRAIN_CLIPS = 32  # one optimizer step of 4 x 8
 NO_LAUNCHES = {"channel_sums": 0, "gn_apply": 0, "fused_skip_add": 0, "qconv3x3_fused": 0}
+# every kernel wrapper (use_tpu_torch.ops.KERNEL_WRAPPERS); a launch table
+# leaves out the kernels a path launches no time (``launches`` fills them in)
+KERNELS = ("channel_sums", "gn_apply", "fused_skip_add", "qconv3x3_fused", "gn_apply_int8",
+           "qconv3x3_s8")
 
-# kernel launches per ncsnpplarge forward on each predict run
+# kernel launches per ncsnpplarge forward on each predict run; int8conv
+# (quant='int8'): the 86 GroupNorms before a quantized conv take the
+# statistics with the fold (a channel_sums launch) and the int8 apply, the
+# 12 before a resampling block's quantized Conv_0 and the 8 others the
+# plain apply; 98 s8 convs (every residual block's two), K3 none.
+# Counted on the CPU by tests/test_torch_int8conv.py::
+# test_int8conv_launch_constants_of_chip_smoke
 PER_FORWARD = {
     "float32": {"channel_sums": 106, "gn_apply": 106, "fused_skip_add": 34, "qconv3x3_fused": 0},
     "int8_bfloat16": {"channel_sums": 106, "gn_apply": 20, "fused_skip_add": 34,
                       "qconv3x3_fused": 86},
+    "int8conv_bfloat16": {"channel_sums": 106, "gn_apply": 20, "fused_skip_add": 34,
+                          "qconv3x3_fused": 0, "gn_apply_int8": 86, "qconv3x3_s8": 98},
 }
+INT8CONV_PREDICT_ARGS = ("model.backbone_kwargs.quant=int8",
+                         "model.backbone_kwargs.dtype=bfloat16")
+# the int8 apply's shapes on the int8conv forward at 8 lanes: full
+# resolution (128 channels, and 256 after the up path's skip concat), a low
+# level and the lowest (B, C, H, W)
+GN_INT8_SHAPES = [(8, 128, 512, 192), (8, 256, 512, 192), (8, 256, 32, 12), (8, 256, 8, 3)]
+# the DDPM / residual-pyramid ncsnpplarge (resblock_type='ddpm',
+# progressive='residual', progressive_input='residual'): card against CPU at
+# batch 1; its 77 GroupNorms a forward, no shortcut kernel (the DDPM blocks'
+# shortcuts are NINs), counted by tests/test_torch_ncsnpp_variants.py
+DDPM_KWARGS = {"resblock_type": "ddpm", "progressive": "residual",
+               "progressive_input": "residual"}
+DDPM_SHAPE = (1, 512, 192, 4)
+PER_DDPM_FORWARD = {"channel_sums": 77, "gn_apply": 77}
+# predict ckpt_path=<x>.npz against the same weights as a state_dict
+NPZ_EXPERIMENTS = ("SGMSE_Large", "LSGAN")
+NPZ_N, NPZ_CLIPS_S = 2, (3,)
 
 
 def phase(phase_name, **fields):
     print(json.dumps({"phase": phase_name, **fields}), flush=True)
+
+
+def all_kernels(table):
+    """A launch table with every kernel: 0 where it leaves one out."""
+    return {k: table.get(k, 0) for k in KERNELS}
 
 
 def bound(bytes_moved, ops, dtype):
@@ -332,6 +387,8 @@ def main():
                     help="build, kernels, then only the LSGAN training and eval phases")
     ap.add_argument("--csmgan", action="store_true",
                     help="build, kernels, then only the CSMGAN phases")
+    ap.add_argument("--int8conv", action="store_true",
+                    help="build, kernels, then only the int8conv, DDPM and .npz phases (22-25)")
     args = ap.parse_args()
     # the learn phase runs cuBLAS deterministically, which needs this before its first call
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -370,12 +427,15 @@ def main():
         runs.update(gan_phases(torch, dev))
     elif args.csmgan:
         runs.update(csmgan_phases(torch, dev))
+    elif args.int8conv:
+        runs.update(int8conv_phases(torch, dev))
     elif not args.kernels:
         timed("forward", forward_phase, torch, dev)
         timed("int8_forward", int8_forward_phase, torch, dev)
         runs = {"float32": timed("predict float32", predict_phase, torch, dev, "float32", ()),
                 "int8_bfloat16": timed("predict int8_bfloat16", predict_phase, torch, dev,
                                        "int8_bfloat16", INT8_PREDICT_ARGS)}
+        runs.update(int8conv_phases(torch, dev))
         timed("lsgan_forward", lsgan_forward_phase, torch, dev)
         timed("flops", flops_phase, torch, dev)
         sgmse, gan = PER_FORWARD["float32"], PER_GENERATOR_FORWARD
@@ -410,10 +470,12 @@ def main():
         entry = {k: main_case[k] for k in (
             "name", "route", "source", "replaces", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "shape", "dtype", "device_ms") if k in main_case}
-        # the count of the run whose path the kernel is on: K3 int8 serving,
-        # K1 and K2 this slice's LSGAN training (both phases, validation, test)
-        entry["launches"] = runs["int8_bfloat16" if name == "qconv3x3_fused"
-                                 else "train_lsgan"][name]
+        # the count of the run whose path the kernel is on: K3 int8_pallas
+        # serving, the int8 apply and the s8 conv int8 serving, K1 and K2
+        # the LSGAN training (both phases, validation, test)
+        path = {"qconv3x3_fused": "int8_bfloat16", "gn_apply_int8": "int8conv_bfloat16",
+                "qconv3x3_s8": "int8conv_bfloat16"}.get(name, "train_lsgan")
+        entry["launches"] = runs[path][name]
         entry["launches_per_run"] = {label: counts[name] for label, counts in runs.items()}
         if "prep_ms" in main_case:
             entry["prep_ms"] = main_case["prep_ms"]
@@ -655,6 +717,8 @@ def kernel_phases(torch, dev):
             del x, h, out, ref
     torch.cuda.empty_cache()
     results["qconv3x3_fused"] = qconv_phase(torch, dev, gen)
+    results["gn_apply_int8"] = gn_int8_phase(torch, dev, gen)
+    results["qconv3x3_s8"] = s8_phase(torch, dev, gen)
     return results
 
 
@@ -756,6 +820,126 @@ def qconv_phase(torch, dev, gen):
             phase("kernel", **{k: v for k, v in cases[-1].items()
                                if k not in ("route", "source", "replaces")})
             del x, out, out_tiles, out_public, ref, ctrl, act_x
+    torch.cuda.empty_cache()
+    return cases
+
+
+def _int8_operand(torch, gen, dev, b, c, hh, ww, dt):
+    """An int8 activation as the int8conv path makes one (K1's fold, then
+    its apply with the int8 epilogue, SiLU), its k-sigma scales u and the
+    tensors it came from."""
+    from use_tpu_torch.ops import gn_stats as g
+
+    x = (torch.randn((b, c, hh, ww), generator=gen, device=dev) + 0.5).to(dt)
+    weight = 1.0 + 0.1 * torch.randn((c,), generator=gen, device=dev)
+    bias = 0.1 * torch.randn((c,), generator=gen, device=dev)
+    u = (bias.abs() + 6.0 * weight.abs()) / 127.0 + 1e-12
+    a, off = g.gn_fold(x.reshape(b, c, -1), weight, bias, g.num_groups(c), 1e-6)
+    return x, a, off, u
+
+
+def gn_int8_phase(torch, dev, gen):
+    """K1's apply with its int8 epilogue against its plain version (the
+    apply in torch ops, then the quantize) on the same fold, at
+    GN_INT8_SHAPES, fp32 and bf16 serving dtypes: bit-equal (atol 0). No
+    single library call computes it (library_ms null)."""
+    from use_tpu_torch.ops import gn_stats as g
+
+    cases = []
+    for dtype_name in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype_name)
+        for shape in GN_INT8_SHAPES:
+            b, c, hh, ww = shape
+            x, a, off, u = _int8_operand(torch, gen, dev, b, c, hh, ww, dt)
+            x3 = x.reshape(b, c, -1)
+            args = (x3, a, off, u, "swish", dt)
+            q = g.gn_apply_int8(*args)
+            ref = g.gn_apply_int8_plain(*args)
+            torch.cuda.synchronize()
+            err = int((q.int() - ref.int()).abs().max())
+            check("gn_apply_int8", shape, dtype_name, err, 0)
+            nbytes = x.numel() * (x.element_size() + 1) + 2 * b * c * 4 + c * 4
+            bms, by = bound(nbytes, 8 * x.numel(), dtype_name)
+            cases.append(dict(
+                name="gn_apply_int8", route="cuda", source="use_tpu_torch/csrc/gn_stats.cu",
+                replaces="use_tpu/models/ncsnpp/layers.py:257", shape=list(shape),
+                dtype=dtype_name, max_abs_err=float(err), tol=0.0,
+                clipped_share=float((ref.abs() == 127).float().mean()),
+                ms=time_ms(torch, lambda: g.gn_apply_int8(*args), reps=KERNEL_REPS),
+                device_ms=device_ms(torch, lambda: g.gn_apply_int8(*args))[0],
+                plain_ms=time_ms(torch, lambda: g.gn_apply_int8_plain(*args), reps=KERNEL_REPS),
+                library_ms=None, bound_ms=bms, bound_by=by))
+            phase("kernel", **{k: v for k, v in cases[-1].items()
+                               if k not in ("route", "source", "replaces")})
+            del x, x3, q, ref
+    torch.cuda.empty_cache()
+    return cases
+
+
+def s8_phase(torch, dev, gen):
+    """The s8 conv (qconv3x3_s8) against its plain version (the int8
+    values convolved in float64, exact) at the int8 path's shapes
+    (QCONV_SHAPES, and QCONV_RAGGED checked, not timed), fp32 and bf16
+    output, on operands that K1's int8 apply made, with the producer's u
+    folded into the weight: bit-equal (atol 0) in each of the kernel's
+    tiles, and with a per-sample post-scale (the dynamic path's). Its
+    library call is bf16 / fp32 F.conv2d on the unquantized activation, as
+    K3's rows time it; `prep_ms` times the weight preparation."""
+    import torch.nn.functional as F
+
+    from use_tpu_torch.ops import fused_qconv as fq
+    from use_tpu_torch.ops import gn_stats as g
+    from use_tpu_torch.ops import qconv as q
+
+    cases = []
+    for dtype_name in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype_name)
+        for shape in (*QCONV_SHAPES, QCONV_RAGGED):
+            b, c, o, hh, ww = shape
+            x, a, off, u = _int8_operand(torch, gen, dev, b, c, hh, ww, dt)
+            qx = g.gn_apply_int8(x.reshape(b, c, -1), a, off, u, "swish", dt).reshape(x.shape)
+            w = (torch.randn((o, c, 3, 3), generator=gen, device=dev) / math.sqrt(9 * c)).to(dt)
+            bias = 0.05 * torch.randn((o,), generator=gen, device=dev)
+            prepared = q.prepare_s8_weight(w, u)
+            ref = q.s8_conv_plain(qx, prepared.qw, prepared.sw, bias, dt)
+            tile = fq.pick_tile(hh, ww, o)
+            outs = {t: q.qconv3x3_s8(qx, prepared, None, bias, dt, tile=t) for t in fq.TILES}
+            post = 0.5 + torch.rand((b,), generator=gen, device=dev)
+            unfolded = q.prepare_s8_weight(w)
+            out_post = q.qconv3x3_s8(qx, unfolded, post, bias, dt)
+            ref_post = q.s8_conv_plain(qx, unfolded.qw, q._scale(unfolded.sw, post), bias, dt)
+            torch.cuda.synchronize()
+            errs = {t: float((v.float() - ref.float()).abs().max()) for t, v in outs.items()}
+            post_err = float((out_post.float() - ref_post.float()).abs().max())
+            err = max(*errs.values(), post_err)
+            if not (err == 0.0 and torch.isfinite(ref).all()):
+                raise AssertionError(f"qconv3x3_s8 {shape} {dtype_name}: max_abs_err by tile "
+                                     f"{errs}, with a post-scale {post_err}; bit-equal expected")
+            checked = dict(shape=list(shape), dtype=dtype_name, tile=tile, max_abs_err=err,
+                           tol=0.0, tile_max_abs_err=errs, post_scale_max_abs_err=post_err)
+            if shape == QCONV_RAGGED:
+                phase("kernel_check", name="qconv3x3_s8", **checked)
+                continue
+            esz = torch.empty((), dtype=dt).element_size()
+            nbytes = qx.numel() + b * o * hh * ww * esz + prepared.qk.numel() + 2 * o * 4
+            bms, by = bound(nbytes, 2 * 9 * b * hh * ww * c * o, "int8")
+            act_x = F.silu(x.float() * a[:, :, None, None] + off[:, :, None, None]).to(dt)
+            bias_dt = bias.to(dt)
+            run = (qx, prepared, None, bias, dt)
+            cases.append(dict(
+                name="qconv3x3_s8", route="cuda", source="use_tpu_torch/csrc/fused_qconv.cu",
+                replaces="use_tpu/ops/qconv.py:79", **checked,
+                ms=time_ms(torch, lambda: q.qconv3x3_s8(*run)),
+                device_ms=device_ms(torch, lambda: q.qconv3x3_s8(*run))[0],
+                tile_ms={t: time_ms(torch, lambda: q.qconv3x3_s8(*run, tile=t)) for t in fq.TILES},
+                prep_ms=time_ms(torch, lambda: q.prepare_s8_weight(w, u)),
+                plain_ms=time_ms(torch, lambda: q.s8_conv_plain(qx, prepared.qw, prepared.sw,
+                                                                bias, dt), reps=3, warmup=1),
+                library_ms=time_ms(torch, lambda: F.conv2d(act_x, w, bias_dt, padding=1)),
+                bound_ms=bms, bound_by=by))
+            phase("kernel", **{k: v for k, v in cases[-1].items()
+                               if k not in ("route", "source", "replaces")})
+            del x, qx, outs, ref, out_post, ref_post, act_x
     torch.cuda.empty_cache()
     return cases
 
@@ -1013,6 +1197,234 @@ def int8_forward_phase(torch, dev):
     torch.cuda.empty_cache()
 
 
+@contextlib.contextmanager
+def plain_int8conv():
+    """The int8conv path's two kernels (K1's int8 apply and the s8 conv)
+    swapped for their plain versions; K1's statistics and K2 stay kernels."""
+    from use_tpu_torch.models.ncsnpp import layers
+    from use_tpu_torch.ops import gn_stats, qconv
+
+    real = qconv.qconv3x3_s8, layers.gn_apply_int8
+
+    def s8_plain(qx, prepared, post=None, bias=None, out_dtype=None):
+        return qconv.s8_conv_plain(qx, prepared.qw, qconv._scale(prepared.sw, post), bias,
+                                   out_dtype)
+
+    qconv.qconv3x3_s8, layers.gn_apply_int8 = s8_plain, gn_stats.gn_apply_int8_plain
+    try:
+        yield
+    finally:
+        qconv.qconv3x3_s8, layers.gn_apply_int8 = real
+
+
+@contextlib.contextmanager
+def unfolded_weights(net):
+    """A control broken on purpose: every quantized conv's weight quantized
+    without the producer's per-channel scale u folded in (w instead of
+    w * u[c]); the kept weights are dropped before and after."""
+    from use_tpu_torch.models.ncsnpp import layers
+    from use_tpu_torch.ops import qconv
+
+    convs = [m for m in net.modules() if isinstance(m, layers.QConv)]
+    real = qconv.prepare_s8_weight
+    for m in convs:
+        m._prepared = None
+    qconv.prepare_s8_weight = lambda weight, u=None: real(weight)
+    try:
+        yield
+    finally:
+        qconv.prepare_s8_weight = real
+        for m in convs:
+            m._prepared = None
+
+
+def int8conv_forward_phase(torch, dev):
+    """Full-width int8 ncsnpplarge (quant='int8') at the chunked predict
+    shape, fp32 and bf16 compute, for INT8_SEEDS: the card with the int8
+    apply and the s8 conv against the card with their plain versions,
+    within INT8_REL_TOL of max|plain| (the sums are exact integers on both
+    sides), and the control with u left out of the weights, which must
+    exceed it; each forward's launches exactly PER_FORWARD["int8conv_
+    bfloat16"] (K3 none); as readings, two runs with the kernels against
+    each other, the relative L2 distance to the fp32 network without
+    quantization, the forward's time, its kernels' time and count a forward
+    (profiler) and peak memory, and the s8 conv's calls by image size and
+    channels."""
+    from use_tpu_torch import ops
+    from use_tpu_torch.models import BackboneRegistry
+    from use_tpu_torch.models.ncsnpp.ncsnpp import cast_backbone_for_inference
+    from use_tpu_torch.ops import qconv
+
+    want = all_kernels(PER_FORWARD["int8conv_bfloat16"])
+    gen = torch.Generator().manual_seed(0)
+    x = (0.5 * torch.randn(FORWARD_SHAPE, generator=gen)).to(dev)
+    t = torch.linspace(0.1, 0.9, FORWARD_SHAPE[0]).to(dev)
+    fnet = BackboneRegistry.get_by_name(FORWARD_BACKBONE)(input_channels=4).to(dev)
+    for dtype in ("float32", "bfloat16"):
+        # built outside inference mode, as the CLI builds it, so that the
+        # prepared int8 weights are kept from forward to forward
+        qnet = BackboneRegistry.get_by_name(FORWARD_BACKBONE)(
+            input_channels=4, dtype=dtype, quant="int8").to(dev)
+        cast_backbone_for_inference(qnet)
+        with torch.inference_mode():
+            readings, control = [], None
+            for seed in INT8_SEEDS:
+                _randomize(torch, fnet, seed=seed)
+                qnet.load_state_dict(fnet.state_dict())
+                ref32 = fnet(x, t)
+                ops.reset_launch_counts()
+                with count_calls(qconv, "qconv3x3_s8", lambda p: p.qk.shape[2]) as calls:
+                    out = qnet(x, t)
+                torch.cuda.synchronize()
+                counts = ops.launch_counts()
+                if counts != want:
+                    raise AssertionError(f"int8conv forward {dtype}: launches {counts}, "
+                                         f"expected {want}")
+                again = qnet(x, t)
+                with plain_int8conv():
+                    plain = qnet(x, t)
+                torch.cuda.synchronize()
+                if not torch.isfinite(out).all():
+                    raise AssertionError(f"int8conv forward {dtype} seed {seed}: non-finite")
+                top = float(plain.abs().max())
+                readings.append(dict(
+                    seed=seed, max_rel_err=float((out - plain).abs().max()) / top,
+                    repeat_max_rel_err=float((again - out).abs().max()) / top,
+                    rel_l2_vs_fp32=float((out - ref32).norm() / ref32.norm())))
+                if control is None:
+                    with unfolded_weights(qnet):
+                        control = float((qnet(x, t) - plain).abs().max()) / top
+            torch.cuda.reset_peak_memory_stats(dev)
+            ms = time_ms(torch, lambda: qnet(x, t), reps=3, warmup=1)
+            peak = torch.cuda.max_memory_allocated(dev)
+            kernel_ms, kernels, _ = device_ms(torch, lambda: qnet(x, t), reps=2)
+            phase("int8conv_forward", backbone=FORWARD_BACKBONE, shape=list(FORWARD_SHAPE),
+                  dtype=dtype, quant="int8", against="the plain int8 apply and s8 conv on the card",
+                  tol=INT8_REL_TOL, readings=readings, control="u not folded into the weights",
+                  control_max_rel_err=control, ms=ms, device_ms=kernel_ms,
+                  kernels_per_forward=kernels, peak_bytes=peak, launches=counts,
+                  s8_calls=by_level(calls))
+            worst = max(r["max_rel_err"] for r in readings)
+            if not worst <= INT8_REL_TOL:
+                raise AssertionError(f"int8conv forward {dtype}: max_rel_err {worst} > "
+                                     f"tol {INT8_REL_TOL}")
+            if not control > INT8_REL_TOL:
+                raise AssertionError(f"int8conv forward {dtype}: control {control} passes "
+                                     f"tol {INT8_REL_TOL}")
+        del qnet
+    del fnet
+    torch.cuda.empty_cache()
+
+
+def ddpm_forward_phase(torch, dev):
+    """The full-width ncsnpplarge with DDPM blocks and residual pyramids
+    (DDPM_KWARGS), FIR resampling on and off, seeded random weights, fp32
+    at DDPM_SHAPE: the card against the CPU within 1e-3 x max|ref|, its
+    launches a forward exactly PER_DDPM_FORWARD, and its time."""
+    from use_tpu_torch import ops
+    from use_tpu_torch.models import BackboneRegistry
+
+    want = all_kernels(PER_DDPM_FORWARD)
+    x = 0.5 * torch.randn(DDPM_SHAPE, generator=torch.Generator().manual_seed(0))
+    t = torch.full((DDPM_SHAPE[0],), 0.5)
+    for fir in (True, False):
+        net = BackboneRegistry.get_by_name(FORWARD_BACKBONE)(input_channels=4, fir=fir,
+                                                            **DDPM_KWARGS, seed=0)
+        _randomize(torch, net, seed=1)
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            ref = net(x, t)
+            cpu_s = time.perf_counter() - t0
+            gnet = copy.deepcopy(net).to(dev)
+            xd, td = x.to(dev), t.to(dev)
+            ops.reset_launch_counts()
+            out = gnet(xd, td)
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            err = float((out.cpu() - ref).abs().max())
+            top = float(ref.abs().max())
+            tol = 1e-3 * top
+            ms = time_ms(torch, lambda: gnet(xd, td), reps=5, warmup=1)
+        phase("ddpm_forward", backbone=FORWARD_BACKBONE, **DDPM_KWARGS, fir=fir,
+              shape=list(DDPM_SHAPE), dtype="float32", tf32=False, max_abs_err=err, tol=tol,
+              max_abs_ref=top, cpu_seconds=round(cpu_s, 2), ms=ms, launches=counts)
+        if not (torch.isfinite(out).all() and err <= tol):
+            raise AssertionError(f"ddpm forward fir={fir}: card vs CPU max_abs_err {err} > "
+                                 f"tol {tol}")
+        if counts != want:
+            raise AssertionError(f"ddpm forward fir={fir}: launches {counts}, expected {want}")
+        del net, gnet, ref, out
+    torch.cuda.empty_cache()
+
+
+def flax_flat(state_dict):
+    """The port's NCSN++ state_dict in use_tpu's flat naming, as
+    scripts/export_use_tpu_params.py writes it where JAX is installed: the
+    inverse of engine/convert_jax.py::ncsnpp_params_to_state_dict
+    (all_modules.{i} -> m{i}, OIHW -> HWIO, [O, I] -> [I, O], a 1-D weight
+    -> scale, Conv2d_0.weight / .bias -> Conv2d_0_weight / _bias)."""
+    out = {}
+    for key, value in state_dict.items():
+        arr = value.detach().float().cpu().numpy()
+        parts = key.split(".")
+        if parts[0] == "all_modules":
+            parts = [f"m{parts[1]}"] + parts[2:]
+        *scope, leaf = parts
+        if leaf == "weight":
+            if arr.ndim == 4:
+                arr, leaf = arr.transpose(2, 3, 1, 0), "kernel"
+            elif arr.ndim == 2:
+                arr, leaf = arr.T, "kernel"
+            else:
+                leaf = "scale"
+        if scope and scope[-1] == "Conv2d_0":
+            scope, leaf = scope[:-1], "Conv2d_0_" + ("weight" if leaf == "kernel" else leaf)
+        out["/".join(scope + [leaf])] = np.ascontiguousarray(arr)
+    return out
+
+
+def npz_predict_phase(torch, dev):
+    """`predict ckpt_path=<x>.npz` (use_tpu's flat naming, ``flax_flat``)
+    against `predict ckpt_path=<x>.pt` of the same seeded random weights as
+    a state_dict, for each of NPZ_EXPERIMENTS on the card: the same wavs,
+    bit for bit (one set of weights, the same sampler draws)."""
+    from use_tpu_torch.cli.main import _backbone, _build_model, main as cli_main
+    from use_tpu_torch.config.config import load_config
+    from use_tpu_torch.data.audio_io import read_wav
+
+    sr = 24000
+    for experiment in NPZ_EXPERIMENTS:
+        cfg = load_config(experiment, [])
+        net = _backbone(_build_model(cfg, "cpu"))
+        _randomize(torch, net, seed=4)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            src = os.path.join(tmp, "in")
+            lengths = write_clips(src, NPZ_CLIPS_S, sr)
+            pt, npz = os.path.join(tmp, "w.pt"), os.path.join(tmp, "w.npz")
+            torch.save(net.state_dict(), pt)
+            generator = None if cfg["task"] == "sgmse" else dict(cfg["model"]["generator"]).get(
+                "name", "ncsnpp_wrapper")
+            meta = {"experiment": experiment, "task": cfg["task"], "generator": generator,
+                    "ema": False, "discriminator": False}
+            np.savez(npz, __meta__=np.asarray(json.dumps(meta)), **flax_flat(net.state_dict()))
+            outs, seconds = {}, {}
+            for name, ckpt in (("pt", pt), ("npz", npz)):
+                t0 = time.perf_counter()
+                summary = cli_main(["predict", f"experiment={experiment}", f"ckpt_path={ckpt}",
+                                    f"predict.data_folder={src}", f"infer.N={NPZ_N}",
+                                    f"predict.target_folder={os.path.join(tmp, name)}",
+                                    f"device={dev}"])
+                seconds[name] = round(time.perf_counter() - t0, 2)
+                check_outputs(os.path.join(tmp, name), lengths, sr, summary)
+                outs[name] = {rel: read_wav(os.path.join(tmp, name, rel))[0] for rel in lengths}
+        equal = all(np.array_equal(outs["npz"][rel], outs["pt"][rel]) for rel in lengths)
+        phase("npz_predict", experiment=experiment, N=NPZ_N, clips_s=list(NPZ_CLIPS_S),
+              arrays=len(flax_flat(net.state_dict())), equal=equal, seconds=seconds)
+        if not equal:
+            raise AssertionError(f"npz predict {experiment}: the .npz route differs from the "
+                                 "state_dict route")
+
+
 def predict_phase(torch, dev, label, extra_args):
     """The CLI's predict on two synthetic clips with `extra_args`; checks the
     outputs and that each kernel launched exactly PER_FORWARD[label] times a
@@ -1025,6 +1437,7 @@ def predict_phase(torch, dev, label, extra_args):
         src, dst = os.path.join(tmp, "in"), os.path.join(tmp, "out")
         lengths = write_clips(src, PREDICT_CLIPS_S, sr)
         ops.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
         summary = cli_main(["predict", f"experiment={PREDICT_EXPERIMENT}",
                             f"predict.data_folder={src}", f"predict.target_folder={dst}",
@@ -1034,7 +1447,7 @@ def predict_phase(torch, dev, label, extra_args):
         counts = ops.launch_counts()
         check_outputs(dst, lengths, sr, summary)
     forwards = len(lengths) * PREDICT_N
-    want = {k: v * forwards for k, v in PER_FORWARD[label].items()}
+    want = {k: v * forwards for k, v in all_kernels(PER_FORWARD[label]).items()}
     if counts != want:
         raise AssertionError(f"predict {label}: kernel launches {counts}, expected {want} "
                              f"({PER_FORWARD[label]} x {forwards} forwards)")
@@ -1042,7 +1455,8 @@ def predict_phase(torch, dev, label, extra_args):
           clips_s=list(PREDICT_CLIPS_S), tf32=bool(torch.backends.cudnn.allow_tf32),
           files=summary["files"], audio_seconds=summary["audio_seconds"],
           sampling_seconds=summary["seconds"], wall_seconds=wall,
-          audio_s_per_s=summary["audio_seconds"] / summary["seconds"], launches=counts)
+          audio_s_per_s=summary["audio_seconds"] / summary["seconds"],
+          peak_bytes=torch.cuda.max_memory_allocated(dev), launches=counts)
     return counts
 
 
@@ -1108,7 +1522,7 @@ def lsgan_forward_phase(torch, dev):
           cpu_seconds=round(cpu_s, 2), ms=ms, launches=counts, skip_calls=by_level(skip_calls))
     if not (torch.isfinite(out).all() and err <= tol):
         raise AssertionError(f"lsgan forward: card vs CPU max_abs_err {err} > tol {tol}")
-    if counts != PER_GENERATOR_FORWARD:
+    if counts != all_kernels(PER_GENERATOR_FORWARD):
         raise AssertionError(f"lsgan forward: launches {counts}, expected {PER_GENERATOR_FORWARD}")
     del net, gnet, ref, out
     torch.cuda.empty_cache()
@@ -1226,7 +1640,7 @@ def stage_predict_phase(torch, dev, label, experiment, extra_args, clips_s, per_
     if set(stages) != set(per_stage):
         raise AssertionError(f"predict {label}: stages {sorted(stages)}, expected {sorted(per_stage)}")
     for name, st in stages.items():
-        want = {k: v * st["forwards"] for k, v in per_stage[name].items()}
+        want = {k: v * st["forwards"] for k, v in all_kernels(per_stage[name]).items()}
         if st["launches"] != want:
             raise AssertionError(f"predict {label}, stage {name}: launches {st['launches']}, "
                                  f"expected {want} ({st['forwards']} forwards)")
@@ -1577,7 +1991,8 @@ def train_step_phase(torch, dev):
     if not rel_tf32[worst_tf32] > TRAIN_GRAD_REL_TOL:
         raise AssertionError(f"train_step: the TF32 control passes ({rel_tf32[worst_tf32]} <= "
                              f"{TRAIN_GRAD_REL_TOL})")
-    if counts != TRAIN_LAUNCHES["remat"] or counts_no_remat != TRAIN_LAUNCHES["no_remat"]:
+    if (counts != all_kernels(TRAIN_LAUNCHES["remat"])
+            or counts_no_remat != all_kernels(TRAIN_LAUNCHES["no_remat"])):
         raise AssertionError(f"train_step: launches {counts} / {counts_no_remat}, expected "
                              f"{TRAIN_LAUNCHES}")
     if not finite or moved < len(list(net.parameters())) - 1:  # all but the frozen W
@@ -1704,8 +2119,8 @@ def train_phase(torch, dev):
         steps = sorted(os.listdir(os.path.join(out, "checkpoints")))
         micro = summary["microbatches"]
         step_s = rec["step_s"] + ([rec["profiled"]["wall_s"]] if rec["profiled"] else [])
-        want = {k: v * micro + PER_FORWARD["float32"][k] * rec["eval_steps"]
-                for k, v in TRAIN_LAUNCHES["remat"].items()}
+        want = {k: v * micro + all_kernels(PER_FORWARD["float32"])[k] * rec["eval_steps"]
+                for k, v in all_kernels(TRAIN_LAUNCHES["remat"]).items()}
         timed_micro = sum(rec["microbatches"])
         phase("train", experiment=TRAIN_EXPERIMENT, clips=TRAIN_CLIPS, clip_s=TRAIN_CLIP_S,
               corpus_seconds=round(corpus_s, 2), tf32=bool(torch.backends.cudnn.allow_tf32),
@@ -1740,7 +2155,7 @@ def train_phase(torch, dev):
         torch.cuda.synchronize(dev)
         pcounts = ops.launch_counts()
         check_outputs(dst, lengths, sr, summary)
-    pwant = {k: v * TRAIN_PREDICT_N for k, v in PER_FORWARD["float32"].items()}
+    pwant = {k: v * TRAIN_PREDICT_N for k, v in all_kernels(PER_FORWARD["float32"]).items()}
     phase("predict", run="trained checkpoint", experiment=TRAIN_EXPERIMENT,
           N=TRAIN_PREDICT_N, files=summary["files"], audio_seconds=summary["audio_seconds"],
           sampling_seconds=summary["seconds"], launches=pcounts)
@@ -2117,7 +2532,8 @@ def gan_train_step_phase(torch, dev):
         failed.append(f"attention key-bias gradients {key_bias}")
     if not rel_tf32[worst_tf32] > TRAIN_GRAD_REL_TOL:
         failed.append(f"the TF32 control passes ({rel_tf32[worst_tf32]} <= {TRAIN_GRAD_REL_TOL})")
-    if counts != GAN_TRAIN_LAUNCHES["remat"] or counts_no_remat != GAN_TRAIN_LAUNCHES["no_remat"]:
+    if (counts != all_kernels(GAN_TRAIN_LAUNCHES["remat"])
+            or counts_no_remat != all_kernels(GAN_TRAIN_LAUNCHES["no_remat"])):
         failed.append(f"launches {counts} / {counts_no_remat}, expected {GAN_TRAIN_LAUNCHES}")
     if not finite or moved[0] < n_g or moved[1] < n_d:
         failed.append(f"the optimizer steps moved {moved} of {(n_g, n_d)} parameters, "
@@ -2179,7 +2595,7 @@ def eval_phase(torch, dev, experiment, ckpt, per_forward, jl=None, net_cls=None)
         counts = ops.launch_counts()
     harness = summary.get("files", 0) * (EVAL_N if experiment.startswith("SGMSE") else 1)
     want_forwards = rec["eval_steps"] + harness
-    want = {k: v * forwards[0] for k, v in per_forward.items()}
+    want = {k: v * forwards[0] for k, v in all_kernels(per_forward).items()}
     try:
         import pesq  # noqa: F401
         keys = RICH_KEYS | {"pesq_wb"}
@@ -2260,7 +2676,8 @@ def train_gan_phase(torch, dev, experiment, clips, splice_s, crop_s, per_micro, 
         del state
         micro = summary["microbatches"]
         step_s = rec["step_s"]
-        want = {k: v * micro + per_forward[k] * rec["eval_steps"] for k, v in per_micro.items()}
+        want = {k: v * micro + all_kernels(per_forward)[k] * rec["eval_steps"]
+                for k, v in all_kernels(per_micro).items()}
         phase(label, experiment=experiment, clips=clips, clip_s=TRAIN_CLIP_S, splice_s=splice_s,
               corpus_seconds=round(corpus_s, 2), tf32=bool(torch.backends.cudnn.allow_tf32),
               optimizer_steps=summary["optimizer_steps"], microbatches=micro,
@@ -2296,7 +2713,7 @@ def train_gan_phase(torch, dev, experiment, clips, splice_s, crop_s, per_micro, 
         phase("predict", run=f"trained {experiment} checkpoint", experiment=experiment,
               args=list(predict_args), files=psum["files"], audio_seconds=psum["audio_seconds"],
               seconds=psum["seconds"], launches=pcounts)
-        if pcounts != per_forward:
+        if pcounts != all_kernels(per_forward):
             raise AssertionError(f"predict of the trained {experiment}: launches {pcounts}, "
                                  f"expected {per_forward}")
         eval_counts = timed(f"eval {experiment}", eval_phase, torch, dev, experiment, ckpts,
@@ -2347,6 +2764,17 @@ def learn_lsgan_phase(torch, dev):
     if not median > learn_gate.GAN_GATE_DB:
         raise AssertionError(f"learn_lsgan: median gain {median} dB <= "
                              f"{learn_gate.GAN_GATE_DB} dB ({gains})")
+
+
+def int8conv_phases(torch, dev):
+    """Phases 22-25; -> {"int8conv_bfloat16": launches by kernel} of the
+    int8conv predict run."""
+    timed("int8conv_forward", int8conv_forward_phase, torch, dev)
+    timed("ddpm_forward", ddpm_forward_phase, torch, dev)
+    runs = {"int8conv_bfloat16": timed("predict int8conv_bfloat16", predict_phase, torch, dev,
+                                       "int8conv_bfloat16", INT8CONV_PREDICT_ARGS)}
+    timed("npz_predict", npz_predict_phase, torch, dev)
+    return runs
 
 
 def csmgan_phases(torch, dev):
@@ -2458,7 +2886,7 @@ def csmgan_forward_phase(torch, dev):
         if not (torch.isfinite(out).all() and err <= CSMGAN_REL_TOL * top):
             failed.append(f"batch {batch}: card vs CPU max_abs_err {err} > "
                           f"{CSMGAN_REL_TOL} x {top}")
-        if counts != NO_LAUNCHES:
+        if counts != all_kernels(NO_LAUNCHES):
             failed.append(f"batch {batch}: launches {counts}")
     if failed:
         raise AssertionError("csmgan_forward: " + "; ".join(failed))
@@ -2536,7 +2964,7 @@ def csmgan_stream_phase(torch, dev):
                 and err_offline <= STREAM_REL_TOL and err_cpu <= STREAM_REL_TOL):
             failed.append(f"chunk_frames {k}: stream vs offline {err_offline}, vs CPU {err_cpu} "
                           f"(tol {STREAM_REL_TOL})")
-        if counts != NO_LAUNCHES:
+        if counts != all_kernels(NO_LAUNCHES):
             failed.append(f"chunk_frames {k}: launches {counts}")
     if failed:
         raise AssertionError("csmgan_stream: " + "; ".join(failed))
@@ -2575,7 +3003,7 @@ def csmgan_predict_phase(torch, dev):
                   audio_seconds=summary["audio_seconds"], sampling_seconds=summary["seconds"],
                   wall_seconds=wall, audio_s_per_s=summary["audio_seconds"] / summary["seconds"],
                   peak_memory_bytes=torch.cuda.max_memory_allocated(dev), launches=counts)
-            if counts != NO_LAUNCHES:
+            if counts != all_kernels(NO_LAUNCHES):
                 raise AssertionError(f"{label}: launches {counts}")
             runs[label] = counts
     return runs
@@ -2796,7 +3224,7 @@ def csmgan_train_step_phase(torch, dev):
                       f"{TRAIN_GRAD_REL_TOL})")
     if not rel_tf32[worst_tf32] > TRAIN_GRAD_REL_TOL:
         failed.append(f"the TF32 control passes ({rel_tf32[worst_tf32]} <= {TRAIN_GRAD_REL_TOL})")
-    if counts != NO_LAUNCHES:
+    if counts != all_kernels(NO_LAUNCHES):
         failed.append(f"launches {counts}")
     # the last TCN block's res_out reaches no output: no gradient, not moved
     if not finite or moved < n_g - 2:

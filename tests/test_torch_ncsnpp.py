@@ -138,8 +138,10 @@ def test_converter_round_trips_through_use_tpu():
 
 
 def test_config_keys_quant_raises_and_remat_is_accepted():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TNCSNpp(TConfig(**TINY, quant="int8"))
+    with pytest.raises(ValueError, match="none \\| int8 \\| int8_pallas"):
+        TNCSNpp(TConfig(**TINY, quant="int4"))
+    assert any(isinstance(m, tl.QConv)
+               for m in TNCSNpp(TConfig(**TINY, quant="int8", quant_min_channels=16)).modules())
     net = TNCSNpp(TConfig(**TINY, remat=True, remat_policy="conv_outs"))
     assert sum(p.numel() for p in net.parameters()) > 0
     qnet = TNCSNpp(TConfig(**TINY, quant="int8_pallas", quant_min_channels=16))

@@ -13,7 +13,7 @@ LSGAN recipe, or `csmgan`, the CSMGAN recipe):
         data.clean_json_path=... data.noise_json_path=... [ckpt_path=...] \
         [eval.rich=false] [eval.max_files=4] [infer.N=50] [out_dir=...] [device=cpu]
     python -m use_tpu_torch.cli.main predict experiment=SGMSE_Large \
-        [ckpt_path=weights.pt|run.ckpt|runs/x/checkpoints] [ckpt.use_ema=true] \
+        [ckpt_path=weights.pt|run.ckpt|runs/x/checkpoints|params.npz] [ckpt.use_ema=true] \
         [ckpt.lenient=true] predict.data_folder=in/ predict.target_folder=out/ \
         [infer.N=30] [infer.sampler_type=pc|parallel_pc|ode] [device=cpu]
     python -m use_tpu_torch.cli.main predict experiment=LSGAN|CSMGAN ...
@@ -53,9 +53,14 @@ best step, or the latest where no metric was recorded; `ckpt.use_ema=true`
 serves its EMA weights; of an LSGAN run, its generator); a Lightning
 checkpoint (`.ckpt`, or a `.pt`/`.pth` holding a `state_dict`) whose
 backbone keys sit under `Score.score_net.` (sgmse) or `G.net.` (lsgan);
-or a bare backbone state_dict (`.pt`). Without one the
+a bare backbone state_dict (`.pt`); or a `.npz` of use_tpu's weights,
+written where JAX is installed by scripts/export_use_tpu_params.py from a
+use_tpu params directory or training directory (`ckpt.use_ema=true` then
+needs an export of the EMA weights). Without one the
 backbone is initialized from `train.seed`. Loads are strict unless
-`ckpt.lenient=true`. Sampler settings go under `infer.*` (`window` and
+`ckpt.lenient=true`. `train` takes a `.npz` as `ckpt_path=` too: it
+initializes the model (an LSGAN run's D as well, where the export holds
+it) from it instead of resuming. Sampler settings go under `infer.*` (`window` and
 `tol` for parallel_pc), and are read from the first experiment's config;
 `second.*` overrides go to the second experiment's.
 """
@@ -156,14 +161,40 @@ def _manager_state(path: str, task: str) -> Dict:
     return mgr.restore(mgr.latest_step() if step is None else step)
 
 
-def _checkpoint_state(path: str, task: str, use_ema: bool) -> Dict[str, torch.Tensor]:
+def _npz_state(path: str, task: str, use_ema: bool, generator: str) -> Dict[str, torch.Tensor]:
+    """The backbone state_dict of a use_tpu export (.npz): its generator's
+    (or score network's) params, converted for the port's backbone."""
+    from use_tpu_torch.engine import convert_jax
+
+    meta = convert_jax.export_meta(path)
+    for key, want in (("task", task), ("generator", generator if task == "lsgan" else None)):
+        if meta.get(key, want) != want:
+            raise SystemExit(f"ckpt_path={path}: exported for {key} {meta[key]!r}, "
+                             f"the experiment has {want!r}")
+    if use_ema and not meta.get("ema"):
+        raise SystemExit(f"ckpt.use_ema=true but {path} holds no EMA params (export them "
+                         "with ckpt.use_ema=true from a training directory that has them)")
+    params = convert_jax.load_flat_params(path)
+    params.pop("D", None)
+    if generator == "csmgan":
+        return convert_jax.csmgan_params_to_state_dict(params)
+    if task == "lsgan":
+        return convert_jax.lsgan_params_to_state_dict(params)
+    return convert_jax.ncsnpp_params_to_state_dict(params)
+
+
+def _checkpoint_state(path: str, task: str, use_ema: bool,
+                      generator: str = "ncsnpp_wrapper") -> Dict[str, torch.Tensor]:
     """The backbone state_dict that `path` names (use_tpu's
     _load_state_params, cli/main.py:337-410): a checkpoint directory of
     `train` (its best step, else its latest; with use_ema its EMA weights),
-    a Lightning checkpoint (backbone keys under _PREFIX[task], stripped), or
-    a bare backbone state_dict. Of an LSGAN run's directory, the generator's."""
+    a use_tpu export (.npz, ``_npz_state``), a Lightning checkpoint (backbone
+    keys under _PREFIX[task], stripped), or a bare backbone state_dict. Of
+    an LSGAN run's directory, the generator's."""
     from use_tpu_torch.engine.checkpoint import is_manager_dir
 
+    if path.endswith(".npz"):
+        return _npz_state(path, task, use_ema, generator)
     if os.path.isdir(path):
         if not is_manager_dir(path):
             raise SystemExit(f"ckpt_path={path}: a directory without checkpoint steps")
@@ -214,13 +245,17 @@ def _load_backbone(model, cfg: Dict, path: Optional[str], lenient: bool = False,
             raise SystemExit("ckpt.use_ema=true requires ckpt_path=")
         return
     net = _backbone(model)
-    sd = _checkpoint_state(path, cfg["task"], use_ema)
+    sd = _checkpoint_state(path, cfg["task"], use_ema, _generator_name(cfg))
     own = net.state_dict()
     if "all_modules.0.W" in sd and "all_modules.0.W" not in own:
         sd = {k: v for k, v in sd.items() if k != "all_modules.0.W"}
     if lenient:
         sd = merge_lenient_checked(own, sd, path)
     net.load_state_dict(sd, strict=True)
+
+
+def _generator_name(cfg: Dict) -> str:
+    return dict(cfg["model"].get("generator") or {}).get("name", "ncsnpp_wrapper")
 
 
 def resolve_auto_batch(cfg: Dict) -> None:
@@ -338,12 +373,19 @@ def cmd_train(experiment: str, overrides: List[str], extras: Dict[str, str]) -> 
                          os.path.join("runs", experiment, time.strftime("%Y%m%d-%H%M%S")))
     ckpt_dir = os.path.join(out_dir, "checkpoints")
     resume = extras.get("ckpt_path")
+    init = resume if resume and resume.endswith(".npz") else None
+    resume = None if init else resume
     if resume and os.path.abspath(resume) != os.path.abspath(ckpt_dir):
         raise SystemExit(f"ckpt_path={resume}: train resumes from its own out_dir's "
                          f"checkpoints ({ckpt_dir})")
     logger = MetricLogger(csv_path=os.path.join(out_dir, "metrics.csv"),
                           tensorboard_dir=os.path.join(out_dir, "tb"))
     model = _build_model(cfg, str(device))
+    if init:
+        _load_backbone(model, cfg, init, lenient=extras.get("ckpt.lenient", "").lower() in _TRUE,
+                       use_ema=extras.get("ckpt.use_ema", "").lower() in _TRUE)
+        if cfg["task"] == "lsgan":
+            _load_discriminator(model, init)
     dm = _build_datamodule(cfg)
     t = cfg["train"]
     t0 = time.perf_counter()
@@ -500,9 +542,8 @@ def _check_streaming(cfg: Dict, chain: Optional[str], chunk_frames: int) -> None
     import use_tpu_torch.models  # noqa: F401 (populate the registries)
     from use_tpu_torch.models.registry import GeneratorRegistry
 
-    name = dict(cfg["model"].get("generator") or {}).get("name", "ncsnpp_wrapper")
     if chain or cfg["task"] != "lsgan" or not hasattr(
-            GeneratorRegistry.get_by_name(name), "enhance_streaming"):
+            GeneratorRegistry.get_by_name(_generator_name(cfg)), "enhance_streaming"):
         raise SystemExit(
             "predict.streaming=true requires task=lsgan with a "
             "streamable generator (model.generator.name=csmgan) and no "
@@ -530,10 +571,18 @@ def _check_stream_frontend(feat) -> None:
 
 def _load_discriminator(model, path: Optional[str]) -> bool:
     """Load the discriminator of an LSGAN run's checkpoint directory `path`
-    (its best step, else its latest) into model.discriminator; -> False
-    where `path` holds no discriminator."""
+    (its best step, else its latest), or of a use_tpu export (.npz) that
+    holds one, into model.discriminator; -> False where `path` holds no
+    discriminator."""
+    from use_tpu_torch.engine import convert_jax
     from use_tpu_torch.engine.checkpoint import is_manager_dir
 
+    if path and path.endswith(".npz"):
+        d = convert_jax.load_flat_params(path).get("D")
+        if d is None:
+            return False
+        model.discriminator.load_state_dict(convert_jax.discriminator_params_to_state_dict(d))
+        return True
     if not path or not is_manager_dir(path):
         return False
     state = _manager_state(path, "lsgan")

@@ -34,6 +34,16 @@
 // The fold: mean = sum / n, var = max(E[x^2] - E[x]^2, 0),
 // a = rsqrt(var + eps) * weight, off = bias - mean * a, each step rounded
 // as the plain version's (no contraction, round-to-nearest rsqrt).
+//
+// The apply pass has an int8 epilogue, gn_apply_q8: GroupNormAct(quant=
+// 'out') of quant='int8' serving (use_tpu/models/ncsnpp/layers.py:257-272,
+// XLA there), whose only consumer is the int8 conv (ops/qconv.py). From the
+// fold (a, off) of the statistics pass it writes
+//   q = clip(rint(Tmid(act(x * a + off)) / u[c]), -127, 127)   as int8,
+// y rounded to the serving dtype Tmid before the IEEE division by the
+// k-sigma scale u, as use_tpu divides; every step rounded as the plain
+// version's, so that the two are bit-equal. Bound: bytes, x read once and
+// one byte an element written (a third less than the bf16 apply).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -338,6 +348,68 @@ apply_kernel(const Tin* __restrict__ x, Tout* __restrict__ y, const float* __res
   }
 }
 
+// v rounded to T and widened back, exactly.
+template <typename T> __device__ __forceinline__ float round_to(float v);
+template <> __device__ __forceinline__ float round_to<float>(float v) { return v; }
+template <> __device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+
+template <typename Tmid>
+__device__ __forceinline__ int quantize_q8(float x, float a, float off, float u, int act) {
+  const float y = round_to<Tmid>(activate(__fadd_rn(__fmul_rn(x, a), off), act));
+  return (int)fminf(fmaxf(rintf(__fdiv_rn(y, u)), -127.f), 127.f);
+}
+
+// grid (B*C, splits): block (r, j) quantizes x[r, j*chunk : ...] into q with
+// the fold a[r], off[r] and channel r % C's scale u.
+template <typename Tin, typename Tmid>
+__global__ void __launch_bounds__(kThreads)
+apply_q8_kernel(const Tin* __restrict__ x, int8_t* __restrict__ q, const float* __restrict__ a,
+                const float* __restrict__ off, const float* __restrict__ u, int C, long long S,
+                long long chunk, int act, int vec) {
+  const long long row = blockIdx.x;
+  const float ra = a[row], roff = off[row], ru = u[row % C];
+  const long long begin = (long long)blockIdx.y * chunk;
+  const long long end = min(S, begin + chunk);
+  const Tin* xr = x + row * S;
+  int8_t* qr = q + row * S;
+  if (vec) {
+    for (long long i = begin + 4LL * threadIdx.x; i < end; i += 4LL * kThreads) {
+      float v[4];
+      load4(xr + i, v);
+      unsigned packed = 0u;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        packed |= (unsigned)(quantize_q8<Tmid>(v[k], ra, roff, ru, act) & 0xff)
+                  << (8 * k);
+      }
+      *reinterpret_cast<unsigned*>(qr + i) = packed;
+    }
+  } else {
+    for (long long i = begin + threadIdx.x; i < end; i += kThreads) {
+      qr[i] = (int8_t)quantize_q8<Tmid>(to_f(xr[i]), ra, roff, ru, act);
+    }
+  }
+}
+
+template <typename Tin>
+cudaError_t launch_apply_q8(const void* x, int mid_dtype, void* q, const float* a,
+                            const float* off, const float* u, long long rows, int C, long long S,
+                            int splits, long long chunk, int act, int vec, cudaStream_t st) {
+  const dim3 grid((unsigned)rows, (unsigned)splits);
+  if (mid_dtype == 0) {
+    apply_q8_kernel<Tin, float><<<grid, kThreads, 0, st>>>((const Tin*)x, (int8_t*)q, a, off, u,
+                                                           C, S, chunk, act, vec);
+  } else if (mid_dtype == 1) {
+    apply_q8_kernel<Tin, __nv_bfloat16><<<grid, kThreads, 0, st>>>(
+        (const Tin*)x, (int8_t*)q, a, off, u, C, S, chunk, act, vec);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
 template <typename Tin>
 cudaError_t launch_apply(const void* x, void* y, int out_dtype, const float* sums,
                          const float* sumsq, const float* weight, const float* bias,
@@ -402,6 +474,27 @@ extern "C" int gn_apply(const void* x, int in_dtype, void* y, int out_dtype, con
                                             (const float*)sumsq, (const float*)weight,
                                             (const float*)bias, rows, C, groups, S, splits, chunk,
                                             eps, act, vec, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// q[b, c, :] = clip(rint(mid(act(x[b, c, :] * a[b, c] + off[b, c])) / u[c]), -127, 127) as
+// int8, mid the rounding to mid_dtype (0 float32, 1 bfloat16); a, off [B, C]
+// and u [C] fp32. vec: S and chunk multiples of 4, x and q 16-byte aligned.
+extern "C" int gn_apply_q8(const void* x, int in_dtype, int mid_dtype, void* q, const void* a,
+                           const void* off, const void* u, long long rows, int C, long long S,
+                           int splits, long long chunk, int act, int vec, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const float* af = (const float*)a;
+  const float* of = (const float*)off;
+  const float* uf = (const float*)u;
+  if (in_dtype == 0) {
+    return (int)launch_apply_q8<float>(x, mid_dtype, q, af, of, uf, rows, C, S, splits, chunk,
+                                       act, vec, st);
+  }
+  if (in_dtype == 1) {
+    return (int)launch_apply_q8<__nv_bfloat16>(x, mid_dtype, q, af, of, uf, rows, C, S, splits,
+                                               chunk, act, vec, st);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -10,7 +10,10 @@ flax->torch transpositions:
     dense kernel [I, O]         -> weight [O, I]
     norm  scale / bias          -> weight / bias
     NIN/GFP W, b                -> unchanged
-    Conv2d_0_weight / _bias     -> Conv2d_0.weight / .bias (FIR up/down convs)
+    Conv2d_0_weight / _bias     -> Conv2d_0.weight / .bias (the FIR convs of
+                                   Upsample / Downsample, OIHW as the
+                                   reference holds them; their plain convs
+                                   are Conv_0 like any other)
 
 The LSGAN generator's backbone is the same NCSN++ in discriminative mode:
 ``lsgan_params_to_state_dict`` maps use_tpu's generator params onto
@@ -35,14 +38,22 @@ use_tpu splits channels scale-major (o = s * C + c), torch scale-minor
 (o = c * 2 + s).
 
 The input is a nested mapping of arrays (numpy, or anything np.asarray
-takes); nothing of JAX is imported.
+takes); nothing of JAX is imported. ``load_flat_params`` reads such a
+mapping back from the ``.npz`` that scripts/export_use_tpu_params.py writes
+where use_tpu is installed (keys: the Flax path joined with ``/``, the
+discriminator's under ``D/``), and ``export_meta`` what it records of the
+export (``__meta__``, JSON: experiment, task, generator, whether the
+weights are the EMA ones, whether D is there).
 """
 from __future__ import annotations
 
+import json
 from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
+
+META_KEY = "__meta__"
 
 
 def _flatten(tree: Mapping[str, Any], prefix=()):
@@ -51,6 +62,28 @@ def _flatten(tree: Mapping[str, Any], prefix=()):
             yield from _flatten(v, prefix + (str(k),))
         else:
             yield prefix + (str(k),), v
+
+
+def load_flat_params(path: str) -> Dict[str, Any]:
+    """A flat ``.npz`` of Flax params (keys joined with ``/``) -> the nested
+    params, numpy leaves; the discriminator's sit under ``D``."""
+    out: Dict[str, Any] = {}
+    with np.load(path, allow_pickle=False) as flat:
+        for key in flat.files:
+            if key == META_KEY:
+                continue
+            *scopes, leaf = key.split("/")
+            node = out
+            for scope in scopes:
+                node = node.setdefault(scope, {})
+            node[leaf] = flat[key]
+    return out
+
+
+def export_meta(path: str) -> Dict[str, Any]:
+    """What the exporter recorded in a flat ``.npz`` ({} where nothing)."""
+    with np.load(path, allow_pickle=False) as flat:
+        return json.loads(str(flat[META_KEY])) if META_KEY in flat.files else {}
 
 
 def _convert_leaf(leaf: str, arr: np.ndarray):

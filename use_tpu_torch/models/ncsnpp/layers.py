@@ -2,7 +2,8 @@
 
 Port of use_tpu/models/ncsnpp/layers.py (reference: layerspp.py:30-314 and
 layers.py:66-163,639-650): Gaussian-Fourier time embedding, NIN (1x1 dense
-over channels), channelwise self-attention and BigGAN / DDPM residual blocks.
+over channels), channelwise self-attention, FIR / nearest up- and
+downsampling layers and BigGAN / DDPM residual blocks.
 
 Layout: activations are ``[B, C, H(=freq), W(=frames)]``, contiguous, as the
 reference's torch model and cuDNN have them. Parameters are held as the
@@ -14,9 +15,11 @@ weight/bias, NIN and GFP ``W``/``b``. Submodule names match the reference
 Compute dtype: every conv / dense / NIN layer has a compute ``dtype`` and
 casts its input and its parameters to it at use, as Flax's ``dtype=`` does;
 ``ScoreModel.cast_params_for_inference`` pre-casts the weights once. The
-GroupNorm statistics are always fp32 (ops/gn_stats.py). Three layers run the
-hand-written kernels: ``GroupNormAct`` (K1), the ``Conv_2`` shortcut of
-``ResnetBlockBigGANpp`` (K2) and, under int8 serving, ``FusedQConv3x3`` (K3).
+GroupNorm statistics are always fp32 (ops/gn_stats.py). The layers that run
+the hand-written kernels: ``GroupNormAct`` (K1, and under quant='int8' K1's
+apply with its int8 epilogue), the ``Conv_2`` shortcut of
+``ResnetBlockBigGANpp`` (K2), under quant='int8_pallas' ``FusedQConv3x3``
+(K3) and under quant='int8' ``QConv`` (the s8 conv, ops/qconv.py).
 """
 from __future__ import annotations
 
@@ -28,15 +31,17 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from use_tpu_torch.ops import fused_qconv
+from use_tpu_torch.ops import fused_qconv, qconv
 from use_tpu_torch.ops.fused_qconv import true_div
 from use_tpu_torch.ops.fused_skip import fused_skip_add
-from use_tpu_torch.ops.gn_stats import gn_fold, group_norm_act, num_groups
+from use_tpu_torch.ops.gn_stats import gn_apply_int8, gn_fold, group_norm_act, num_groups
 from use_tpu_torch.ops.upfirdn2d import (
+    conv_downsample_2d,
     downsample_2d,
     naive_downsample_2d,
     naive_upsample_2d,
     upsample_2d,
+    upsample_conv_2d,
 )
 
 _SKIP_SCALE = float(1.0 / np.sqrt(2.0))
@@ -98,6 +103,24 @@ def _state(t: torch.Tensor) -> Optional[tuple]:
     return (t.data_ptr(), t._version, t.dtype, t.device)
 
 
+def _kept(conv: nn.Module, u: Optional[torch.Tensor], make: Callable[[], tuple]) -> tuple:
+    """make() (a conv's prepared weights), made without autograd and kept on
+    the conv until its weight, its bias or u change: a new storage, dtype or
+    device, an in-place update (``load_state_dict``, ``copy_``), or another
+    u tensor. The kept tensors pin the storages they were made from, so that
+    a storage address is not reused while it is a key. Parameters made under
+    ``torch.inference_mode`` count no updates, so they are prepared on every
+    call."""
+    params = tuple(t for t in (conv.weight, conv.bias) if t is not None)
+    key = tuple(_state(t) for t in params)
+    kept = conv._prepared
+    if kept is None or None in key or kept[0] != key or kept[1] is not u:
+        with torch.no_grad():
+            kept = (key, u, make(), tuple(t.detach() for t in params))
+        conv._prepared = kept
+    return kept[2]
+
+
 class FusedQConv3x3(Conv2d):
     """3x3 conv with the GroupNorm apply + SiLU + int8 quantize fused into
     its operand read: the port of use_tpu's ``PallasQConv3x3``
@@ -109,33 +132,56 @@ class FusedQConv3x3(Conv2d):
     output is in the compute dtype. Serving only.
 
     The weight is quantized once and kept (with the fp32 bias) until the
-    weight, the bias or u change: a new storage, dtype or device, an
-    in-place update (``load_state_dict``, ``copy_``), or another u tensor.
-    The kept tensors pin the storages they were made from, so that a
-    storage address is not reused while it is a key. Parameters made under
-    ``torch.inference_mode`` count no updates, so they are quantized on
-    every call."""
+    weight, the bias or u change (``_kept``)."""
 
-    _prepared = None  # (key, u, QConvWeights, fp32 bias, pinned parameters)
-
-    def _weights(self, u: torch.Tensor):
-        params = tuple(t for t in (self.weight, self.bias) if t is not None)
-        key = tuple(_state(t) for t in params)
-        kept = self._prepared
-        if kept is None or None in key or kept[0] != key or kept[1] is not u:
-            with torch.no_grad():
-                bias = None if self.bias is None else self.bias.float().contiguous()
-                kept = (key, u, fused_qconv.prepare_qconv_weight(self.weight, u), bias,
-                        tuple(t.detach() for t in params))
-            self._prepared = kept
-        return kept[2], kept[3]
+    _prepared = None  # (key, u, (QConvWeights, fp32 bias), pinned parameters)
 
     def forward(self, x: torch.Tensor, gn_scale: torch.Tensor, gn_shift: torch.Tensor,
                 u: torch.Tensor) -> torch.Tensor:
-        prepared, bias = self._weights(u)
+        prepared, bias = _kept(self, u, lambda: (
+            fused_qconv.prepare_qconv_weight(self.weight, u),
+            None if self.bias is None else self.bias.float().contiguous()))
         return fused_qconv.qconv3x3_fused(x.contiguous(), self.weight, u, gn_scale, gn_shift,
                                           act=True, bias=bias, out_dtype=self.dtype,
                                           prepared=prepared)
+
+
+class QConv(Conv2d):
+    """use_tpu's ``QConv`` (ops/qconv.py:129-196): ``Conv2d``'s parameters
+    (OIHW weight, bias), so fp32, bf16 and int8 serving share state dicts,
+    run as an int8 conv on the s8 kernel (ops/qconv.py) in the compute dtype.
+
+    ``forward(qx, prequant_scale)`` takes an operand its producer quantized
+    (``GroupNormAct(quant='out')``, or ``quantize_with_scale`` after a
+    resampling): a per-input-channel scale [C] folds into the weight, a
+    scalar or per-sample one [B, 1, 1, 1] dequantizes after the conv.
+    ``forward(x)`` quantizes x per sample where min(C, O) reaches
+    ``min_channels`` (scaled by 9 / (kh kw) for other kernels), else runs
+    the exact conv. The weight is quantized once and kept until the weight,
+    the bias or the scale tensor change (``_kept``). Serving only."""
+
+    _prepared = None  # (key, u, S8Weights, pinned parameters)
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int = 3, bias: bool = True,
+                 init_scale: float = 1.0, dtype: torch.dtype = torch.float32,
+                 min_channels: int = 192):
+        super().__init__(in_ch, out_ch, kernel, bias, init_scale, dtype)
+        self.min_channels = min_channels
+
+    def forward(self, x: torch.Tensor,
+                prequant_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if prequant_scale is None:
+            o, c, kh, kw = self.weight.shape
+            if min(c, o) < self.min_channels * 9 // max(kh * kw, 1):
+                return super().forward(x)
+            x, post = qconv.quantize_per_sample(x)
+            u = None
+        elif prequant_scale.dim() == 1:
+            u, post = prequant_scale, None
+        else:
+            u, post = None, prequant_scale.reshape(-1)
+        prepared = _kept(self, u, lambda: qconv.prepare_s8_weight(self.weight, u))
+        return qconv.s8_conv(x, prepared, post, self.bias, self.dtype, padding=self.padding)
 
 
 class Linear(nn.Module):
@@ -167,20 +213,26 @@ class GroupNormAct(nn.Module):
     per-(batch, channel) a/off, written in ``out_dtype``. Both passes are
     kernel K1 on the card (ops/gn_stats.py).
 
-    ``quant='fold'`` (int8 serving, layers.py:237-249) runs the statistics
-    pass only, with the fold inside it (``gn_fold``), and returns
-    ``(a [B, C], off [B, C], u [C])``, all fp32, for ``FusedQConv3x3`` to
-    apply in its operand read; u is the analytic
-    k-sigma activation scale (|bias| + quant_k |weight|) / 127 + 1e-12.
-    The non-Pallas modes 'out' / 'scale' are not ported.
+    int8 serving (layers.py:237-272), with u the analytic k-sigma activation
+    scale (|bias| + quant_k |weight|) / 127 + 1e-12 [C] fp32:
+
+    - ``quant='fold'`` (quant='int8_pallas') runs the statistics pass only,
+      with the fold inside it (``gn_fold``), and returns ``(a [B, C],
+      off [B, C], u)``, all fp32, for ``FusedQConv3x3`` to apply in its
+      operand read;
+    - ``quant='out'`` (quant='int8') runs the same statistics pass, then the
+      apply with its int8 epilogue (``gn_apply_int8``): ``(q, u)``, q the
+      int8 activation clip(round(y / u), -127, 127) of y in out_dtype;
+    - ``quant='scale'`` (quant='int8' before a resampling) returns
+      ``(y, u)``, y as ``quant='none'`` computes it.
     """
 
     def __init__(self, channels: int, act: Optional[str] = None,
                  out_dtype: torch.dtype = torch.float32, eps: float = 1e-6,
                  quant: str = "none", quant_k: float = 6.0):
         super().__init__()
-        if quant not in ("none", "fold"):
-            raise NotImplementedError(f"GroupNormAct quant={quant!r} (ported: 'none', 'fold')")
+        if quant not in ("none", "fold", "out", "scale"):
+            raise ValueError(f"GroupNormAct quant={quant!r} (none | fold | out | scale)")
         self.channels = channels
         self.groups = num_groups(channels)
         self.act = act
@@ -198,18 +250,23 @@ class GroupNormAct(nn.Module):
     def forward(self, x: torch.Tensor):
         if x.shape[1] != self.channels:
             raise ValueError(f"GroupNormAct({self.channels}) got input {tuple(x.shape)}")
-        if self.quant == "none":
-            return group_norm_act(x, self.weight, self.bias, self.groups, self.act,
-                                  self.out_dtype, self.eps)
+        if self.quant in ("none", "scale"):
+            y = group_norm_act(x, self.weight, self.bias, self.groups, self.act,
+                               self.out_dtype, self.eps)
+            return y if self.quant == "none" else (y, self._act_scale())
         b, c = x.shape[:2]
-        a, off = gn_fold(x.reshape(b, c, -1), self.weight, self.bias, self.groups, self.eps)
-        return a, off, self._act_scale()
+        x3 = x.reshape(b, c, -1)
+        a, off = gn_fold(x3, self.weight, self.bias, self.groups, self.eps)
+        u = self._act_scale()
+        if self.quant == "fold":
+            return a, off, u
+        return gn_apply_int8(x3, a, off, u, self.act, self.out_dtype).reshape(x.shape), u
 
     _u = None  # (key, pinned affine, u)
 
     def _act_scale(self) -> torch.Tensor:
         """u, kept as one tensor until the affine changes (``FusedQConv3x3``
-        keys its prepared weights on u)."""
+        and ``QConv`` key their prepared weights on u)."""
         key = (_state(self.weight), _state(self.bias))
         if self._u is None or None in key or self._u[0] != key:
             with torch.no_grad():
@@ -307,22 +364,104 @@ class AttnBlockpp(nn.Module):
         return (x + out) * _SKIP_SCALE
 
 
+class Upsample(nn.Module):
+    """FIR or nearest 2x upsampling, optionally fused with a conv
+    (layerspp.py:96-133; use_tpu layers.py:364-389). Without FIR: nearest
+    (each pixel repeated 2 x 2, as ``jax.image.resize(..., 'nearest')`` does
+    at exactly twice the size), then ``Conv_0``; with FIR and a conv:
+    ``upsample_conv_2d`` on ``Conv2d_0``'s weight, plus its bias. The convs
+    compute in fp32, as use_tpu's (param-dtype) convs there do; without a
+    conv the layer keeps the input's dtype."""
+
+    def __init__(self, in_ch: int, out_ch: Optional[int] = None, with_conv: bool = False,
+                 fir: bool = False, fir_kernel: Tuple[float, ...] = (1.0, 3.0, 3.0, 1.0)):
+        super().__init__()
+        out_ch = out_ch if out_ch is not None else in_ch
+        self.with_conv, self.fir, self.fir_kernel = with_conv, fir, tuple(fir_kernel)
+        if with_conv:
+            setattr(self, "Conv2d_0" if fir else "Conv_0", Conv2d(in_ch, out_ch))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.fir:
+            h = naive_upsample_2d(x, 2)
+            return self.Conv_0(h) if self.with_conv else h
+        if not self.with_conv:
+            return upsample_2d(x, self.fir_kernel, factor=2)
+        conv = self.Conv2d_0
+        y = upsample_conv_2d(x.float(), conv.weight.float(), k=self.fir_kernel)
+        return y + conv.bias.float()[None, :, None, None]
+
+
+class Downsample(nn.Module):
+    """FIR or average-pool 2x downsampling, optionally fused with a conv
+    (layerspp.py:136-175; use_tpu layers.py:392-420). Without FIR: with a
+    conv, a (0, 1) pad and ``Conv_0`` at stride 2 without padding, else a
+    2 x 2 average pool; with FIR and a conv: ``conv_downsample_2d`` on
+    ``Conv2d_0``'s weight, plus its bias. Dtypes as ``Upsample``."""
+
+    def __init__(self, in_ch: int, out_ch: Optional[int] = None, with_conv: bool = False,
+                 fir: bool = False, fir_kernel: Tuple[float, ...] = (1.0, 3.0, 3.0, 1.0)):
+        super().__init__()
+        out_ch = out_ch if out_ch is not None else in_ch
+        self.with_conv, self.fir, self.fir_kernel = with_conv, fir, tuple(fir_kernel)
+        if with_conv:
+            setattr(self, "Conv2d_0" if fir else "Conv_0", Conv2d(in_ch, out_ch))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.fir:
+            if not self.with_conv:
+                return F.avg_pool2d(x, 2)
+            conv = self.Conv_0
+            return F.conv2d(F.pad(x.float(), (0, 1, 0, 1)), conv.weight.float(),
+                            conv.bias.float(), stride=2)
+        if not self.with_conv:
+            return downsample_2d(x, self.fir_kernel, factor=2)
+        conv = self.Conv2d_0
+        y = conv_downsample_2d(x.float(), conv.weight.float(), k=self.fir_kernel)
+        return y + conv.bias.float()[None, :, None, None]
+
+
+def _quant_gates(quant: str, in_ch: int, out_ch: int, min_channels: int) -> Tuple[bool, bool]:
+    """use_tpu's q0 / q1 (layers.py:440-446, 512-515): under quant='int8' a
+    block's Conv_0 quantizes where min(in, out) >= min_channels, its Conv_1
+    where out >= min_channels."""
+    q = quant == "int8"
+    return q and min(in_ch, out_ch) >= min_channels, q and out_ch >= min_channels
+
+
+def _check_quant(quant: str) -> None:
+    if quant not in ("none", "int8", "int8_pallas"):
+        raise ValueError(f"quant={quant!r} (none | int8 | int8_pallas)")
+
+
 class ResnetBlockDDPMpp(nn.Module):
-    """DDPM residual block (layerspp.py:178-234)."""
+    """DDPM residual block (layerspp.py:178-234).
+
+    ``quant='int8'`` (serving) gates its 3x3 convs as use_tpu does
+    (layers.py:440-469): a gated conv is a ``QConv`` fed by
+    ``GroupNormAct(quant='out')``, and dropout drops out of the ``Conv_1``
+    path. ``quant='int8_pallas'`` leaves the block unquantized, as in
+    use_tpu."""
 
     def __init__(self, act: str, in_ch: int, out_ch: Optional[int] = None,
                  conv_shortcut: bool = False, dropout: float = 0.1, skip_rescale: bool = False,
                  init_scale: float = 0.0, temb_dim: Optional[int] = None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, quant: str = "none",
+                 quant_min_channels: int = 128, quant_k: float = 6.0):
         super().__init__()
+        _check_quant(quant)
         out_ch = out_ch if out_ch is not None else in_ch
         self.act_name = act
         self.act = get_act(act)
-        self.GroupNorm_0 = GroupNormAct(in_ch, act=act, out_dtype=dtype)
-        self.Conv_0 = Conv2d(in_ch, out_ch, dtype=dtype)
+        self.q0, self.q1 = _quant_gates(quant, in_ch, out_ch, quant_min_channels)
+        self.GroupNorm_0 = GroupNormAct(in_ch, act=act, out_dtype=dtype,
+                                        quant="out" if self.q0 else "none", quant_k=quant_k)
+        self.Conv_0 = (QConv if self.q0 else Conv2d)(in_ch, out_ch, dtype=dtype)
         self.Dense_0 = Linear(temb_dim, out_ch, dtype=dtype) if temb_dim is not None else None
-        self.GroupNorm_1 = GroupNormAct(out_ch, act=act, out_dtype=dtype)
-        self.Conv_1 = Conv2d(out_ch, out_ch, init_scale=init_scale, dtype=dtype)
+        self.GroupNorm_1 = GroupNormAct(out_ch, act=act, out_dtype=dtype,
+                                        quant="out" if self.q1 else "none", quant_k=quant_k)
+        self.Conv_1 = (QConv if self.q1 else Conv2d)(out_ch, out_ch, init_scale=init_scale,
+                                                     dtype=dtype)
         self.Conv_2 = self.NIN_0 = None
         if in_ch != out_ch:
             if conv_shortcut:
@@ -333,16 +472,24 @@ class ResnetBlockDDPMpp(nn.Module):
         self.skip_rescale = skip_rescale
 
     def forward(self, x: torch.Tensor, temb: Optional[torch.Tensor] = None) -> torch.Tensor:
-        h = self.Conv_0(self.GroupNorm_0(x))
+        if self.q0:
+            h = self.Conv_0(*self.GroupNorm_0(x))
+        else:
+            h = self.Conv_0(self.GroupNorm_0(x))
         if temb is not None and self.Dense_0 is not None:
             h = h + self.Dense_0(self.act(temb))[:, :, None, None]
-        h = self.GroupNorm_1(h)
-        h = F.dropout(h, self.dropout, training=self.training)
-        h = self.Conv_1(h)
+        if self.q1:
+            h = self.Conv_1(*self.GroupNorm_1(h))
+        else:
+            h = self.GroupNorm_1(h)
+            h = F.dropout(h, self.dropout, training=self.training)
+            h = self.Conv_1(h)
         if self.Conv_2 is not None:
             x = self.Conv_2(x)
         elif self.NIN_0 is not None:
-            x = self.NIN_0(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+            # contiguous NCHW again: a channels-last sum would reach the next
+            # GroupNorm's kernels, which take NCHW only
+            x = self.NIN_0(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2).contiguous()
         x = x.to(h.dtype)
         if not self.skip_rescale:
             return x + h
@@ -357,12 +504,19 @@ class ResnetBlockBigGANpp(nn.Module):
     (ops/fused_skip.py), on Conv_2's weight and bias in the compute dtype
     (cast once for serving by ``cast_backbone_for_inference``).
 
-    ``quant='int8_pallas'`` (int8 serving) gates each 3x3 conv as use_tpu
-    does (layers.py:516-526): ``Conv_0`` when the block does not resample,
-    its activation is SiLU and min(in, out) >= quant_min_channels; ``Conv_1``
-    when SiLU and out >= quant_min_channels. A gated conv is a
-    ``FusedQConv3x3`` (kernel K3) fed by ``GroupNormAct(quant='fold')``, and
-    dropout drops out of the ``Conv_1`` path (serving only)."""
+    int8 serving gates each 3x3 conv as use_tpu does (layers.py:506-526),
+    and dropout drops out of a gated ``Conv_1`` path (serving only):
+
+    - ``quant='int8_pallas'``: ``Conv_0`` when the block does not resample,
+      its activation is SiLU and min(in, out) >= quant_min_channels;
+      ``Conv_1`` when SiLU and out >= quant_min_channels. A gated conv is a
+      ``FusedQConv3x3`` (kernel K3) fed by ``GroupNormAct(quant='fold')``.
+    - ``quant='int8'``: ``Conv_0`` when min(in, out) >= quant_min_channels,
+      resampling blocks included; ``Conv_1`` when out >= quant_min_channels.
+      A gated conv is a ``QConv`` (the s8 kernel) fed by
+      ``GroupNormAct(quant='out')``; in a resampling block GroupNorm_0
+      returns (y, u) (``quant='scale'``), y is resampled and then quantized
+      with u (``quantize_with_scale``, layers.py:546-552)."""
 
     def __init__(self, act: str, in_ch: int, out_ch: Optional[int] = None, up: bool = False,
                  down: bool = False, dropout: float = 0.1, fir: bool = False,
@@ -371,9 +525,7 @@ class ResnetBlockBigGANpp(nn.Module):
                  dtype: torch.dtype = torch.float32, quant: str = "none",
                  quant_min_channels: int = 128, quant_k: float = 6.0):
         super().__init__()
-        if quant not in ("none", "int8_pallas"):
-            raise NotImplementedError(f"quant={quant!r} is not ported yet (ROADMAP queue 1); "
-                                      "ported: 'none' and 'int8_pallas'")
+        _check_quant(quant)
         out_ch = out_ch if out_ch is not None else in_ch
         self.act = get_act(act)
         self.up, self.down, self.fir = up, down, fir
@@ -381,14 +533,19 @@ class ResnetBlockBigGANpp(nn.Module):
         q = quant == "int8_pallas" and act == "swish"
         self.qp0 = q and not (up or down) and min(in_ch, out_ch) >= quant_min_channels
         self.qp1 = q and out_ch >= quant_min_channels
-        self.GroupNorm_0 = GroupNormAct(in_ch, act=act, out_dtype=dtype,
-                                        quant="fold" if self.qp0 else "none", quant_k=quant_k)
-        self.Conv_0 = (FusedQConv3x3 if self.qp0 else Conv2d)(in_ch, out_ch, dtype=dtype)
+        self.q0, self.q1 = _quant_gates(quant, in_ch, out_ch, quant_min_channels)
+        mode0 = ("fold" if self.qp0 else ("scale" if up or down else "out") if self.q0
+                 else "none")
+        self.GroupNorm_0 = GroupNormAct(in_ch, act=act, out_dtype=dtype, quant=mode0,
+                                        quant_k=quant_k)
+        self.Conv_0 = (FusedQConv3x3 if self.qp0 else QConv if self.q0 else Conv2d)(
+            in_ch, out_ch, dtype=dtype)
         self.Dense_0 = Linear(temb_dim, out_ch, dtype=dtype) if temb_dim is not None else None
-        self.GroupNorm_1 = GroupNormAct(out_ch, act=act, out_dtype=dtype,
-                                        quant="fold" if self.qp1 else "none", quant_k=quant_k)
-        self.Conv_1 = (FusedQConv3x3 if self.qp1 else Conv2d)(out_ch, out_ch,
-                                                              init_scale=init_scale, dtype=dtype)
+        self.GroupNorm_1 = GroupNormAct(
+            out_ch, act=act, out_dtype=dtype,
+            quant="fold" if self.qp1 else "out" if self.q1 else "none", quant_k=quant_k)
+        self.Conv_1 = (FusedQConv3x3 if self.qp1 else QConv if self.q1 else Conv2d)(
+            out_ch, out_ch, init_scale=init_scale, dtype=dtype)
         self.Conv_2 = (
             Conv2d(in_ch, out_ch, kernel=1, dtype=dtype) if (in_ch != out_ch or up or down) else None
         )
@@ -406,6 +563,14 @@ class ResnetBlockBigGANpp(nn.Module):
     def forward(self, x: torch.Tensor, temb: Optional[torch.Tensor] = None) -> torch.Tensor:
         if self.qp0:  # no resampling on this path
             h = self.Conv_0(x, *self.GroupNorm_0(x))
+        elif self.q0 and (self.up or self.down):
+            y, u = self.GroupNorm_0(x)
+            # the normalized FIR kernel has unit DC gain per polyphase leg,
+            # so the k-sigma bound of y still holds after the resampling
+            h = self.Conv_0(qconv.quantize_with_scale(self._resample(y), u), u)
+            x = self._resample(x)
+        elif self.q0:
+            h = self.Conv_0(*self.GroupNorm_0(x))
         else:
             h = self.Conv_0(self._resample(self.GroupNorm_0(x)))
             x = self._resample(x)
@@ -413,6 +578,8 @@ class ResnetBlockBigGANpp(nn.Module):
             h = h + self.Dense_0(self.act(temb))[:, :, None, None]
         if self.qp1:
             h = self.Conv_1(h, *self.GroupNorm_1(h))
+        elif self.q1:
+            h = self.Conv_1(*self.GroupNorm_1(h))
         else:
             h = self.GroupNorm_1(h)
             h = F.dropout(h, self.dropout, training=self.training)

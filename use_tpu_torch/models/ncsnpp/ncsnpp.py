@@ -1,10 +1,11 @@
 """NCSN++ score U-Net as a torch module, with the reference's exact topology.
 
 Port of use_tpu/models/ncsnpp/ncsnpp.py (reference src/models/components/
-sgmse/backbones/ncsnpp.py:38-559): progressive input_skip/output_skip
-pyramids, BigGAN residual blocks with FIR resampling, a bottleneck attention
-block, Gaussian-Fourier log-t embedding, optional 1/sigma output scaling and
-the `discriminative` mode.
+sgmse/backbones/ncsnpp.py:38-559): progressive input_skip / output_skip /
+residual pyramids, BigGAN or DDPM residual blocks (the DDPM ones with
+Upsample / Downsample layers), FIR or plain resampling, a bottleneck
+attention block, Gaussian-Fourier log-t embedding, optional 1/sigma output
+scaling and the `discriminative` mode.
 
 Layout at the boundary is use_tpu's: input ``[B, F, T, C_total]`` real
 channels (per complex input: re, im) and output ``[B, F, T, D, 2]``. Inside,
@@ -61,9 +62,10 @@ class NCSNppConfig:
     discriminative: bool = False
     dtype: str = "float32"  # compute dtype of convs/matmuls ('bfloat16' for
     # serving); parameters and GroupNorm statistics stay float32
-    quant: str = "none"  # 'int8_pallas': int8 serving, the BigGAN blocks' 3x3
+    quant: str = "none"  # int8 serving. 'int8_pallas': the BigGAN blocks' 3x3
     # convs run kernel K3 with the GroupNorm apply + SiLU + quantize fused in
-    # (ops/fused_qconv.py); 'int8' (no Pallas kernel in use_tpu) is not ported
+    # (ops/fused_qconv.py); 'int8': the residual blocks' 3x3 convs run the s8
+    # conv kernel on an operand that K1's apply quantized (ops/qconv.py)
     quant_min_channels: int = 128  # gate: only convs this wide quantize
     quant_k: float = 6.0  # k-sigma analytic activation range (GroupNormAct)
     remat: bool = False  # recompute each residual block in the backward pass
@@ -94,16 +96,15 @@ class NCSNpp(nn.Module):
         cfg = cfg.resolve()
         if cfg.embedding_type != "fourier":
             raise NotImplementedError("only fourier embedding supported")
-        if cfg.resblock_type != "biggan":
-            raise NotImplementedError(
-                "resblock_type='ddpm' needs the Upsample/Downsample layers, not ported yet (ROADMAP)"
-            )
-        if cfg.progressive not in ("none", "output_skip") or cfg.progressive_input not in (
-            "none", "input_skip"
-        ):
-            raise NotImplementedError(
-                "progressive='residual' / progressive_input='residual' not ported yet (ROADMAP)"
-            )
+        if cfg.resblock_type not in ("biggan", "ddpm"):
+            raise ValueError(f"resblock_type {cfg.resblock_type!r} (biggan | ddpm)")
+        if cfg.progressive not in ("none", "output_skip", "residual"):
+            raise ValueError(f"progressive {cfg.progressive!r} (none | output_skip | residual)")
+        if cfg.progressive_input not in ("none", "input_skip", "residual"):
+            raise ValueError(f"progressive_input {cfg.progressive_input!r} "
+                             "(none | input_skip | residual)")
+        if cfg.quant not in ("none", "int8", "int8_pallas"):
+            raise ValueError(f"quant {cfg.quant!r} (none | int8 | int8_pallas)")
         if cfg.dtype not in ("float32", "bfloat16"):
             raise ValueError(f"dtype {cfg.dtype!r} (float32 | bfloat16)")
         if cfg.remat_policy not in ("full", "conv_outs"):
@@ -118,14 +119,22 @@ class NCSNpp(nn.Module):
         self.all_resolutions = [cfg.image_size // (2 ** i) for i in range(num_resolutions)]
         total_channels = cfg.input_channels * cfg.spatial_channels
 
+        ddpm = cfg.resblock_type == "ddpm"
+
         def resblock(in_ch, out_ch=None, up=False, down=False):
-            return layers.ResnetBlockBigGANpp(
-                act=act, in_ch=in_ch, out_ch=out_ch, up=up, down=down, dropout=cfg.dropout,
-                fir=cfg.fir, fir_kernel=cfg.fir_kernel, skip_rescale=cfg.skip_rescale,
-                init_scale=cfg.init_scale, temb_dim=nf * 4 if cfg.conditional else None,
-                dtype=cdtype, quant=cfg.quant,
-                quant_min_channels=cfg.quant_min_channels, quant_k=cfg.quant_k,
-            )
+            common = dict(act=act, in_ch=in_ch, out_ch=out_ch, dropout=cfg.dropout,
+                          skip_rescale=cfg.skip_rescale, init_scale=cfg.init_scale,
+                          temb_dim=nf * 4 if cfg.conditional else None, dtype=cdtype,
+                          quant=cfg.quant, quant_min_channels=cfg.quant_min_channels,
+                          quant_k=cfg.quant_k)
+            if ddpm:
+                return layers.ResnetBlockDDPMpp(**common)
+            return layers.ResnetBlockBigGANpp(up=up, down=down, fir=cfg.fir,
+                                              fir_kernel=cfg.fir_kernel, **common)
+
+        def resample(layer, in_ch, out_ch=None, with_conv=cfg.resamp_with_conv):
+            return layer(in_ch, out_ch, with_conv=with_conv, fir=cfg.fir,
+                         fir_kernel=cfg.fir_kernel)
 
         def attn(ch):
             return layers.AttnBlockpp(ch, skip_rescale=cfg.skip_rescale,
@@ -142,6 +151,7 @@ class NCSNpp(nn.Module):
         mods.append(layers.Conv2d(total_channels, nf, dtype=cdtype))
         hs_c = [nf]
         in_ch = nf
+        pyramid_ch = total_channels  # channels of the residual pyramids
         for i_level in range(num_resolutions):
             for _ in range(cfg.num_res_blocks):
                 out_ch = nf * cfg.ch_mult[i_level]
@@ -151,12 +161,16 @@ class NCSNpp(nn.Module):
                     mods.append(attn(in_ch))
                 hs_c.append(in_ch)
             if i_level != num_resolutions - 1:
-                mods.append(resblock(in_ch, down=True))
+                mods.append(resample(layers.Downsample, in_ch) if ddpm
+                            else resblock(in_ch, down=True))
                 if cfg.progressive_input == "input_skip":
                     mods.append(layers.Combine(total_channels, in_ch,
                                                method=cfg.progressive_combine.lower(), dtype=cdtype))
                     if cfg.progressive_combine.lower() == "cat":
                         in_ch *= 2
+                elif cfg.progressive_input == "residual":
+                    mods.append(resample(layers.Downsample, pyramid_ch, in_ch, with_conv=True))
+                    pyramid_ch = in_ch
                 hs_c.append(in_ch)
         mods += [resblock(in_ch), attn(in_ch), resblock(in_ch)]
         for i_level in reversed(range(num_resolutions)):
@@ -170,8 +184,15 @@ class NCSNpp(nn.Module):
                 mods.append(layers.GroupNormAct(in_ch, act=act, out_dtype=cdtype))
                 mods.append(layers.Conv2d(in_ch, total_channels, init_scale=cfg.init_scale,
                                           dtype=cdtype))
+            elif cfg.progressive == "residual":
+                if i_level == num_resolutions - 1:
+                    mods.append(layers.GroupNormAct(in_ch, act=act, out_dtype=cdtype))
+                    mods.append(layers.Conv2d(in_ch, in_ch, dtype=cdtype))
+                else:
+                    mods.append(resample(layers.Upsample, pyramid_ch, in_ch, with_conv=True))
+                pyramid_ch = in_ch
             if i_level != 0:
-                mods.append(resblock(in_ch, up=True))
+                mods.append(resample(layers.Upsample, in_ch) if ddpm else resblock(in_ch, up=True))
         if hs_c:
             raise AssertionError("skip bookkeeping out of step")
         if cfg.progressive != "output_skip":
@@ -200,6 +221,19 @@ class NCSNpp(nn.Module):
             return block(h, temb)
         kw = {"context_fn": _save_conv_outs} if self.cfg.remat_policy == "conv_outs" else {}
         return torch.utils.checkpoint.checkpoint(block, h, temb, use_reentrant=False, **kw)
+
+    def _resample(self, layer: nn.Module, h: torch.Tensor,
+                  temb: Optional[torch.Tensor]) -> torch.Tensor:
+        """A resampling step: the DDPM path's Upsample / Downsample layer, or
+        the BigGAN path's resampling block."""
+        if isinstance(layer, (layers.Upsample, layers.Downsample)):
+            return layer(h)
+        return self._resblock(layer, h, temb)
+
+    def _skip_sum(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """The residual pyramids' sum (a + b), scaled by 1/sqrt(2) under
+        skip_rescale."""
+        return (a + b) * layers._SKIP_SCALE if self.cfg.skip_rescale else a + b
 
     def forward(self, x: torch.Tensor, time_cond: Optional[torch.Tensor] = None) -> torch.Tensor:
         cfg = self.cfg
@@ -230,10 +264,13 @@ class NCSNpp(nn.Module):
                     h = next(mods)(h)
                 hs.append(h)
             if i_level != num_resolutions - 1:
-                h = self._resblock(next(mods), hs[-1], temb)
+                h = self._resample(next(mods), hs[-1], temb)
                 if cfg.progressive_input == "input_skip":
                     input_pyramid = downsample_2d(input_pyramid, cfg.fir_kernel, factor=2)
                     h = next(mods)(input_pyramid, h)
+                elif cfg.progressive_input == "residual":
+                    input_pyramid = self._skip_sum(next(mods)(input_pyramid), h)
+                    h = input_pyramid
                 hs.append(h)
 
         h = hs[-1]
@@ -254,8 +291,15 @@ class NCSNpp(nn.Module):
                     pyramid = pyramid_h
                 else:
                     pyramid = upsample_2d(pyramid, cfg.fir_kernel, factor=2) + pyramid_h
+            elif cfg.progressive == "residual":
+                if i_level == num_resolutions - 1:
+                    pyramid = next(mods)(h)
+                    pyramid = next(mods)(pyramid)
+                else:
+                    pyramid = self._skip_sum(next(mods)(pyramid), h)
+                    h = pyramid
             if i_level != 0:
-                h = self._resblock(next(mods), h, temb)
+                h = self._resample(next(mods), h, temb)
 
         if cfg.progressive == "output_skip":
             h = pyramid

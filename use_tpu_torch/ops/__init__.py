@@ -5,7 +5,8 @@ kernel; each carries an integer ``launches`` count.
 """
 from use_tpu_torch.ops.fused_qconv import qconv3x3_fused
 from use_tpu_torch.ops.fused_skip import fused_skip_add
-from use_tpu_torch.ops.gn_stats import channel_sums, gn_apply
+from use_tpu_torch.ops.gn_stats import channel_sums, gn_apply, gn_apply_int8
+from use_tpu_torch.ops.qconv import qconv3x3_s8
 from use_tpu_torch.ops.stft import (
     STFTConfig,
     get_window,
@@ -16,7 +17,8 @@ from use_tpu_torch.ops.stft import (
     stft,
 )
 
-KERNEL_WRAPPERS = (channel_sums, gn_apply, fused_skip_add, qconv3x3_fused)
+KERNEL_WRAPPERS = (channel_sums, gn_apply, fused_skip_add, qconv3x3_fused, gn_apply_int8,
+                   qconv3x3_s8)
 
 
 def reset_launch_counts() -> None:
@@ -40,6 +42,8 @@ __all__ = [
     "gn_apply",
     "fused_skip_add",
     "qconv3x3_fused",
+    "gn_apply_int8",
+    "qconv3x3_s8",
     "KERNEL_WRAPPERS",
     "reset_launch_counts",
     "launch_counts",

@@ -13,7 +13,13 @@ GroupNorm is two hand-written CUDA passes (csrc/gn_stats.cu):
 - ``gn_apply(x, sums, sumsq, weight, bias, groups, ...)``: folds the group
   statistics, the clamped one-pass variance E[x^2]-E[x]^2, eps and the affine
   into a per-(batch, channel) scale and shift, and writes
-  ``act(x * scale + shift)`` in the output dtype.
+  ``act(x * scale + shift)`` in the output dtype;
+- ``gn_apply_int8(x, a, off, u, act, out_dtype)``: the apply with an int8
+  epilogue, from the fold of ``gn_fold`` (quant='int8' serving's 'out' mode,
+  use_tpu/models/ncsnpp/layers.py:257-272): y = act(x * a + off) rounded to
+  out_dtype, then clip(round(y / u), -127, 127) as int8, u the k-sigma
+  scale [C]. Its plain version is the same apply followed by the quantize
+  (``gn_apply_int8_plain``), and the kernel is bit-equal to it.
 
 Route: CUDA C++ through the same nvcc + ctypes build as K2, so the port has
 one build path and no Triton dependency.
@@ -24,7 +30,9 @@ and an ordered finalize.
 
 Each wrapper takes its plain torch version (``*_plain``) for a CPU tensor;
 for a CUDA tensor it launches its kernel or raises. ``<wrapper>.launches``
-counts kernel launches; ``gn_fold`` counts as ``channel_sums``. Bounds and design: see the note in csrc/gn_stats.cu.
+counts kernel launches; ``gn_fold`` counts as ``channel_sums``, and
+``gn_apply_int8`` apart from ``gn_apply``. Bounds and design: see the note
+in csrc/gn_stats.cu.
 
 Gradients: where an input requires one, ``channel_sums`` and ``gn_apply``
 run through ``torch.autograd.Function``s whose forward is the same
@@ -33,7 +41,8 @@ is torch ops: ``channel_sums``' is use_tpu's custom VJP (gn_stats.py:114-117)
 dx = ds + 2 x dss; ``gn_apply``'s recomputes the fold and the
 pre-activation z from its saved inputs and hands (da, doff) back through
 ``fold_scale_shift``'s own autograd to the sums and the affine. ``gn_fold``
-(int8 serving) has no gradient and raises when one is asked for.
+and ``gn_apply_int8`` (int8 serving) have no gradient and raise when one
+is asked for.
 """
 from __future__ import annotations
 
@@ -275,6 +284,12 @@ def _act_plain(y: torch.Tensor, act: Optional[str]) -> torch.Tensor:
     return y
 
 
+def _apply_plain(x: torch.Tensor, a: torch.Tensor, off: torch.Tensor, act: Optional[str],
+                 out_dtype: torch.dtype) -> torch.Tensor:
+    """act(x * a + off) of [B, C, S] with a, off [B, C], in fp32, as out_dtype."""
+    return _act_plain(x.float() * a[:, :, None] + off[:, :, None], act).to(out_dtype)
+
+
 def gn_apply_plain(
     x: torch.Tensor, sums: torch.Tensor, sumsq: torch.Tensor, weight: torch.Tensor,
     bias: torch.Tensor, groups: int, eps: float = 1e-6, act: Optional[str] = None,
@@ -282,8 +297,7 @@ def gn_apply_plain(
 ) -> torch.Tensor:
     b, c, s = x.shape
     a, off = fold_scale_shift(sums, sumsq, weight, bias, groups, s, eps)
-    y = x.float() * a[:, :, None] + off[:, :, None]
-    return _act_plain(y, act).to(out_dtype or x.dtype)
+    return _apply_plain(x, a, off, act, out_dtype or x.dtype)
 
 
 class _GNApply(torch.autograd.Function):
@@ -372,6 +386,65 @@ def _gn_apply_fwd(x, sums, sumsq, weight, bias, groups, eps, act, out_dtype) -> 
 gn_apply.launches = 0
 
 
+def quantize_channels(y: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """clip(round(y / u[c]), -127, 127) as int8 of [B, C, ...], u [C]: an
+    IEEE division of the fp32 values, rounded half to even, as use_tpu's
+    GroupNormAct quantizes (layers.py:269-271)."""
+    shape = (1, -1) + (1,) * (y.dim() - 2)
+    return torch.clamp(torch.round(y.float() / u.float().reshape(shape)), -127.0,
+                       127.0).to(torch.int8)
+
+
+def gn_apply_int8_plain(
+    x: torch.Tensor, a: torch.Tensor, off: torch.Tensor, u: torch.Tensor,
+    act: Optional[str] = None, out_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """The apply (y = act(x * a + off) in out_dtype), then the quantize."""
+    return quantize_channels(_apply_plain(x, a.float(), off.float(), act, out_dtype), u)
+
+
+def gn_apply_int8(
+    x: torch.Tensor, a: torch.Tensor, off: torch.Tensor, u: torch.Tensor,
+    act: Optional[str] = None, out_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """int8 [B, C, S] = clip(round(out_dtype(act(x * a + off)) / u), -127, 127)
+    of x [B, C, S] (fp32 or bf16) with the GroupNorm fold a, off [B, C] fp32
+    (``gn_fold``) and the activation scales u [C] fp32."""
+    if x.dim() != 3:
+        raise ValueError(f"gn_apply_int8 expects [B, C, S], got {tuple(x.shape)}")
+    if act not in ACT_CODES:
+        raise NotImplementedError(f"activation {act!r} not supported")
+    no_grad_here("gn_apply_int8", x, a, off, u)
+    b, c, s = x.shape
+    if a.shape != (b, c) or off.shape != (b, c) or u.shape != (c,):
+        raise ValueError(f"gn_apply_int8: a / off {tuple(a.shape)} / {tuple(off.shape)}, "
+                         f"u {tuple(u.shape)} for x {tuple(x.shape)}")
+    if x.is_cpu:
+        return gn_apply_int8_plain(x, a, off, u, act, out_dtype)
+    _check_cuda(x, "gn_apply_int8")
+    if out_dtype not in _DTYPE_CODES:
+        raise TypeError(f"gn_apply_int8: out_dtype {out_dtype} not supported")
+    a, off, u = (t if t.dtype == torch.float32 and t.is_contiguous() else t.float().contiguous()
+                 for t in (a, off, u))
+    dev = x.get_device()
+    if a.get_device() != dev or off.get_device() != dev or u.get_device() != dev:
+        raise ValueError("gn_apply_int8: all tensors must be on one device")
+    q = torch.empty_like(x, dtype=torch.int8)
+    rows = b * c
+    splits, chunk = split_rows(rows, s)
+    status = _lib().gn_apply_q8(
+        x.data_ptr(), _DTYPE_CODES[x.dtype], _DTYPE_CODES[out_dtype], q.data_ptr(),
+        a.data_ptr(), off.data_ptr(), u.data_ptr(), rows, c, s, splits, chunk, ACT_CODES[act],
+        _vec_ok(s, chunk, x, q), cuda_build.stream(x),
+    )
+    cuda_build.check(status, "gn_apply_int8")
+    gn_apply_int8.launches += 1
+    return q
+
+
+gn_apply_int8.launches = 0
+
+
 def group_norm_act(
     x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, groups: int,
     act: Optional[str] = None, out_dtype: Optional[torch.dtype] = None, eps: float = 1e-6,
@@ -396,4 +469,6 @@ def _lib() -> ctypes.CDLL:
         p, i32, p, i32, p, p, p, p, i64, i32, i32, i64, i32, i64, ctypes.c_float, i32, i32, p,
     ]
     lib.gn_apply.restype = i32
+    lib.gn_apply_q8.argtypes = [p, i32, i32, p, p, p, p, i64, i32, i64, i32, i64, i32, i32, p]
+    lib.gn_apply_q8.restype = i32
     return lib

@@ -10,6 +10,10 @@ convolution and F.conv2d a correlation (use_tpu upfirdn2d.py:51-52), and the
 zero-insert upsample keeps ``up - 1`` trailing zeros after the last sample,
 H*up samples in all (use_tpu upfirdn2d.py:54-57).
 
+``upsample_conv_2d`` and ``conv_downsample_2d`` are the FIR resampling
+convs of NCSN++'s Upsample / Downsample layers (use_tpu upfirdn2d.py:
+241-282), on OIHW weights as the reference holds them.
+
 Layout: ``[B, C, H, W]``.
 """
 from __future__ import annotations
@@ -102,3 +106,39 @@ def naive_downsample_2d(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
     """Average-pool downsample (up_or_down_sampling.py:71-74)."""
     b, c, h, w = x.shape
     return x.reshape(b, c, h // factor, factor, w // factor, factor).mean(dim=(3, 5))
+
+
+def upsample_conv_2d(
+    x: torch.Tensor, w: torch.Tensor, k: Tuple[float, ...] = (1.0, 3.0, 3.0, 1.0),
+    factor: int = 2, gain: float = 1.0,
+) -> torch.Tensor:
+    """Fused upsample + conv of [B, C, H, W] with an OIHW weight
+    (up_or_down_sampling.py:77-149): a transposed conv of stride `factor`,
+    then FIR smoothing. use_tpu's ``jax.lax.conv_transpose`` correlates the
+    zero-inserted input with its HWIO kernel as it stands; ``F.conv_transpose2d``
+    is the gradient of a correlation, so it takes that kernel flipped in
+    space, with its in and out axes swapped ([I, O, kh, kw])."""
+    if w.dim() != 4 or w.shape[2] != w.shape[3]:
+        raise ValueError(f"upsample_conv_2d: weight {tuple(w.shape)} is not a square OIHW kernel")
+    convh = w.shape[2]
+    kern = setup_kernel(k) * (gain * (factor ** 2))
+    p = (kern.shape[0] - factor) - (convh - 1)
+    wt = torch.flip(w, (2, 3)).transpose(0, 1)
+    x = F.conv_transpose2d(x, wt, stride=factor)
+    return upfirdn2d(x, kern, pad=((p + 1) // 2 + factor - 1, p // 2 + 1))
+
+
+def conv_downsample_2d(
+    x: torch.Tensor, w: torch.Tensor, k: Tuple[float, ...] = (1.0, 3.0, 3.0, 1.0),
+    factor: int = 2, gain: float = 1.0,
+) -> torch.Tensor:
+    """Fused FIR + strided conv of [B, C, H, W] with an OIHW weight
+    (up_or_down_sampling.py:152-185)."""
+    if w.dim() != 4 or w.shape[2] != w.shape[3]:
+        raise ValueError(f"conv_downsample_2d: weight {tuple(w.shape)} is not a square OIHW kernel")
+    convh = w.shape[2]
+    kern = setup_kernel(k) * gain
+    p = (kern.shape[0] - factor) + (convh - 1)
+    x = upfirdn2d(x, kern, pad=((p + 1) // 2, p // 2))
+    return F.conv2d(x, w, stride=factor)
+
