@@ -29,10 +29,15 @@ Phases, one line each (any failure raises and exits non-zero):
      purpose (no edge mask) must fail its tolerance; the branch-free
      reciprocal of its SiLU is checked against IEEE 1/d at every float of
      [1, 2^126), the range it is used on. The int8conv path's two kernels,
-     K1's apply with its int8 epilogue (GN_INT8_SHAPES) and the s8 conv
-     (qconv3x3_s8, K3's core on an int8 operand, at K3's shapes, each
-     tile, and with a per-sample post-scale), must be bit-equal (atol 0)
-     to their plain versions;
+     K1's apply with its int8 epilogue writing the conv's C32 operand
+     (GN_INT8_SHAPES) and the s8 conv (qconv3x3_s8, a TMA + wgmma conv over
+     C32, at K3's shapes, each tile, and with a per-sample post-scale), must
+     be bit-equal (atol 0) to their plain versions; the apply's division-free
+     SiLU is checked against v / (1 + exp(-v)) at every float, and its
+     quantize against the IEEE division at every bf16 y for every scale u
+     of the int8 nets' GroupNorms (INT8_SEEDS) and at every float y with
+     |y| <= 128 u for DIV_CHECK_U32 of them; the convs' rows carry cuDNN's
+     device time beside their own (`library_device_ms`);
   4. forward: full-width ncsnpplarge with seeded random weights on
      [8, 512, 192, 4] (the predict path's 8 chunk lanes, one t each), the
      card (kernels) against the CPU (plain versions), TF32 off; and its bf16
@@ -144,7 +149,9 @@ Phases, one line each (any failure raises and exits non-zero):
      the s8 conv on the card against their plain versions on the card,
      within INT8_REL_TOL of max|plain|, a control with the producer's scale
      u left out of the weights that must exceed it, and each forward's
-     launches exactly PER_FORWARD["int8conv_bfloat16"] (K3 none);
+     launches exactly PER_FORWARD["int8conv_bfloat16"] (K3 none); the
+     profiled device ms of the s8 conv's and the int8 apply's kernels a
+     forward beside the forward's;
  23. ddpm_forward: ncsnpplarge with DDPM blocks and residual pyramids
      (DDPM_KWARGS), FIR on and off, at DDPM_SHAPE: the card against the
      CPU within 1e-3 x max|ref|, launches exactly PER_DDPM_FORWARD;
@@ -351,6 +358,12 @@ INT8CONV_PREDICT_ARGS = ("model.backbone_kwargs.quant=int8",
 # resolution (128 channels, and 256 after the up path's skip concat), a low
 # level and the lowest (B, C, H, W)
 GN_INT8_SHAPES = [(8, 128, 512, 192), (8, 256, 512, 192), (8, 256, 32, 12), (8, 256, 8, 3)]
+# scales u of the int8 apply's quantize checked at every float y with |y| <=
+# 128 u (every bf16 y is checked for all of the nets' u): this many of the
+# int8 nets' scales, evenly spaced in rank, and powers of two and their
+# float predecessors around them (DIV_CHECK_EDGES)
+DIV_CHECK_U32 = 16
+DIV_CHECK_EDGES = (2.0 ** -5, 2.0 ** -4, 2.0 ** -3)
 # the DDPM / residual-pyramid ncsnpplarge (resblock_type='ddpm',
 # progressive='residual', progressive_input='residual'): card against CPU at
 # batch 1; its 77 GroupNorms a forward, no shortcut kernel (the DDPM blocks'
@@ -469,7 +482,8 @@ def main():
         main_case = cases[0]
         entry = {k: main_case[k] for k in (
             "name", "route", "source", "replaces", "max_abs_err", "ms", "plain_ms",
-            "bound_ms", "bound_by", "library_ms", "shape", "dtype", "device_ms") if k in main_case}
+            "bound_ms", "bound_by", "library_ms", "library_device_ms", "shape", "dtype",
+            "device_ms") if k in main_case}
         # the count of the run whose path the kernel is on: K3 int8_pallas
         # serving, the int8 apply and the s8 conv int8 serving, K1 and K2
         # the LSGAN training (both phases, validation, test)
@@ -555,6 +569,25 @@ def device_ms(torch, fn, reps=10):
     per_call = {e.key: max(1, round(e.count / reps)) for e in events}
     ms = sum(getattr(e, key) / e.count * per_call[e.key] for e in events) / 1e3
     return ms, sum(per_call.values()), exact
+
+
+def kernel_ms_by_name(torch, fn, names, reps=2):
+    """{label: device ms a fn() call of the kernels whose names contain
+    names[label]}, from the profiler's kernel records over `reps` calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    key = "self_device_time_total" if events and hasattr(events[0], "self_device_time_total") \
+        else "self_cuda_time_total"
+    return {label: sum(getattr(e, key) for e in events if part in e.key) / reps / 1e3
+            for label, part in names.items()}
 
 
 def kernel_phases(torch, dev):
@@ -816,6 +849,8 @@ def qconv_phase(torch, dev, gen):
                 prep_ms=time_ms(torch, lambda: fq.prepare_qconv_weight(w, u)),
                 plain_ms=time_ms(torch, lambda: fq.qconv3x3_fused_plain(*args), reps=3, warmup=1),
                 library_ms=time_ms(torch, lambda: F.conv2d(act_x, w, bias_dt, padding=1)),
+                library_device_ms=device_ms(torch, lambda: F.conv2d(act_x, w, bias_dt,
+                                                                    padding=1))[0],
                 bound_ms=bms, bound_by=by))
             phase("kernel", **{k: v for k, v in cases[-1].items()
                                if k not in ("route", "source", "replaces")})
@@ -838,11 +873,51 @@ def _int8_operand(torch, gen, dev, b, c, hh, ww, dt):
     return x, a, off, u
 
 
+def int8_net_scales(torch):
+    """Every scale u of the int8 ncsnpplarge's GroupNorms before a quantized
+    conv (quant='out'), with the weights of INT8_SEEDS (``_randomize``), as
+    the int8conv forward serves them: the distinct values, fp32."""
+    from use_tpu_torch.models import BackboneRegistry
+
+    net = BackboneRegistry.get_by_name(FORWARD_BACKBONE)(input_channels=4, quant="int8")
+    norms = [m for m in net.modules() if getattr(m, "quant", None) == "out"]
+    scales = []
+    for seed in INT8_SEEDS:
+        _randomize(torch, net, seed=seed)
+        scales += [m._act_scale().clone() for m in norms]
+    return torch.unique(torch.cat(scales))
+
+
+def division_checks(torch, dev):
+    """The int8 apply's two divisions, held on the card against the plain
+    version's: SiLU's at every float, the quantize's at every bf16 y for
+    every scale of the int8 nets and at every float y with |y| <= 128 u for
+    DIV_CHECK_U32 of them (evenly spaced in rank) and DIV_CHECK_EDGES with
+    their float predecessors. Fails on any mismatch."""
+    from use_tpu_torch.ops import gn_stats as g
+
+    u = int8_net_scales(torch).to(dev)
+    picks = u[torch.linspace(0, u.numel() - 1, DIV_CHECK_U32).round().long()]
+    edges = torch.tensor(DIV_CHECK_EDGES, dtype=torch.float32)
+    edges = torch.cat([edges, torch.nextafter(edges, torch.zeros_like(edges))]).to(dev)
+    u32 = torch.cat([picks, edges])
+    t0 = time.perf_counter()
+    found = dict(silu=g.silu_mismatches(dev), quantize_bf16=g.quantize_mismatches(u, True),
+                 quantize_fp32=g.quantize_mismatches(u32, False))
+    phase("kernel_check", name="gn_apply_int8 divisions", scales=u.numel(),
+          fp32_scales=[float(v) for v in u32], mismatches=found,
+          seconds=round(time.perf_counter() - t0, 2))
+    if any(found.values()):
+        raise AssertionError(f"the int8 apply's divisions differ from IEEE's: {found}")
+
+
 def gn_int8_phase(torch, dev, gen):
     """K1's apply with its int8 epilogue against its plain version (the
     apply in torch ops, then the quantize) on the same fold, at
-    GN_INT8_SHAPES, fp32 and bf16 serving dtypes: bit-equal (atol 0). No
-    single library call computes it (library_ms null)."""
+    GN_INT8_SHAPES, fp32 and bf16 serving dtypes: bit-equal (atol 0), in the
+    conv's C32 layout (what the int8 path asks for, and what is timed) and
+    unpacked to [B, C, S]. No single library call computes it (library_ms
+    null). Then its divisions (``division_checks``)."""
     from use_tpu_torch.ops import gn_stats as g
 
     cases = []
@@ -853,25 +928,30 @@ def gn_int8_phase(torch, dev, gen):
             x, a, off, u = _int8_operand(torch, gen, dev, b, c, hh, ww, dt)
             x3 = x.reshape(b, c, -1)
             args = (x3, a, off, u, "swish", dt)
-            q = g.gn_apply_int8(*args)
-            ref = g.gn_apply_int8_plain(*args)
+            q = g.gn_apply_int8(*args, c32=True)
+            ref = g.gn_apply_int8_plain(*args, c32=True)
+            q_nchw = g.gn_apply_int8(*args)
+            ref_nchw = g.gn_apply_int8_plain(*args)
             torch.cuda.synchronize()
-            err = int((q.int() - ref.int()).abs().max())
+            err = max(int((q.int() - ref.int()).abs().max()),
+                      int((q_nchw.int() - ref_nchw.int()).abs().max()))
             check("gn_apply_int8", shape, dtype_name, err, 0)
             nbytes = x.numel() * (x.element_size() + 1) + 2 * b * c * 4 + c * 4
             bms, by = bound(nbytes, 8 * x.numel(), dtype_name)
+            run = lambda: g.gn_apply_int8(*args, c32=True)  # noqa: E731
             cases.append(dict(
                 name="gn_apply_int8", route="cuda", source="use_tpu_torch/csrc/gn_stats.cu",
                 replaces="use_tpu/models/ncsnpp/layers.py:257", shape=list(shape),
                 dtype=dtype_name, max_abs_err=float(err), tol=0.0,
-                clipped_share=float((ref.abs() == 127).float().mean()),
-                ms=time_ms(torch, lambda: g.gn_apply_int8(*args), reps=KERNEL_REPS),
-                device_ms=device_ms(torch, lambda: g.gn_apply_int8(*args))[0],
-                plain_ms=time_ms(torch, lambda: g.gn_apply_int8_plain(*args), reps=KERNEL_REPS),
+                clipped_share=float((ref_nchw.abs() == 127).float().mean()),
+                ms=time_ms(torch, run, reps=KERNEL_REPS), device_ms=device_ms(torch, run)[0],
+                plain_ms=time_ms(torch, lambda: g.gn_apply_int8_plain(*args, c32=True),
+                                 reps=KERNEL_REPS),
                 library_ms=None, bound_ms=bms, bound_by=by))
             phase("kernel", **{k: v for k, v in cases[-1].items()
                                if k not in ("route", "source", "replaces")})
-            del x, x3, q, ref
+            del x, x3, q, ref, q_nchw, ref_nchw
+    division_checks(torch, dev)
     torch.cuda.empty_cache()
     return cases
 
@@ -880,14 +960,14 @@ def s8_phase(torch, dev, gen):
     """The s8 conv (qconv3x3_s8) against its plain version (the int8
     values convolved in float64, exact) at the int8 path's shapes
     (QCONV_SHAPES, and QCONV_RAGGED checked, not timed), fp32 and bf16
-    output, on operands that K1's int8 apply made, with the producer's u
-    folded into the weight: bit-equal (atol 0) in each of the kernel's
+    output, on C32 operands that K1's int8 apply made, with the producer's
+    u folded into the weight: bit-equal (atol 0) in each of the kernel's
     tiles, and with a per-sample post-scale (the dynamic path's). Its
     library call is bf16 / fp32 F.conv2d on the unquantized activation, as
-    K3's rows time it; `prep_ms` times the weight preparation."""
+    K3's rows time it, with its profiled device time beside the kernel's;
+    `prep_ms` times the weight preparation."""
     import torch.nn.functional as F
 
-    from use_tpu_torch.ops import fused_qconv as fq
     from use_tpu_torch.ops import gn_stats as g
     from use_tpu_torch.ops import qconv as q
 
@@ -897,13 +977,14 @@ def s8_phase(torch, dev, gen):
         for shape in (*QCONV_SHAPES, QCONV_RAGGED):
             b, c, o, hh, ww = shape
             x, a, off, u = _int8_operand(torch, gen, dev, b, c, hh, ww, dt)
-            qx = g.gn_apply_int8(x.reshape(b, c, -1), a, off, u, "swish", dt).reshape(x.shape)
+            qx = g.gn_apply_int8(x.reshape(b, c, -1), a, off, u, "swish", dt, c32=True)
+            qx = qx.reshape(*qx.shape[:3], hh, ww, qx.shape[-1])
             w = (torch.randn((o, c, 3, 3), generator=gen, device=dev) / math.sqrt(9 * c)).to(dt)
             bias = 0.05 * torch.randn((o,), generator=gen, device=dev)
             prepared = q.prepare_s8_weight(w, u)
             ref = q.s8_conv_plain(qx, prepared.qw, prepared.sw, bias, dt)
-            tile = fq.pick_tile(hh, ww, o)
-            outs = {t: q.qconv3x3_s8(qx, prepared, None, bias, dt, tile=t) for t in fq.TILES}
+            tile = q.pick_tile(ww)
+            outs = {t: q.qconv3x3_s8(qx, prepared, None, bias, dt, tile=t) for t in q.TILES}
             post = 0.5 + torch.rand((b,), generator=gen, device=dev)
             unfolded = q.prepare_s8_weight(w)
             out_post = q.qconv3x3_s8(qx, unfolded, post, bias, dt)
@@ -921,21 +1002,22 @@ def s8_phase(torch, dev, gen):
                 phase("kernel_check", name="qconv3x3_s8", **checked)
                 continue
             esz = torch.empty((), dtype=dt).element_size()
-            nbytes = qx.numel() + b * o * hh * ww * esz + prepared.qk.numel() + 2 * o * 4
+            nbytes = b * c * hh * ww + b * o * hh * ww * esz + o * c * 9 + 2 * o * 4
             bms, by = bound(nbytes, 2 * 9 * b * hh * ww * c * o, "int8")
             act_x = F.silu(x.float() * a[:, :, None, None] + off[:, :, None, None]).to(dt)
             bias_dt = bias.to(dt)
             run = (qx, prepared, None, bias, dt)
+            library = lambda: F.conv2d(act_x, w, bias_dt, padding=1)  # noqa: E731
+            ms, lib_ms = time_pair_ms(torch, lambda: q.qconv3x3_s8(*run), library, 20)
             cases.append(dict(
-                name="qconv3x3_s8", route="cuda", source="use_tpu_torch/csrc/fused_qconv.cu",
+                name="qconv3x3_s8", route="cuda", source="use_tpu_torch/csrc/qconv_s8.cu",
                 replaces="use_tpu/ops/qconv.py:79", **checked,
-                ms=time_ms(torch, lambda: q.qconv3x3_s8(*run)),
-                device_ms=device_ms(torch, lambda: q.qconv3x3_s8(*run))[0],
-                tile_ms={t: time_ms(torch, lambda: q.qconv3x3_s8(*run, tile=t)) for t in fq.TILES},
+                ms=ms, device_ms=device_ms(torch, lambda: q.qconv3x3_s8(*run))[0],
+                tile_ms={t: time_ms(torch, lambda: q.qconv3x3_s8(*run, tile=t)) for t in q.TILES},
                 prep_ms=time_ms(torch, lambda: q.prepare_s8_weight(w, u)),
                 plain_ms=time_ms(torch, lambda: q.s8_conv_plain(qx, prepared.qw, prepared.sw,
                                                                 bias, dt), reps=3, warmup=1),
-                library_ms=time_ms(torch, lambda: F.conv2d(act_x, w, bias_dt, padding=1)),
+                library_ms=lib_ms, library_device_ms=device_ms(torch, library)[0],
                 bound_ms=bms, bound_by=by))
             phase("kernel", **{k: v for k, v in cases[-1].items()
                                if k not in ("route", "source", "replaces")})
@@ -1110,14 +1192,17 @@ def swap_qconv(name):
 
 
 @contextlib.contextmanager
-def count_calls(owner, attr, out_channels):
-    """Counts the calls of owner.<attr>(x, second, ...) by "HxW CtoO" (C from
-    x, O = out_channels(second)) while it is in effect."""
+def count_calls(owner, attr, out_channels, in_channels=None):
+    """Counts the calls of owner.<attr>(x, second, ...) by "HxW CtoO" (O =
+    out_channels(second); C from x, or in_channels(second); H and W x's last
+    two, before a C32 operand's channel axis) while it is in effect."""
     real = getattr(owner, attr)
     counts = {}
 
     def counting(x, second, *args, **kw):
-        key = f"{x.shape[2]}x{x.shape[3]} {x.shape[1]}to{out_channels(second)}"
+        hh, ww = x.shape[-3:-1] if x.dim() == 6 else x.shape[2:4]
+        c = x.shape[1] if in_channels is None else in_channels(second)
+        key = f"{hh}x{ww} {c}to{out_channels(second)}"
         counts[key] = counts.get(key, 0) + 1
         return real(x, second, *args, **kw)
 
@@ -1273,7 +1358,8 @@ def int8conv_forward_phase(torch, dev):
                 qnet.load_state_dict(fnet.state_dict())
                 ref32 = fnet(x, t)
                 ops.reset_launch_counts()
-                with count_calls(qconv, "qconv3x3_s8", lambda p: p.qk.shape[2]) as calls:
+                with count_calls(qconv, "qconv3x3_s8", lambda p: p.qw.shape[0],
+                                 lambda p: p.qw.shape[1]) as calls:
                     out = qnet(x, t)
                 torch.cuda.synchronize()
                 counts = ops.launch_counts()
@@ -1298,12 +1384,14 @@ def int8conv_forward_phase(torch, dev):
             ms = time_ms(torch, lambda: qnet(x, t), reps=3, warmup=1)
             peak = torch.cuda.max_memory_allocated(dev)
             kernel_ms, kernels, _ = device_ms(torch, lambda: qnet(x, t), reps=2)
+            split = kernel_ms_by_name(torch, lambda: qnet(x, t), {
+                "qconv3x3_s8": "qconv_s8_kernel", "gn_apply_int8": "apply_q8_kernel"}, reps=2)
             phase("int8conv_forward", backbone=FORWARD_BACKBONE, shape=list(FORWARD_SHAPE),
                   dtype=dtype, quant="int8", against="the plain int8 apply and s8 conv on the card",
                   tol=INT8_REL_TOL, readings=readings, control="u not folded into the weights",
                   control_max_rel_err=control, ms=ms, device_ms=kernel_ms,
-                  kernels_per_forward=kernels, peak_bytes=peak, launches=counts,
-                  s8_calls=by_level(calls))
+                  kernels_per_forward=kernels, kernel_device_ms=split, peak_bytes=peak,
+                  launches=counts, s8_calls=by_level(calls))
             worst = max(r["max_rel_err"] for r in readings)
             if not worst <= INT8_REL_TOL:
                 raise AssertionError(f"int8conv forward {dtype}: max_rel_err {worst} > "

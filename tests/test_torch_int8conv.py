@@ -201,6 +201,7 @@ def test_groupnorm_int8_modes_match_jax(mode):
         ty, tu = tgn(nhwc_to_nchw(x))
     np.testing.assert_array_equal(tu.numpy(), ju)
     if mode == "out":
+        ty = tqc.unpack_c32(ty, 64)  # the int8 conv's operand layout -> NCHW
         assert ty.dtype == torch.int8 and (np.abs(jy) > 60).any()
         np.testing.assert_array_equal(ty.permute(0, 2, 3, 1).numpy(), jy)
     else:
@@ -275,7 +276,8 @@ def test_tiny_int8_ncsnpp_matches_jax(monkeypatch, resblock_type):
     real_s8 = tqc.s8_conv
 
     def trecord(qx, prepared, *args, **kw):
-        tcalls.append([tuple(qx.permute(0, 2, 3, 1).shape), _oihw_to_hwio(prepared.qw),
+        nchw = tqc.unpack_c32(qx, prepared.qw.shape[1])  # the operand arrives as C32
+        tcalls.append([tuple(nchw.permute(0, 2, 3, 1).shape), _oihw_to_hwio(prepared.qw),
                        prepared.sw.numpy()])
         return real_s8(qx, prepared, *args, **kw)
 

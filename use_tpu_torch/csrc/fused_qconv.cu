@@ -42,21 +42,6 @@
 // 32 x 32) for images at most 12 wide, where the wide window is mostly
 // padding.
 //
-// The same core has an int8-input mode, qconv3x3_s8 (the conv of
-// quant='int8', ops/qconv.py). It replaces no Pallas kernel: use_tpu runs
-// that conv as an XLA int8 convolution (use_tpu/ops/qconv.py::
-// qconv2d_prequant, :79), and torch has no int8 convolution on CUDA. The
-// operand is an already quantized int8 NCHW tensor, read with plain byte
-// loads into the same staged window (zeros outside the image), and the
-// epilogue rounds as use_tpu's does:
-//
-//   out[b, o, h, w] = Tout(Tout(float(acc) * scale[b, o]) + bias[o])
-//
-// with scale[b, o] = sw[o] * post[b] made by the wrapper (scale_bstride 0
-// where there is no per-sample post-scale) and bias already rounded to Tout.
-// It moves a quarter of K3's operand bytes in fp32 and a half in bf16, and
-// does K3's products: at B 8, C 256, O 128, 512 x 192 the bound is the
-// 0.23 ms of int8 operations.
 // Measurement builds (use_tpu_torch/tools/qconv_ablation.py) leave out one
 // part with -DQC_SKIP_PRODUCE (quantized operand not computed),
 // -DQC_SKIP_MMA (no products) or -DQC_SKIP_WLOAD (weights not loaded); the
@@ -64,8 +49,6 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 namespace {
 
@@ -182,24 +165,6 @@ template <> struct RawX<__nv_bfloat16> {
     return __uint_as_float(i % 2 ? w[i / 2] & 0xffff0000u : w[i / 2] << 16);
   }
 };
-// int8 (qconv3x3_s8): the 16 quantized values as they are staged, four to a register.
-template <> struct RawX<int8_t> {
-  unsigned w[4];
-  __device__ __forceinline__ void clear() {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) w[i] = 0u;
-  }
-  __device__ __forceinline__ void load(int i, const int8_t* p) {
-    w[i / 4] |= (unsigned)*reinterpret_cast<const unsigned char*>(p) << (8 * (i % 4));
-  }
-};
-
-// v rounded to Tout and widened back, exactly.
-template <typename Tout> __device__ __forceinline__ float round_to(float v);
-template <> __device__ __forceinline__ float round_to<float>(float v) { return v; }
-template <> __device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
 
 // Byte offset of 16-byte half `half` of 32-byte row `row` (a pixel of the
 // staged window, or an output channel of one tap's weights): the halves swap
@@ -237,16 +202,13 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const unsigned (&a)[4], unsi
 }
 
 // grid (ceil(H / TH) * tiles_w, ceil(O / BN), B), K::kThreads threads, K::SMEM bytes.
-// T int8_t is the int8-input mode (qconv3x3_s8): x is the quantized operand,
-// a, off, iu and act are not read, and sw[b * sw_bstride + o] is the scale.
 template <class K, typename T, typename Tout>
 __global__ void __launch_bounds__(K::kThreads, K::MIN_BLOCKS)
 qconv_mma_kernel(const T* __restrict__ x, const float* __restrict__ a,
                  const float* __restrict__ off, const float* __restrict__ iu,
-                 const int8_t* __restrict__ qw, const float* __restrict__ sw, int sw_bstride,
+                 const int8_t* __restrict__ qw, const float* __restrict__ sw,
                  const float* __restrict__ bias, Tout* __restrict__ out, int C, int H, int W,
                  int O, int tiles_w, int act) {
-  constexpr bool S8 = std::is_same<T, int8_t>::value;
   extern __shared__ __align__(128) unsigned char smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp % K::WARPS_M, wn = warp / K::WARPS_M;
@@ -256,9 +218,8 @@ qconv_mma_kernel(const T* __restrict__ x, const float* __restrict__ a,
   const long long b = blockIdx.z;
   const long long HW = (long long)H * W;
   const T* xb = x + b * C * HW;
-  const float* ab = S8 ? nullptr : a + b * C;
-  const float* offb = S8 ? nullptr : off + b * C;
-  const float* swb = sw + b * sw_bstride;
+  const float* ab = a + b * C;
+  const float* offb = off + b * C;
   const int nk = (C + CK - 1) / CK;
 
   // weights of chunk kc, all 9 taps, output channels o0 .. o0 + BN (zeros past O)
@@ -314,10 +275,7 @@ qconv_mma_kernel(const T* __restrict__ x, const float* __restrict__ a,
       if (tid + it * K::kThreads >= 2 * K::NPIX) break;
       unsigned v[4] = {0u, 0u, 0u, 0u};
 #ifndef QC_SKIP_PRODUCE
-      if constexpr (S8) {  // zeros outside the image and past C, as fetched
-#pragma unroll
-        for (int k = 0; k < 4; ++k) v[k] = raw[it].w[k];
-      } else if (item_in[it]) {
+      if (item_in[it]) {
 #pragma unroll
         for (int j = 0; j < 2; ++j) {  // 8 channels at a time; C % 4 == 0
           const int cc = kc * CK + 16 * item_half[it] + 8 * j;
@@ -429,13 +387,7 @@ qconv_mma_kernel(const T* __restrict__ x, const float* __restrict__ a,
         const int ol = wn * K::WN + ni * 8 + 2 * t4 + (r & 1);
         const int o = o0 + ol;
         float v = 0.f;
-        if (o < O) {
-          if constexpr (S8) {  // use_tpu's order: the dequantized sum in Tout, then the bias
-            v = __fadd_rn(round_to<Tout>(__fmul_rn((float)acc[mi][ni][r], swb[o])), bias[o]);
-          } else {
-            v = __fadd_rn(__fmul_rn((float)acc[mi][ni][r], sw[o]), bias[o]);
-          }
-        }
+        if (o < O) v = __fadd_rn(__fmul_rn((float)acc[mi][ni][r], sw[o]), bias[o]);
         *reinterpret_cast<Tout*>(smem + ol * ROW + m * (int)sizeof(Tout)) = from_f<Tout>(v);
       }
     }
@@ -461,8 +413,8 @@ qconv_mma_kernel(const T* __restrict__ x, const float* __restrict__ a,
 
 template <class K, typename T, typename Tout>
 cudaError_t launch_tile(const void* x, const float* a, const float* off, const float* iu,
-                        const int8_t* qw, const float* sw, int sw_bstride, const float* bias,
-                        void* out, int B, int C, int H, int W, int O, int act, cudaStream_t st) {
+                        const int8_t* qw, const float* sw, const float* bias, void* out, int B,
+                        int C, int H, int W, int O, int act, cudaStream_t st) {
   auto kernel = qconv_mma_kernel<K, T, Tout>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, K::SMEM);
@@ -470,23 +422,21 @@ cudaError_t launch_tile(const void* x, const float* a, const float* off, const f
   const int tiles_w = (W + K::TW - 1) / K::TW;
   const dim3 grid((unsigned)(((H + K::TH - 1) / K::TH) * tiles_w),
                   (unsigned)((O + K::BN - 1) / K::BN), (unsigned)B);
-  kernel<<<grid, K::kThreads, K::SMEM, st>>>((const T*)x, a, off, iu, qw, sw, sw_bstride, bias,
-                                             (Tout*)out, C, H, W, O, tiles_w, act);
+  kernel<<<grid, K::kThreads, K::SMEM, st>>>((const T*)x, a, off, iu, qw, sw, bias, (Tout*)out,
+                                             C, H, W, O, tiles_w, act);
   return cudaGetLastError();
 }
 
 template <class K, typename T>
 cudaError_t launch_out(int out_dtype, const void* x, const float* a, const float* off,
-                       const float* iu, const int8_t* qw, const float* sw, int sw_bstride,
-                       const float* bias, void* out, int B, int C, int H, int W, int O, int act,
-                       cudaStream_t st) {
+                       const float* iu, const int8_t* qw, const float* sw, const float* bias,
+                       void* out, int B, int C, int H, int W, int O, int act, cudaStream_t st) {
   if (out_dtype == 0) {
-    return launch_tile<K, T, float>(x, a, off, iu, qw, sw, sw_bstride, bias, out, B, C, H, W, O,
-                                    act, st);
+    return launch_tile<K, T, float>(x, a, off, iu, qw, sw, bias, out, B, C, H, W, O, act, st);
   }
   if (out_dtype == 1) {
-    return launch_tile<K, T, __nv_bfloat16>(x, a, off, iu, qw, sw, sw_bstride, bias, out, B, C,
-                                            H, W, O, act, st);
+    return launch_tile<K, T, __nv_bfloat16>(x, a, off, iu, qw, sw, bias, out, B, C, H, W, O, act,
+                                            st);
   }
   return cudaErrorInvalidValue;
 }
@@ -497,12 +447,12 @@ cudaError_t launch_in(int in_dtype, int out_dtype, const void* x, const float* a
                       const float* bias, void* out, int B, int C, int H, int W, int O, int act,
                       cudaStream_t st) {
   if (in_dtype == 0) {
-    return launch_out<K, float>(out_dtype, x, a, off, iu, qw, sw, 0, bias, out, B, C, H, W, O,
-                                act, st);
+    return launch_out<K, float>(out_dtype, x, a, off, iu, qw, sw, bias, out, B, C, H, W, O, act,
+                                st);
   }
   if (in_dtype == 1) {
-    return launch_out<K, __nv_bfloat16>(out_dtype, x, a, off, iu, qw, sw, 0, bias, out, B, C, H,
-                                        W, O, act, st);
+    return launch_out<K, __nv_bfloat16>(out_dtype, x, a, off, iu, qw, sw, bias, out, B, C, H, W,
+                                        O, act, st);
   }
   return cudaErrorInvalidValue;
 }
@@ -555,33 +505,6 @@ extern "C" int qconv3x3_fused(const void* x, int in_dtype, const void* a, const 
   if (tile == 2) {
     return (int)launch_in<Wide256Tile>(in_dtype, out_dtype, x, af, of, iuf, qwi, swf, bf, out, B,
                                        C, H, W, O, act, st);
-  }
-  return (int)cudaErrorInvalidValue;
-}
-
-// The int8-input mode. qx int8 [B, C, H, W] (the quantized operand, any C);
-// qw as above; scale fp32 [B, O] (scale_bstride O) or [O] (scale_bstride 0),
-// the dequant scale of each sum; bias fp32 [O], already rounded to the
-// output dtype; out [B, O, H, W] in out_dtype (0 float32, 1 bfloat16).
-// tile as above. Returns the CUDA error of the launch.
-extern "C" int qconv3x3_s8(const void* qx, const void* qw, const void* scale, int scale_bstride,
-                           const void* bias, void* out, int out_dtype, int B, int C, int H, int W,
-                           int O, int tile, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  const int8_t* qwi = (const int8_t*)qw;
-  const float* sf = (const float*)scale;
-  const float* bf = (const float*)bias;
-  if (tile == 0) {
-    return (int)launch_out<WideTile, int8_t>(out_dtype, qx, nullptr, nullptr, nullptr, qwi, sf,
-                                             scale_bstride, bf, out, B, C, H, W, O, 0, st);
-  }
-  if (tile == 1) {
-    return (int)launch_out<NarrowTile, int8_t>(out_dtype, qx, nullptr, nullptr, nullptr, qwi, sf,
-                                               scale_bstride, bf, out, B, C, H, W, O, 0, st);
-  }
-  if (tile == 2) {
-    return (int)launch_out<Wide256Tile, int8_t>(out_dtype, qx, nullptr, nullptr, nullptr, qwi, sf,
-                                                scale_bstride, bf, out, B, C, H, W, O, 0, st);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -153,9 +153,10 @@ class QConv(Conv2d):
 
     ``forward(qx, prequant_scale)`` takes an operand its producer quantized
     (``GroupNormAct(quant='out')``, or ``quantize_with_scale`` after a
-    resampling): a per-input-channel scale [C] folds into the weight, a
-    scalar or per-sample one [B, 1, 1, 1] dequantizes after the conv.
-    ``forward(x)`` quantizes x per sample where min(C, O) reaches
+    resampling), in the kernel's C32 layout (ops/qconv.py ``pack_c32``) or
+    NCHW: a per-input-channel scale [C] folds into the weight, a scalar or
+    per-sample one [B, 1, 1, 1] dequantizes after the conv. ``forward(x)``
+    quantizes x per sample (packed to C32) where min(C, O) reaches
     ``min_channels`` (scaled by 9 / (kh kw) for other kernels), else runs
     the exact conv. The weight is quantized once and kept until the weight,
     the bias or the scale tensor change (``_kept``). Serving only."""
@@ -175,7 +176,7 @@ class QConv(Conv2d):
             if min(c, o) < self.min_channels * 9 // max(kh * kw, 1):
                 return super().forward(x)
             x, post = qconv.quantize_per_sample(x)
-            u = None
+            x, u = qconv.pack_c32(x), None
         elif prequant_scale.dim() == 1:
             u, post = prequant_scale, None
         else:
@@ -222,7 +223,9 @@ class GroupNormAct(nn.Module):
       operand read;
     - ``quant='out'`` (quant='int8') runs the same statistics pass, then the
       apply with its int8 epilogue (``gn_apply_int8``): ``(q, u)``, q the
-      int8 activation clip(round(y / u), -127, 127) of y in out_dtype;
+      int8 activation clip(round(y / u), -127, 127) of y in out_dtype, in
+      the int8 conv's C32 layout [B, ceil(C/32), 2, H, W, 16] (``QConv`` takes
+      it; ops/qconv.py ``unpack_c32`` gives NCHW);
     - ``quant='scale'`` (quant='int8' before a resampling) returns
       ``(y, u)``, y as ``quant='none'`` computes it.
     """
@@ -260,7 +263,8 @@ class GroupNormAct(nn.Module):
         u = self._act_scale()
         if self.quant == "fold":
             return a, off, u
-        return gn_apply_int8(x3, a, off, u, self.act, self.out_dtype).reshape(x.shape), u
+        q = gn_apply_int8(x3, a, off, u, self.act, self.out_dtype, c32=True)
+        return q.reshape(*q.shape[:3], *x.shape[2:], q.shape[-1]), u
 
     _u = None  # (key, pinned affine, u)
 
@@ -567,7 +571,7 @@ class ResnetBlockBigGANpp(nn.Module):
             y, u = self.GroupNorm_0(x)
             # the normalized FIR kernel has unit DC gain per polyphase leg,
             # so the k-sigma bound of y still holds after the resampling
-            h = self.Conv_0(qconv.quantize_with_scale(self._resample(y), u), u)
+            h = self.Conv_0(qconv.pack_c32(qconv.quantize_with_scale(self._resample(y), u)), u)
             x = self._resample(x)
         elif self.q0:
             h = self.Conv_0(*self.GroupNorm_0(x))

@@ -14,12 +14,16 @@ GroupNorm is two hand-written CUDA passes (csrc/gn_stats.cu):
   statistics, the clamped one-pass variance E[x^2]-E[x]^2, eps and the affine
   into a per-(batch, channel) scale and shift, and writes
   ``act(x * scale + shift)`` in the output dtype;
-- ``gn_apply_int8(x, a, off, u, act, out_dtype)``: the apply with an int8
-  epilogue, from the fold of ``gn_fold`` (quant='int8' serving's 'out' mode,
-  use_tpu/models/ncsnpp/layers.py:257-272): y = act(x * a + off) rounded to
-  out_dtype, then clip(round(y / u), -127, 127) as int8, u the k-sigma
-  scale [C]. Its plain version is the same apply followed by the quantize
-  (``gn_apply_int8_plain``), and the kernel is bit-equal to it.
+- ``gn_apply_int8(x, a, off, u, act, out_dtype, c32)``: the apply with an
+  int8 epilogue, from the fold of ``gn_fold`` (quant='int8' serving's 'out'
+  mode, use_tpu/models/ncsnpp/layers.py:257-272): y = act(x * a + off)
+  rounded to out_dtype, then clip(round(y / u), -127, 127) as int8, u the
+  k-sigma scale [C]; with c32 in the int8 conv's operand layout (C32, ops/
+  qconv.py ``pack_c32``), which the kernel writes. Its plain version is the
+  same apply followed by the quantize (``gn_apply_int8_plain``), and the
+  kernel is bit-equal to it: its divisions (SiLU's, the quantize's) are
+  correctly rounded without dividing, which ``silu_mismatches`` and
+  ``quantize_mismatches`` check on the card.
 
 Route: CUDA C++ through the same nvcc + ctypes build as K2, so the port has
 one build path and no Triton dependency.
@@ -397,19 +401,26 @@ def quantize_channels(y: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
 
 def gn_apply_int8_plain(
     x: torch.Tensor, a: torch.Tensor, off: torch.Tensor, u: torch.Tensor,
-    act: Optional[str] = None, out_dtype: torch.dtype = torch.float32,
+    act: Optional[str] = None, out_dtype: torch.dtype = torch.float32, c32: bool = False,
 ) -> torch.Tensor:
-    """The apply (y = act(x * a + off) in out_dtype), then the quantize."""
-    return quantize_channels(_apply_plain(x, a.float(), off.float(), act, out_dtype), u)
+    """The apply (y = act(x * a + off) in out_dtype), then the quantize;
+    packed to C32 where c32."""
+    q = quantize_channels(_apply_plain(x, a.float(), off.float(), act, out_dtype), u)
+    if c32:
+        from use_tpu_torch.ops.qconv import pack_c32
+
+        return pack_c32(q)
+    return q
 
 
 def gn_apply_int8(
     x: torch.Tensor, a: torch.Tensor, off: torch.Tensor, u: torch.Tensor,
-    act: Optional[str] = None, out_dtype: torch.dtype = torch.float32,
+    act: Optional[str] = None, out_dtype: torch.dtype = torch.float32, c32: bool = False,
 ) -> torch.Tensor:
-    """int8 [B, C, S] = clip(round(out_dtype(act(x * a + off)) / u), -127, 127)
-    of x [B, C, S] (fp32 or bf16) with the GroupNorm fold a, off [B, C] fp32
-    (``gn_fold``) and the activation scales u [C] fp32."""
+    """clip(round(out_dtype(act(x * a + off)) / u), -127, 127) as int8 of
+    x [B, C, S] (fp32 or bf16) with the GroupNorm fold a, off [B, C] fp32
+    (``gn_fold``) and the activation scales u [C] fp32: C32 [B, ceil(C/32),
+    2, S, 16] where c32 (what the kernel writes), else [B, C, S]."""
     if x.dim() != 3:
         raise ValueError(f"gn_apply_int8 expects [B, C, S], got {tuple(x.shape)}")
     if act not in ACT_CODES:
@@ -420,7 +431,7 @@ def gn_apply_int8(
         raise ValueError(f"gn_apply_int8: a / off {tuple(a.shape)} / {tuple(off.shape)}, "
                          f"u {tuple(u.shape)} for x {tuple(x.shape)}")
     if x.is_cpu:
-        return gn_apply_int8_plain(x, a, off, u, act, out_dtype)
+        return gn_apply_int8_plain(x, a, off, u, act, out_dtype, c32)
     _check_cuda(x, "gn_apply_int8")
     if out_dtype not in _DTYPE_CODES:
         raise TypeError(f"gn_apply_int8: out_dtype {out_dtype} not supported")
@@ -429,20 +440,50 @@ def gn_apply_int8(
     dev = x.get_device()
     if a.get_device() != dev or off.get_device() != dev or u.get_device() != dev:
         raise ValueError("gn_apply_int8: all tensors must be on one device")
-    q = torch.empty_like(x, dtype=torch.int8)
-    rows = b * c
-    splits, chunk = split_rows(rows, s)
+    if b * s >= 2 ** 31:
+        raise ValueError(f"gn_apply_int8: {b} x {s} positions exceed the kernel's 2^31")
+    q = x.new_empty((b, -(-c // 32), 2, s, 16), dtype=torch.int8)
     status = _lib().gn_apply_q8(
         x.data_ptr(), _DTYPE_CODES[x.dtype], _DTYPE_CODES[out_dtype], q.data_ptr(),
-        a.data_ptr(), off.data_ptr(), u.data_ptr(), rows, c, s, splits, chunk, ACT_CODES[act],
-        _vec_ok(s, chunk, x, q), cuda_build.stream(x),
+        a.data_ptr(), off.data_ptr(), u.data_ptr(), b, c, s, ACT_CODES[act],
+        int(s % 8 == 0 and x.data_ptr() % 16 == 0), cuda_build.stream(x),
     )
     cuda_build.check(status, "gn_apply_int8")
     gn_apply_int8.launches += 1
-    return q
+    if c32:
+        return q
+    from use_tpu_torch.ops.qconv import unpack_c32
+
+    return unpack_c32(q, c)
 
 
 gn_apply_int8.launches = 0
+
+
+def silu_mismatches(device: torch.device) -> int:
+    """How many floats v the int8 apply's SiLU (csrc/gn_stats.cu
+    ``silu_q8``, a reciprocal and one fused correction) rounds otherwise
+    than the plain version's v / (1 + exp(-v)), counted on the card over
+    all 2^32 of them."""
+    bad = torch.zeros((1,), dtype=torch.int64, device=device)
+    cuda_build.check(_lib().gn_q8_silu_check(bad.data_ptr(), cuda_build.stream(bad)),
+                     "gn_q8_silu_check")
+    return int(bad.item())
+
+
+def quantize_mismatches(u: torch.Tensor, bf16: bool) -> int:
+    """How many (u, y) the int8 apply's quantize (csrc/gn_stats.cu
+    ``quantize_q8``, no division) sends to another int8 than the plain
+    version's clip(rint(y / u), -127, 127), for each scale of u (fp32 on the
+    card): over all 65,536 bf16 values of y where bf16, else over every
+    float y with |y| <= 128 u."""
+    u = u.float().contiguous()
+    bad = torch.zeros((1,), dtype=torch.int64, device=u.device)
+    for part in u.split(65535):
+        cuda_build.check(_lib().gn_q8_div_check(part.data_ptr(), part.numel(), int(bf16),
+                                                bad.data_ptr(), cuda_build.stream(bad)),
+                         "gn_q8_div_check")
+    return int(bad.item())
 
 
 def group_norm_act(
@@ -469,6 +510,10 @@ def _lib() -> ctypes.CDLL:
         p, i32, p, i32, p, p, p, p, i64, i32, i32, i64, i32, i64, ctypes.c_float, i32, i32, p,
     ]
     lib.gn_apply.restype = i32
-    lib.gn_apply_q8.argtypes = [p, i32, i32, p, p, p, p, i64, i32, i64, i32, i64, i32, i32, p]
+    lib.gn_apply_q8.argtypes = [p, i32, i32, p, p, p, p, i32, i32, i64, i32, i32, p]
     lib.gn_apply_q8.restype = i32
+    lib.gn_q8_silu_check.argtypes = [p, p]
+    lib.gn_q8_silu_check.restype = i32
+    lib.gn_q8_div_check.argtypes = [p, i32, i32, p, p]
+    lib.gn_q8_div_check.restype = i32
     return lib

@@ -2,8 +2,8 @@
 
 Port of use_tpu/ops/qconv.py (:34-126) on NCHW activations and OIHW
 weights. use_tpu runs these convs as XLA int8 convolutions; torch has no
-int8 convolution on CUDA, so here the product is ``qconv3x3_s8``, the
-int8-input mode of K3's s8 tensor-core core (csrc/fused_qconv.cu):
+int8 convolution on CUDA, so here the product is ``qconv3x3_s8``, a TMA +
+wgmma implicit GEMM written for Hopper (csrc/qconv_s8.cu):
 
 - ``quantize_per_sample(x)``: symmetric per-sample int8 (max-abs / 127);
 - ``quantize_weight_per_cout(w)``: symmetric per-output-channel int8;
@@ -20,6 +20,15 @@ Both return ``out_dtype(acc * scale)`` without the bias; ``s8_conv``, the
 dispatch under them, adds it in out_dtype, as use_tpu's ``QConv`` does
 (``layers.QConv`` holds the weight and keeps it prepared). The weight is
 quantized by ``prepare_s8_weight``, once per weight and scale.
+
+The kernel's operand layout is "C32", int8 [B, ceil(C/32), 2, H, W, 16]:
+each chunk of 32 channels as two halves of 16, each half pixel-major (the
+16 channels of a pixel in 16 contiguous bytes), zeros past C (``pack_c32``
+/ ``unpack_c32``). Every global stride of it is a multiple of 16 bytes,
+which TMA needs and an NCHW int8 row (W bytes) is not, and a row of a half
+plane is one TMA box row. The int8 producers of the serving path write it
+(K1's int8 apply, the quantizes of ``layers``); ``s8_conv`` takes it, or an
+NCHW operand that it packs.
 
 On a CPU tensor the conv is its plain version: the int8 values convolved in
 float64, whose sums are exact integers (fp32's are not: 127^2 x 2304 >
@@ -39,11 +48,45 @@ import torch
 import torch.nn.functional as F
 
 from use_tpu_torch.ops import cuda_build
-from use_tpu_torch.ops.fused_qconv import TILES, _weights_for_kernel, pick_tile, true_div
+from use_tpu_torch.ops.fused_qconv import CHUNK, true_div
 from use_tpu_torch.ops.gn_stats import no_grad_here, quantize_channels
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 Scale = Union[None, float, torch.Tensor]
+# the kernel's tiles, output rows x pixels x output channels (csrc/qconv_s8.cu)
+TILES = {"16x16x128": 0, "16x8x128": 1}
+BN = 128  # output channels a tile: the prepared weights come in blocks of BN
+HALF = CHUNK // 2  # channels a row of a C32 half plane
+
+
+def pick_tile(w: int) -> str:
+    """The kernel's tile for an image w pixels wide, from both timed on the
+    H100 at the U-Net's levels (PERF.md): the 16-pixel-wide window down to
+    64 x 24 (there its padding costs less than the 8-wide tile's half again
+    as many tiles), the 8-wide one for 12 pixels and fewer."""
+    return "16x8x128" if w <= 12 else "16x16x128"
+
+
+def pack_c32(q: torch.Tensor) -> torch.Tensor:
+    """[B, C, *spatial] -> C32 [B, ceil(C/32), 2, *spatial, 16]: channel
+    32 k + 16 h + j of a position at [b, k, h, ..., j], zeros past C."""
+    b, c = q.shape[:2]
+    nk = -(-c // CHUNK)
+    if nk * CHUNK != c:
+        q = torch.cat([q, q.new_zeros((b, nk * CHUNK - c, *q.shape[2:]))], 1)
+    return q.reshape(b, nk, 2, HALF, *q.shape[2:]).movedim(3, -1).contiguous()
+
+
+def unpack_c32(q: torch.Tensor, c: int) -> torch.Tensor:
+    """The inverse of ``pack_c32``: C32 [B, ceil(C/32), 2, *spatial, 16] ->
+    [B, C, *spatial], contiguous."""
+    b, nk = q.shape[:2]
+    return q.movedim(-1, 3).reshape(b, nk * CHUNK, *q.shape[3:-1])[:, :c].contiguous()
+
+
+def is_c32(q: torch.Tensor, c: int) -> bool:
+    """Whether q has the C32 shape of c channels."""
+    return q.dim() >= 4 and q.shape[1:3] == (-(-c // CHUNK), 2) and q.shape[-1] == HALF
 
 
 def _clip_round(t: torch.Tensor) -> torch.Tensor:
@@ -78,7 +121,21 @@ class S8Weights(NamedTuple):
 
     qw: torch.Tensor  # int8 [O, C, kh, kw]
     sw: torch.Tensor  # fp32 [O], the dequant scale of each output channel
-    qk: Optional[torch.Tensor]  # int8 [ceil(C / 32), 9, O, 32], the kernel's layout (3x3 only)
+    qk: Optional[torch.Tensor]  # int8, the kernel's layout (``_s8_weights``; 3x3 only)
+
+
+def _s8_weights(qw: torch.Tensor) -> torch.Tensor:
+    """int8 [O, C, 3, 3] -> int8 [ceil(O/128), ceil(C/32), 2, 9, 128, 16]: per
+    block of 128 output channels and chunk of 32 input channels, its two
+    halves of 16, each tap by tap, each output channel's 16 channels in 16
+    bytes, zeros past O and C. A (block, chunk) is 36,864 contiguous bytes,
+    the image of a stage's weights in the kernel's shared memory, which one
+    bulk copy brings in."""
+    o, c = qw.shape[:2]
+    no, nk = -(-o // BN), -(-c // CHUNK)
+    w = qw.new_zeros((no * BN, nk * CHUNK, 9))
+    w[:o, :c] = qw.reshape(o, c, 9)
+    return w.reshape(no, BN, nk, 2, HALF, 9).permute(0, 2, 3, 5, 1, 4).contiguous()
 
 
 def prepare_s8_weight(weight: torch.Tensor, u: Optional[torch.Tensor] = None) -> S8Weights:
@@ -90,7 +147,7 @@ def prepare_s8_weight(weight: torch.Tensor, u: Optional[torch.Tensor] = None) ->
                          f"u {None if u is None else tuple(u.shape)}")
     w = weight if u is None else weight.float() * u.float()[None, :, None, None]
     qw, sw = quantize_weight_per_cout(w)
-    qk = _weights_for_kernel(qw) if weight.shape[2:] == (3, 3) else None
+    qk = _s8_weights(qw) if weight.shape[2:] == (3, 3) else None
     return S8Weights(qw, sw.contiguous(), qk)
 
 
@@ -109,7 +166,10 @@ def s8_conv_plain(qx: torch.Tensor, qw: torch.Tensor, scale: torch.Tensor,
                   bias: Optional[torch.Tensor] = None, out_dtype: torch.dtype = torch.float32,
                   stride: int = 1, padding: int = 1, dilation: int = 1) -> torch.Tensor:
     """out_dtype(out_dtype(conv(qx, qw) * scale) + bias): the int32 sums as
-    exact float64 ones, scale [O] or [B, O], bias [O] added in out_dtype."""
+    exact float64 ones, scale [O] or [B, O], bias [O] added in out_dtype;
+    qx NCHW or C32."""
+    if qx.dim() == 6:
+        qx = unpack_c32(qx, qw.shape[1])
     acc = torch.round(F.conv2d(qx.double(), qw.double(), stride=stride, padding=padding,
                                dilation=dilation))
     s = scale.float()
@@ -121,43 +181,53 @@ def s8_conv_plain(qx: torch.Tensor, qw: torch.Tensor, scale: torch.Tensor,
 def qconv3x3_s8(qx: torch.Tensor, prepared: S8Weights, post: Scale = None,
                 bias: Optional[torch.Tensor] = None, out_dtype: torch.dtype = torch.float32,
                 tile: Optional[str] = None) -> torch.Tensor:
-    """The kernel: int8 qx [B, C, H, W] (contiguous NCHW, on the card) ->
-    out_dtype(out_dtype(conv3x3_same(qx, qw) * sw[o] * post[b]) + bias[o]),
-    [B, O, H, W]. post None, a scalar or [B]; bias [O] or None. ``tile``
-    (a key of fused_qconv.TILES) overrides ``pick_tile``."""
+    """The kernel: int8 qx C32 [B, ceil(C/32), 2, H, W, 16] (contiguous, on the
+    card) -> out_dtype(out_dtype(conv3x3_same(qx, qw) * sw[o] * post[b]) +
+    out_dtype(bias[o])), [B, O, H, W]. post None, a scalar or [B] (a fp32
+    tensor on the card, or a number); bias [O] or None. ``tile`` (a key of
+    TILES) overrides ``pick_tile``."""
     no_grad_here("qconv3x3_s8", bias)
     if not qx.is_cuda:
         raise ValueError(f"qconv3x3_s8: the kernel takes a CUDA tensor, got {qx.device}")
-    if qx.dtype != torch.int8 or qx.dim() != 4 or not qx.is_contiguous():
-        raise ValueError(f"qconv3x3_s8: qx must be contiguous int8 NCHW, got {qx.dtype} "
-                         f"{tuple(qx.shape)}")
+    c = prepared.qw.shape[1]
+    if qx.dtype != torch.int8 or qx.dim() != 6 or not is_c32(qx, c) or not qx.is_contiguous():
+        raise ValueError(f"qconv3x3_s8: qx must be contiguous int8 C32 [B, ceil(C/32), 2, H, W, "
+                         f"16] of {c} channels, got {qx.dtype} {tuple(qx.shape)}")
     if out_dtype not in _DTYPE_CODES:
         raise TypeError(f"qconv3x3_s8: out_dtype {out_dtype} (float32, bfloat16)")
-    bsz, c, hh, ww = qx.shape
+    bsz, nk, _, hh, ww, _ = qx.shape
     qk, sw = prepared.qk, prepared.sw
-    if qk is None or qk.dim() != 4 or qk.shape[0] != -(-c // 32) or qk.shape[1] != 9:
+    o = prepared.qw.shape[0]
+    if qk is None or tuple(qk.shape) != (-(-o // BN), nk, 2, 9, BN, HALF):
         raise ValueError(f"qconv3x3_s8: prepared weights of shape "
-                         f"{tuple(prepared.qw.shape)} do not take {c} channels in a 3x3 conv")
-    o = qk.shape[2]
-    if bsz > 65535 or o > 65535 * 64:
-        raise ValueError(f"qconv3x3_s8: batch {bsz} / O {o} exceeds the launch grid")
-    scale = _scale(sw, post).contiguous()
-    if scale.dim() == 2 and scale.shape != (bsz, o):
-        raise ValueError(f"qconv3x3_s8: post-scale for {scale.shape[0]} samples, batch {bsz}")
+                         f"{tuple(prepared.qw.shape)} are not a 3x3 conv's for the kernel")
     dev = qx.device
-    bz = (torch.zeros((o,), device=dev) if bias is None
-          else bias.to(out_dtype).float()).contiguous()
-    for t in (qk, scale, bz):
-        if t.device != dev:
-            raise ValueError("qconv3x3_s8: all tensors must be on one device")
-    tile = pick_tile(hh, ww, o) if tile is None else tile
+    post_ptr, post_stride = None, 0
+    if post is not None:
+        post = torch.as_tensor(post, dtype=torch.float32, device=dev).reshape(-1).contiguous()
+        if post.numel() not in (1, bsz):
+            raise ValueError(f"qconv3x3_s8: post-scale for {post.numel()} samples, batch {bsz}")
+        post_ptr, post_stride = post.data_ptr(), int(post.numel() > 1)
+    bias_ptr = None
+    if bias is not None:
+        bias = bias if bias.dtype == torch.float32 and bias.is_contiguous() else \
+            bias.float().contiguous()
+        if bias.shape != (o,) or bias.device != dev:
+            raise ValueError(f"qconv3x3_s8: bias {tuple(bias.shape)} on {bias.device} for {o} "
+                             f"channels on {dev}")
+        bias_ptr = bias.data_ptr()
+    if qk.device != dev or sw.device != dev or sw.dtype != torch.float32:
+        raise ValueError("qconv3x3_s8: prepared weights must be on the operand's device")
+    if qx.data_ptr() % 16 or qk.data_ptr() % 16 or not qk.is_contiguous():
+        raise ValueError("qconv3x3_s8: qx and the prepared weights must be 16-byte aligned")
+    tile = pick_tile(ww) if tile is None else tile
     if tile not in TILES:
         raise ValueError(f"qconv3x3_s8: tile {tile!r}, not one of {list(TILES)}")
     out = torch.empty((bsz, o, hh, ww), dtype=out_dtype, device=dev)
     status = _lib().qconv3x3_s8(
-        qx.data_ptr(), qk.data_ptr(), scale.data_ptr(), o if scale.dim() == 2 else 0,
-        bz.data_ptr(), out.data_ptr(), _DTYPE_CODES[out_dtype], bsz, c, hh, ww, o,
-        TILES[tile], cuda_build.stream(qx),
+        qx.data_ptr(), qk.data_ptr(), sw.data_ptr(), post_ptr, post_stride, bias_ptr,
+        out.data_ptr(), _DTYPE_CODES[out_dtype], bsz, c, hh, ww, o, TILES[tile],
+        cuda_build.stream(qx),
     )
     cuda_build.check(status, "qconv3x3_s8")
     _counter.launches += 1
@@ -171,12 +241,14 @@ _counter = qconv3x3_s8  # carries the count even while a caller swaps the module
 def s8_conv(qx: torch.Tensor, prepared: S8Weights, post: Scale = None,
             bias: Optional[torch.Tensor] = None, out_dtype: torch.dtype = torch.float32,
             stride: int = 1, padding: int = 1, dilation: int = 1) -> torch.Tensor:
-    """The int8 conv of quantized qx [B, C, H, W] on prepared weights, the
-    plain version on the CPU and ``qconv3x3_s8`` on the card (3x3, stride 1,
-    padding 1, dilation 1; other geometries raise there)."""
+    """The int8 conv of quantized qx, NCHW [B, C, H, W] or C32 [B,
+    ceil(C/32), 2, H, W, 16], on prepared weights: the plain version on the CPU
+    and ``qconv3x3_s8`` on the card (3x3, stride 1, padding 1, dilation 1;
+    other geometries raise there), which packs an NCHW operand first."""
     if qx.dtype != torch.int8:
         raise TypeError(f"s8_conv: qx must be int8, got {qx.dtype}")
-    if qx.dim() != 4 or qx.shape[1] != prepared.qw.shape[1]:
+    c = prepared.qw.shape[1]
+    if not ((qx.dim() == 4 and qx.shape[1] == c) or (qx.dim() == 6 and is_c32(qx, c))):
         raise ValueError(f"s8_conv: qx {tuple(qx.shape)} for weights {tuple(prepared.qw.shape)}")
     if qx.is_cpu:
         return s8_conv_plain(qx, prepared.qw, _scale(prepared.sw, post), bias, out_dtype,
@@ -187,7 +259,8 @@ def s8_conv(qx: torch.Tensor, prepared: S8Weights, post: Scale = None,
             f"s8_conv: the int8 conv kernel takes a 3x3 conv with stride 1, padding 1 and "
             f"dilation 1; got kernel {geometry[0]}, stride {stride}, padding {padding}, "
             f"dilation {dilation}")
-    return qconv3x3_s8(qx.contiguous(), prepared, post, bias, out_dtype)
+    qx = pack_c32(qx) if qx.dim() == 4 else qx.contiguous()
+    return qconv3x3_s8(qx, prepared, post, bias, out_dtype)
 
 
 def qconv2d(x: torch.Tensor, weight: torch.Tensor, stride: int = 1, padding: int = 1,
@@ -219,8 +292,8 @@ def qconv2d_prequant(qx: torch.Tensor, in_scale: Union[float, torch.Tensor],
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
-    lib = cuda_build.load("fused_qconv")
+    lib = cuda_build.load("qconv_s8")
     p, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.qconv3x3_s8.argtypes = [p, p, p, i32, p, p, i32, i32, i32, i32, i32, i32, i32, p]
+    lib.qconv3x3_s8.argtypes = [p, p, p, p, i32, p, p, i32, i32, i32, i32, i32, i32, i32, p]
     lib.qconv3x3_s8.restype = i32
     return lib
