@@ -10,6 +10,8 @@
     python3 chip_smoke.py --csmgan     # build, kernels, then only the CSMGAN
                                        # phases (17-21)
     python3 chip_smoke.py --int8conv   # build, kernels, then only phases 22-25
+    python3 chip_smoke.py --zoo        # build, kernels, then only the GAN zoo's
+                                       # phases (26-28)
 
 Phases, one line each (any failure raises and exits non-zero):
   1. environment: torch / CUDA versions, the card's name and power limit;
@@ -40,7 +42,8 @@ Phases, one line each (any failure raises and exits non-zero):
      device time beside their own (`library_device_ms`);
   4. forward: full-width ncsnpplarge with seeded random weights on
      [8, 512, 192, 4] (the predict path's 8 chunk lanes, one t each), the
-     card (kernels) against the CPU (plain versions), TF32 off; and its bf16
+     card (kernels) against the CPU (plain versions) on FORWARD_CHECK_LANES,
+     TF32 off; and its bf16
      compute path against fp32 on the card for a few seeds, within a limit
      that a deliberately broken bf16 path (GroupNorm sums in bf16) exceeds;
      then the int8 serving network (quant='int8_pallas') in fp32 and bf16,
@@ -52,8 +55,9 @@ Phases, one line each (any failure raises and exits non-zero):
      checks the mirrored, length-matched, finite outputs and that each
      kernel was launched exactly as often as each forward of that run needs;
   6. the LSGAN generator (`ncsnpp`, discriminative, full width) forward at
-     [1, 512, 1536, 2], the card against the CPU, with its exact launches a
-     forward (`PER_GENERATOR_FORWARD`) and K2's calls by level;
+     [1, 512, 1536, 2] with its exact launches a forward
+     (`PER_GENERATOR_FORWARD`) and K2's calls by level, and the card against
+     the CPU on its first GAN_CHECK_FRAMES frames;
   7. flops: the arithmetic of one forward on the card at each of
      FLOPS_FORWARDS' full shapes (convolutions, matmuls, attention, and
      K2's 1x1 products), the work the predict runs' rates are read against;
@@ -79,7 +83,8 @@ Phases, one line each (any failure raises and exits non-zero):
      kernel's launches per microbatch exactly TRAIN_LAUNCHES (with and
      without remat), time and peak device memory with remat and without;
  11. train: the CLI's `train experiment=SGMSE_Large` on TRAIN_CLIPS
-     synth_speech clips (2 optimizer steps of batch 2 x accumulation 4),
+     synth_speech clips (2 optimizer steps of batch 2 x accumulation 4, the
+     loader in the main process),
      with seconds per optimizer step and per microbatch, trained audio-s/s,
      peak memory, the losses, one profiled step's device busy share and the
      run's exact launches; then `predict ckpt_path=<out_dir>/checkpoints
@@ -106,7 +111,8 @@ Phases, one line each (any failure raises and exits non-zero):
      ckpt_path=<out_dir>/checkpoints` on one clip, and `eval
      experiment=LSGAN` of that checkpoint (phase 15's checks);
  15. eval: `eval experiment=SGMSE_Large infer.N=3 eval.max_files=2` with
-     seeded weights on EVAL_CLIPS clips: finite test losses, the rich
+     seeded weights on EVAL_CLIPS clips (every eval run's loader in the main
+     process): finite test losses, the rich
      metrics (si_sdr, si_sir, si_sar, lsd, estoi; pesq_wb where the `pesq`
      package imports), whether figures were drawn, and exact launches (per
      backbone forward, the forwards being the test batches and the
@@ -133,9 +139,10 @@ Phases, one line each (any failure raises and exits non-zero):
      finite outputs; K1, K2 and K3 launched 0 times;
  20. csmgan_train_step: one microbatch of the CSMGAN recipe (4 whole clips
      of 6 s, fp32; the 24k_MVD bank) through the D and G phases on the card
-     against the CPU on the card's leaky-ReLU branches (losses, every D and
-     G gradient within TRAIN_GRAD_REL_TOL of its tensor's largest; TF32 on
-     is the control that must fail), then gan_train_step with both Adam
+     against the CPU on CHECK_CLIPS of the clips, on the card's leaky-ReLU
+     branches (losses, every D and G gradient within TRAIN_GRAD_REL_TOL of
+     its tensor's largest; TF32 on is the control that must fail), then
+     gan_train_step with both Adam
      steps: seconds a microbatch, peak memory, a profiled step's busy share;
  21. train_csmgan: the CLI's `train experiment=CSMGAN` as shipped (4 x 8)
      for one optimizer step over CSMGAN_TRAIN_CLIPS synth_speech clips (6 s
@@ -161,7 +168,31 @@ Phases, one line each (any failure raises and exits non-zero):
  25. npz_predict: `predict ckpt_path=<x>.npz` (use_tpu's flat naming of
      scripts/export_use_tpu_params.py, written here by ``flax_flat``, since
      the card's machine has no JAX) against the same weights as a
-     state_dict, SGMSE_Large and LSGAN: the same wavs, bit for bit.
+     state_dict, SGMSE_Large and LSGAN: the same wavs, bit for bit;
+ 26. gan24k_train_step: phase 13's microbatch (its shapes, weights, batch
+     and crop) against the 24k bank (GAN24K_DISCRIMINATOR: MPD, the DWT
+     multi-scale bank, the mel bank): the D and G phases on the card
+     against the CPU (losses, every D and G gradient within
+     TRAIN_GRAD_REL_TOL of its tensor's largest, the leaky ReLUs of the
+     period and scale banks replayed; TF32 on the control that must
+     fail), then gan_train_step with both Adam steps: launches exactly
+     GAN_TRAIN_LAUNCHES["remat"], seconds a microbatch, peak memory;
+ 27. train_lsgan_24k: the CLI's `train experiment=LSGAN
+     model.discriminator=hifigan_vocoder_discriminator_24k` for one
+     optimizer step, depth cut to GAN24K_OVERRIDES (micro 2 x
+     accumulation 2 on GAN24K_TRAIN_CLIPS clips, loader in the main
+     process): phase 14's checks (finite losses, a checkpoint of G and D,
+     exact launches), a predict of it and `eval experiment=LSGAN` of it
+     with the same bank;
+ 28. zoo_forward: the zoo's library modules at their default widths, the
+     card against the CPU in fp32 (TF32 off) within ZOO_REL_TOL x max|ref|
+     of every output, logit and feature map: HifiganGenerator on 80-bin
+     mel frames for 6 s of 24 kHz audio with NSF off and on (the CPU on
+     the card's draws), BandwidthExtender on a 6 s 8 kHz clip, the
+     multi-scale and multi-spec discriminators and the 24k bank on
+     ZOO_D_SHAPE, and content_criteria, lsgan_g_loss and lsgan_d_loss on
+     the bank's outputs; ms a call, peak memory, K1 / K2 / K3 launches
+     (none).
 Each phase prints its seconds. Then a JSON line of the kernels, the card
 line, and the last line {"ok": true, "device": {...}}.
 """
@@ -226,6 +257,10 @@ QCONV_SHAPES = [  # (B, C, O, H, W): int8 predict path, 8 lanes
 ]
 QCONV_RAGGED = (2, 36, 40, 5, 7)  # ragged channel chunk, O and pixel edges: checked, not timed
 FORWARD_BACKBONE, FORWARD_SHAPE = "ncsnpplarge", (8, 512, 192, 4)  # the 8 lanes of a 6 s clip
+# the lanes of that forward the CPU computes too, the first and the last t
+# (the net takes each lane alone; the CPU's forward of all 8 was most of
+# that phase's time)
+FORWARD_CHECK_LANES = (0, 7)
 BF16_SEEDS = (1, 2, 3)
 # bf16 forward against fp32, relative to max|fp32|: between the readings on
 # BF16_SEEDS (<= 0.013) and the broken control's (0.023) on the H100 (PERF.md)
@@ -245,6 +280,9 @@ INT8_PREDICT_ARGS = ("model.backbone_kwargs.quant=int8_pallas",
                      "model.backbone_kwargs.dtype=bfloat16")
 # the LSGAN generator's forward: a 10 s clip (1501 frames, padded to 1536)
 GAN_FORWARD_SHAPE = (1, 512, 1536, 2)
+# the frames of the generator's input that the card and the CPU both compute
+# (a 5 s clip: the CPU's forward of the 10 s clip was most of that phase's time)
+GAN_CHECK_FRAMES = 768
 CHAIN_N, ODE_N = 4, 3  # ODE: 4N + 1 = 13 network evaluations
 PARALLEL_ARGS = ("infer.sampler_type=parallel_pc", "infer.N=10", "infer.window=8",
                  "infer.tol=0.1")
@@ -268,9 +306,9 @@ GRAD_SKIP_SHAPES = [(2, 256, 128, 512, 512), (2, 512, 256, 128, 128)]  # (B, Ci,
 GRAD_REL_TOL = 1e-4
 TRAIN_EXPERIMENT = "SGMSE_Large"
 TRAIN_SHAPE = (2, 512, 512, 4)  # one microbatch of net input: batch 2, 512 bins x 512 frames
-# clips of the microbatch that the card and the CPU both compute (phases 10
-# and 13: the CPU's is most of those phases' time); the timings run the
-# recipe's TRAIN_SHAPE[0] / GAN_TRAIN_SHAPE[0]
+# clips of the microbatch that the card and the CPU both compute (phases 10,
+# 13, 20 and 26: the CPU's is most of those phases' time); the timings run
+# the recipe's TRAIN_SHAPE[0] / GAN_TRAIN_SHAPE[0] / CSMGAN's batch
 CHECK_CLIPS = 1
 # a gradient on the card against the CPU's: within TRAIN_GRAD_REL_TOL of its
 # own tensor's largest value, every tensor but the attention's key biases,
@@ -287,6 +325,11 @@ TRAIN_LAUNCHES = {
     "no_remat": {"channel_sums": 106, "gn_apply": 106, "fused_skip_add": 34, "qconv3x3_fused": 0},
 }
 TRAIN_CLIPS, TRAIN_CLIP_S = 16, 4  # 16 clips: 2 optimizer steps of 2 x 4 an epoch
+# the loader of the SGMSE train run and of every eval run, in the main
+# process: on their few clips, spawning the recipes' 4 workers a pass took
+# most of those phases' time (PERF.md); train_lsgan and
+# train_csmgan keep the recipes' spawned workers
+IN_PROCESS_LOADER = "data.num_workers=0"
 TRAIN_PREDICT_N = 3
 CROP_S = 81760 / 24000  # a training crop: 511 hops of 160 samples at 24 kHz
 JAX_LEARN_GAIN_DB = 5.65  # tests/test_learning.py:16
@@ -375,6 +418,20 @@ PER_DDPM_FORWARD = {"channel_sums": 77, "gn_apply": 77}
 # predict ckpt_path=<x>.npz against the same weights as a state_dict
 NPZ_EXPERIMENTS = ("SGMSE_Large", "LSGAN")
 NPZ_N, NPZ_CLIPS_S = 2, (3,)
+# the GAN zoo (phases 26-28): the LSGAN recipe with the MPD + MSD + MMD
+# bank (gan24k_train_step on phase 13's shapes; train_lsgan_24k one
+# optimizer step, depth cut to micro 2 x accumulation 2 on 4 clips, the
+# loader in the main process), then the zoo's modules card against CPU
+GAN24K_DISCRIMINATOR = "hifigan_vocoder_discriminator_24k"
+GAN24K_TRAIN_CLIPS = 4
+GAN24K_OVERRIDES = (f"model.discriminator={GAN24K_DISCRIMINATOR}", "data.batch_size=2",
+                    "train.accumulate_grad_batches=2", IN_PROCESS_LOADER)
+ZOO_CLIP_S = 6  # the generators' output: 6 s at 24 kHz
+ZOO_MELS, ZOO_HOP = 80, 256  # HifiganGenerator's input frames: 80 bins, x256 upsampling
+ZOO_NSF = {"nb_harmonics": 8, "sampling_rate": 24000}
+ZOO_BWE_RATE = 8000
+ZOO_D_SHAPE = (2, 76640)  # the discriminators' input: batch 2 of a generator training crop
+ZOO_REL_TOL = 1e-3  # card against CPU, fp32, relative to max|ref| (CSMGAN's limit)
 
 
 def phase(phase_name, **fields):
@@ -402,6 +459,8 @@ def main():
                     help="build, kernels, then only the CSMGAN phases")
     ap.add_argument("--int8conv", action="store_true",
                     help="build, kernels, then only the int8conv, DDPM and .npz phases (22-25)")
+    ap.add_argument("--zoo", action="store_true",
+                    help="build, kernels, then only the GAN zoo's phases (26-28)")
     args = ap.parse_args()
     # the learn phase runs cuBLAS deterministically, which needs this before its first call
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -442,6 +501,8 @@ def main():
         runs.update(csmgan_phases(torch, dev))
     elif args.int8conv:
         runs.update(int8conv_phases(torch, dev))
+    elif args.zoo:
+        runs.update(zoo_phases(torch, dev))
     elif not args.kernels:
         timed("forward", forward_phase, torch, dev)
         timed("int8_forward", int8_forward_phase, torch, dev)
@@ -473,6 +534,7 @@ def main():
         timed("learn", learn_phase, torch, dev)
         runs.update(gan_phases(torch, dev))
         runs.update(csmgan_phases(torch, dev))
+        runs.update(zoo_phases(torch, dev))
         if args.profile:
             timed("profile", profile_phase, torch, dev)
             timed("profile_train", profile_train_phase, torch, dev)
@@ -1116,7 +1178,8 @@ def bf16_statistics_control(torch, lanes=256):
 
 def forward_phase(torch, dev):
     """Full-width forward at the predict path's chunked shape, one t per
-    lane: the card (kernels) against the CPU (plain versions) in fp32; then
+    lane: the card (kernels) against the CPU (plain versions) in fp32 on
+    FORWARD_CHECK_LANES of the card's lanes; then
     the bf16 compute path against fp32 on the card for BF16_SEEDS, and a
     broken bf16 control that the same limit must reject."""
     from use_tpu_torch.models import BackboneRegistry
@@ -1129,21 +1192,22 @@ def forward_phase(torch, dev):
     gen = torch.Generator().manual_seed(0)
     x = 0.5 * torch.randn(FORWARD_SHAPE, generator=gen)
     t = torch.linspace(0.1, 0.9, FORWARD_SHAPE[0])
+    lanes = list(FORWARD_CHECK_LANES)
     with torch.inference_mode():
         t0 = time.perf_counter()
-        ref = net(x, t)
+        ref = net(x[lanes], t[lanes])
         cpu_s = time.perf_counter() - t0
         gnet = copy.deepcopy(net).to(dev)
         xd, td = x.to(dev), t.to(dev)
         out = gnet(xd, td)
         torch.cuda.synchronize()
-        err = float((out.cpu() - ref).abs().max())
+        err = float((out[lanes].cpu() - ref).abs().max())
         top = float(ref.abs().max())
         tol = 1e-3 * top  # fp32 on both sides, ~100 layers summed in other orders
         if not (torch.isfinite(out).all() and err <= tol):
             raise AssertionError(f"forward: card vs CPU max_abs_err {err} > tol {tol}")
         phase("forward", backbone=FORWARD_BACKBONE, shape=list(FORWARD_SHAPE), dtype="float32",
-              tf32=False, t=[round(float(v), 4) for v in t],
+              tf32=False, t=[round(float(v), 4) for v in t], cpu_lanes=lanes,
               max_abs_err=err, tol=tol, max_abs_ref=top, cpu_seconds=round(cpu_s, 2))
         del net, ref
 
@@ -1579,10 +1643,11 @@ def check_outputs(dst, lengths, sr, summary):
 
 def lsgan_forward_phase(torch, dev):
     """The shipped LSGAN generator's backbone (`ncsnpp`, discriminative, fp32,
-    full width) with seeded random weights at GAN_FORWARD_SHAPE: the card
-    (kernels) against the CPU (plain versions) within 1e-3 x max|ref|, as
-    forward_phase; the launches of one forward on the card must equal
-    PER_GENERATOR_FORWARD; K2's calls by level; the forward's time."""
+    full width) with seeded random weights: the card (kernels) against the
+    CPU (plain versions) within 1e-3 x max|ref| on the first
+    GAN_CHECK_FRAMES frames, as forward_phase; at GAN_FORWARD_SHAPE the
+    launches of one forward on the card must equal PER_GENERATOR_FORWARD;
+    K2's calls by level; the forward's time."""
     from use_tpu_torch import ops
     from use_tpu_torch.models import BackboneRegistry
     from use_tpu_torch.models.ncsnpp import layers
@@ -1590,9 +1655,10 @@ def lsgan_forward_phase(torch, dev):
     net = BackboneRegistry.get_by_name("ncsnpp")(discriminative=True, seed=0)
     _randomize(torch, net, seed=1)
     x = 0.5 * torch.randn(GAN_FORWARD_SHAPE, generator=torch.Generator().manual_seed(0))
+    check = x[:, :, :GAN_CHECK_FRAMES].contiguous()
     with torch.inference_mode():
         t0 = time.perf_counter()
-        ref = net(x, None)
+        ref = net(check, None)
         cpu_s = time.perf_counter() - t0
         gnet = copy.deepcopy(net).to(dev)
         xd = x.to(dev)
@@ -1601,18 +1667,20 @@ def lsgan_forward_phase(torch, dev):
             out = gnet(xd, None)
         torch.cuda.synchronize()
         counts = ops.launch_counts()
-        err = float((out.cpu() - ref).abs().max())
+        out_check = gnet(check.to(dev), None)
+        err = float((out_check.cpu() - ref).abs().max())
         top = float(ref.abs().max())
         tol = 1e-3 * top
         ms = time_ms(torch, lambda: gnet(xd, None), reps=5, warmup=1)
     phase("lsgan_forward", backbone="ncsnpp", discriminative=True, shape=list(GAN_FORWARD_SHAPE),
-          dtype="float32", tf32=False, max_abs_err=err, tol=tol, max_abs_ref=top,
+          check_frames=GAN_CHECK_FRAMES, dtype="float32", tf32=False, max_abs_err=err, tol=tol,
+          max_abs_ref=top,
           cpu_seconds=round(cpu_s, 2), ms=ms, launches=counts, skip_calls=by_level(skip_calls))
-    if not (torch.isfinite(out).all() and err <= tol):
+    if not (torch.isfinite(out).all() and torch.isfinite(out_check).all() and err <= tol):
         raise AssertionError(f"lsgan forward: card vs CPU max_abs_err {err} > tol {tol}")
     if counts != all_kernels(PER_GENERATOR_FORWARD):
         raise AssertionError(f"lsgan forward: launches {counts}, expected {PER_GENERATOR_FORWARD}")
-    del net, gnet, ref, out
+    del net, gnet, ref, out, out_check
     torch.cuda.empty_cache()
 
 
@@ -2172,7 +2240,8 @@ def train_steps_timed(torch, dev, task="sgmse", profile_step=True):
 def train_phase(torch, dev):
     """`train experiment=SGMSE_Large` through the CLI, one epoch over
     TRAIN_CLIPS synth_speech clips of TRAIN_CLIP_S seconds (the recipe's
-    data pipeline and workers, batch 2 x accumulation 4, fp32, remat): a
+    data pipeline in the main process, IN_PROCESS_LOADER, batch 2 x
+    accumulation 4, fp32, remat): a
     finite loss, checkpoints and optimized_metric.json; every kernel
     launched exactly TRAIN_LAUNCHES["remat"] times a training microbatch
     plus PER_FORWARD["float32"] times an eval batch. Then `predict
@@ -2197,7 +2266,7 @@ def train_phase(torch, dev):
             summary = cli_main(["train", f"experiment={TRAIN_EXPERIMENT}",
                                 f"data.clean_json_path={jl}", f"data.noise_json_path={jl}",
                                 "data.reverb_use_FRA=true", "train.max_epochs=1",
-                                f"out_dir={out}", f"device={dev}"])
+                                IN_PROCESS_LOADER, f"out_dir={out}", f"device={dev}"])
         torch.cuda.synchronize(dev)
         wall = time.perf_counter() - t0
         counts = ops.launch_counts()
@@ -2355,14 +2424,16 @@ def gan_phases(torch, dev):
     return runs
 
 
-def _gan_model(torch, device, remat=True):
+def _gan_model(torch, device, remat=True, discriminator=None):
     """The LSGAN recipe as the CLI builds it (the `ncsnpp` generator, fp32,
-    remat conv_outs; the 24k_MVD bank; the shipped criterion) on `device`,
-    the generator's weights seeded unit-scale random, D's seeded as Flax's."""
+    remat conv_outs; the 24k_MVD bank, or the `discriminator` of
+    model.discriminator=; the shipped criterion) on `device`, the
+    generator's weights seeded unit-scale random, D's seeded as Flax's."""
     from use_tpu_torch.cli.main import _build_model
     from use_tpu_torch.config.config import load_config
 
-    cfg = load_config(GAN_EXPERIMENT)
+    cfg = load_config(GAN_EXPERIMENT, [f"model.discriminator={discriminator}"]
+                      if discriminator else None)
     gan = _build_model(cfg, "cpu")
     net = gan.generator.net
     net.cfg = dataclasses.replace(net.cfg, remat=remat)
@@ -2512,7 +2583,7 @@ def _cpu_grads(gan):
     return {k: g.detach().cpu().clone() for k, g in _gan_grads(gan).items()}
 
 
-def gan_train_step_phase(torch, dev):
+def gan_train_step_phase(torch, dev, discriminator=None):
     """One full-width LSGAN microbatch (phase 13; CHECK_CLIPS clips): the D
     phase and the G phase (against the same D) on the card (kernels) and on
     the CPU (plain versions), on the same weights, batch and crop start, the CPU on the
@@ -2526,10 +2597,15 @@ def gan_train_step_phase(torch, dev):
     TF32 on off by more; then gan_train_step (both Adam steps) on the
     recipe's microbatch (GAN_TRAIN_SHAPE): finite, moved weights, launches
     exactly GAN_TRAIN_LAUNCHES with remat (median time of 3, and one profiled: the share of its wall time the card ran a
-    kernel) and without, and peak device memory."""
+    kernel) and without, and peak device memory. With `discriminator`
+    (phase 26, gan24k_train_step: GAN24K_DISCRIMINATOR) the same microbatch
+    against that bank, the leaky ReLUs of its multi-scale bank replayed
+    too; its gan_train_step is timed with remat only (median of 3, no
+    profile)."""
     from use_tpu_torch.engine.loop import build_gan_train_state
 
-    cpu, cfg = _gan_model(torch, "cpu")
+    label = "gan_train_step" if discriminator is None else "gan24k_train_step"
+    cpu, cfg = _gan_model(torch, "cpu", discriminator=discriminator)
     batch, start = _gan_batch(torch, cpu, CHECK_CLIPS)
     gan = _gan_to(torch, copy.deepcopy(cpu), dev)
     key_biases = {f"G.{name}.NIN_1.b" for name, m in gan.generator.net.named_modules()
@@ -2575,20 +2651,24 @@ def gan_train_step_phase(torch, dev):
                  + list(gan.discriminator.parameters()))
     del before, before_d
     times = [step_s] + [_gan_step_launches(torch, gan, state, batch, start)[1] for _ in range(2)]
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        wall = _gan_step_launches(torch, gan, state, batch, start)[1]
-    kernel_s, busy_s, busy = kernel_busy(prof, wall)
-    profiled = {"wall_s": wall, "kernel_s": kernel_s, "kernel_union_s": busy_s, "busy_share": busy}
     net = gan.generator.net
-    net.cfg = dataclasses.replace(net.cfg, remat=False)
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats(dev)
-    counts_no_remat, no_remat_s = _gan_step_launches(torch, gan, state, batch, start)
-    peak_no_remat = torch.cuda.max_memory_allocated(dev)
+    profiled = counts_no_remat = no_remat_s = peak_no_remat = None
+    if discriminator is None:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            wall = _gan_step_launches(torch, gan, state, batch, start)[1]
+        kernel_s, busy_s, busy = kernel_busy(prof, wall)
+        profiled = {"wall_s": wall, "kernel_s": kernel_s, "kernel_union_s": busy_s,
+                    "busy_share": busy}
+        net.cfg = dataclasses.replace(net.cfg, remat=False)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        counts_no_remat, no_remat_s = _gan_step_launches(torch, gan, state, batch, start)
+        peak_no_remat = torch.cuda.max_memory_allocated(dev)
     n_g, n_d = len(list(net.parameters())), len(list(gan.discriminator.parameters()))
-    phase("gan_train_step", experiment=GAN_EXPERIMENT, shape=list(GAN_TRAIN_SHAPE),
+    phase(label, experiment=GAN_EXPERIMENT, shape=list(GAN_TRAIN_SHAPE),
+          discriminator=cfg["model"]["discriminator"],
           check_clips=CHECK_CLIPS, clip_samples=check_samples, crop_start=start,
           dtype="float32",
           tf32=bool(torch.backends.cudnn.allow_tf32), remat_policy=net.cfg.remat_policy,
@@ -2621,13 +2701,14 @@ def gan_train_step_phase(torch, dev):
     if not rel_tf32[worst_tf32] > TRAIN_GRAD_REL_TOL:
         failed.append(f"the TF32 control passes ({rel_tf32[worst_tf32]} <= {TRAIN_GRAD_REL_TOL})")
     if (counts != all_kernels(GAN_TRAIN_LAUNCHES["remat"])
-            or counts_no_remat != all_kernels(GAN_TRAIN_LAUNCHES["no_remat"])):
+            or (discriminator is None
+                and counts_no_remat != all_kernels(GAN_TRAIN_LAUNCHES["no_remat"]))):
         failed.append(f"launches {counts} / {counts_no_remat}, expected {GAN_TRAIN_LAUNCHES}")
     if not finite or moved[0] < n_g or moved[1] < n_d:
         failed.append(f"the optimizer steps moved {moved} of {(n_g, n_d)} parameters, "
                       f"finite {finite}")
     if failed:
-        raise AssertionError("gan_train_step: " + "; ".join(failed))
+        raise AssertionError(f"{label}: " + "; ".join(failed))
     del gan, net, state
     torch.cuda.empty_cache()
 
@@ -2652,7 +2733,7 @@ def forward_counts(net_cls=None):
         net_cls.forward = real
 
 
-def eval_phase(torch, dev, experiment, ckpt, per_forward, jl=None, net_cls=None):
+def eval_phase(torch, dev, experiment, ckpt, per_forward, jl=None, net_cls=None, overrides=()):
     """The CLI's `eval experiment=<experiment>` (phase 15) on EVAL_CLIPS
     synth_speech clips (test losses of every test batch, then the rich
     harness over EVAL_FILES utterances, SGMSE at N=EVAL_N): finite test
@@ -2660,7 +2741,9 @@ def eval_phase(torch, dev, experiment, ckpt, per_forward, jl=None, net_cls=None)
     imports), whether figures were drawn, and each kernel's launches
     exactly per_forward times the backbone forwards, which are the test
     batches plus the harness's (EVAL_N a file for SGMSE, one for LSGAN and
-    CSMGAN), the forwards of `net_cls` (NCSNpp by default)."""
+    CSMGAN), the forwards of `net_cls` (NCSNpp by default). The loader runs
+    in the main process (IN_PROCESS_LOADER); `overrides` go to the CLI as
+    they are."""
     from use_tpu_torch import ops
     from use_tpu_torch.cli.main import main as cli_main
 
@@ -2668,8 +2751,8 @@ def eval_phase(torch, dev, experiment, ckpt, per_forward, jl=None, net_cls=None)
         jl = jl or write_corpus(os.path.join(tmp, "corpus"), EVAL_CLIPS, TRAIN_CLIP_S)
         argv = ["eval", f"experiment={experiment}", f"data.clean_json_path={jl}",
                 f"data.noise_json_path={jl}", "data.reverb_use_FRA=true",
-                f"eval.max_files={EVAL_FILES}", f"infer.N={EVAL_N}",
-                f"out_dir={os.path.join(tmp, 'eval')}", f"device={dev}"]
+                f"eval.max_files={EVAL_FILES}", f"infer.N={EVAL_N}", IN_PROCESS_LOADER,
+                f"out_dir={os.path.join(tmp, 'eval')}", f"device={dev}", *overrides]
         if ckpt:
             argv.append(f"ckpt_path={ckpt}")
         torch.cuda.synchronize(dev)
@@ -2689,7 +2772,9 @@ def eval_phase(torch, dev, experiment, ckpt, per_forward, jl=None, net_cls=None)
         keys = RICH_KEYS | {"pesq_wb"}
     except ImportError:
         keys = RICH_KEYS
-    phase("eval", experiment=experiment, ckpt=bool(ckpt), test=summary["test"],
+    phase("eval", experiment=experiment,
+          overrides=list(dict.fromkeys([IN_PROCESS_LOADER, *overrides])), ckpt=bool(ckpt),
+          test=summary["test"],
           rich=summary["rich"], files=summary.get("files"), figures=summary["figures"],
           figures_drawn=summary["figures"] > 0, test_batches=rec["eval_steps"],
           forwards=forwards[0], expected_forwards=want_forwards, launches=counts,
@@ -2707,7 +2792,7 @@ def eval_phase(torch, dev, experiment, ckpt, per_forward, jl=None, net_cls=None)
 
 
 def train_gan_phase(torch, dev, experiment, clips, splice_s, crop_s, per_micro, per_forward,
-                    predict_args=(), net_cls=None):
+                    predict_args=(), net_cls=None, overrides=(), label=None):
     """`train experiment=<experiment>` (task=lsgan) through the CLI as
     shipped (phase 14 LSGAN: micro 2 x accumulation 16, remat; phase 21
     CSMGAN: micro 4 x accumulation 8), Adam 5e-4 / 2e-4, fp32, 4 loader
@@ -2720,8 +2805,10 @@ def train_gan_phase(torch, dev, experiment, clips, splice_s, crop_s, per_micro, 
     a microbatch, trained audio-s/s, the loader's wait, peak memory. Then
     `predict ... ckpt_path=<out_dir>/checkpoints *predict_args` on one 3 s
     clip (`per_forward` launches), and `eval` of that checkpoint
-    (eval_phase, counting `net_cls` forwards). -> launches of the train run
-    and the eval."""
+    (eval_phase, counting `net_cls` forwards). `overrides` (phase 27,
+    train_lsgan_24k: the discriminator and the depth cut) go to the config
+    and to every CLI call, and the run is labelled `label`. -> launches of
+    the train run and the eval."""
     from use_tpu_torch import ops
     from use_tpu_torch.cli.main import main as cli_main
     from use_tpu_torch.cli.main import resolve_auto_batch
@@ -2729,8 +2816,9 @@ def train_gan_phase(torch, dev, experiment, clips, splice_s, crop_s, per_micro, 
     from use_tpu_torch.engine.checkpoint import CheckpointManager
 
     sr = 24000
-    label = f"train_{experiment.lower()}"
-    cfg = load_config(experiment)
+    eval_label = f"eval {experiment}" if label is None else f"eval {label}"
+    label = label or f"train_{experiment.lower()}"
+    cfg = load_config(experiment, overrides)
     resolve_auto_batch(cfg)
     batch = cfg["data"]["batch_size"]
     per_step = batch * cfg["train"]["accumulate_grad_batches"]
@@ -2750,7 +2838,7 @@ def train_gan_phase(torch, dev, experiment, clips, splice_s, crop_s, per_micro, 
                                 f"data.clean_json_path={jl}", f"data.noise_json_path={jl}",
                                 "data.reverb_use_FRA=true", "train.max_epochs=1",
                                 f"data.speech_splice_seconds={splice_s}",
-                                f"out_dir={out}", f"device={dev}"])
+                                f"out_dir={out}", f"device={dev}", *overrides])
         torch.cuda.synchronize(dev)
         wall = time.perf_counter() - t0
         counts = ops.launch_counts()
@@ -2766,7 +2854,8 @@ def train_gan_phase(torch, dev, experiment, clips, splice_s, crop_s, per_micro, 
         step_s = rec["step_s"]
         want = {k: v * micro + all_kernels(per_forward)[k] * rec["eval_steps"]
                 for k, v in all_kernels(per_micro).items()}
-        phase(label, experiment=experiment, clips=clips, clip_s=TRAIN_CLIP_S, splice_s=splice_s,
+        phase(label, experiment=experiment, overrides=list(overrides), clips=clips,
+              clip_s=TRAIN_CLIP_S, splice_s=splice_s,
               corpus_seconds=round(corpus_s, 2), tf32=bool(torch.backends.cudnn.allow_tf32),
               optimizer_steps=summary["optimizer_steps"], microbatches=micro,
               trained_clips=summary["clips"], eval_batches=rec["eval_steps"],
@@ -2794,7 +2883,7 @@ def train_gan_phase(torch, dev, experiment, clips, splice_s, crop_s, per_micro, 
         ops.reset_launch_counts()
         psum = cli_main(["predict", f"experiment={experiment}", f"ckpt_path={ckpts}",
                          f"predict.data_folder={src}", f"predict.target_folder={dst}",
-                         f"device={dev}", *predict_args])
+                         f"device={dev}", *predict_args, *overrides])
         torch.cuda.synchronize(dev)
         pcounts = ops.launch_counts()
         check_outputs(dst, lengths, sr, psum)
@@ -2804,10 +2893,10 @@ def train_gan_phase(torch, dev, experiment, clips, splice_s, crop_s, per_micro, 
         if pcounts != all_kernels(per_forward):
             raise AssertionError(f"predict of the trained {experiment}: launches {pcounts}, "
                                  f"expected {per_forward}")
-        eval_counts = timed(f"eval {experiment}", eval_phase, torch, dev, experiment, ckpts,
-                            per_forward, None, net_cls)
+        eval_counts = timed(eval_label, eval_phase, torch, dev, experiment, ckpts,
+                            per_forward, None, net_cls, overrides)
     torch.cuda.empty_cache()
-    return {label: counts, f"eval {experiment}": eval_counts}
+    return {label: counts, eval_label: eval_counts}
 
 
 def _gan_learn_worker(det, device):
@@ -3199,7 +3288,8 @@ def csmgan_train_step_phase(torch, dev):
     """Phase 20: one microbatch of the CSMGAN recipe (the data's batch of
     whole 6 s clips: CSMGAN trains crop-free), its D phase and its G phase
     (against the same D) on the card and on the CPU on the same weights and
-    batch. The CPU computes the function the card computed wherever the
+    CHECK_CLIPS of the batch's clips (the timings run the whole batch). The
+    CPU computes the function the card computed wherever the
     card's rounding picks one: each leaky ReLU of D and PReLU of G takes the
     card's branch (lrelu_branches, prelu_branches: a flipped input's term
     jumps by 0.9 / 0.99), D's phase runs on the card's fake, and D's mel
@@ -3225,23 +3315,24 @@ def csmgan_train_step_phase(torch, dev):
     clips = int(cfg["data"]["batch_size"])
     clean, noisy = _csmgan_pairs(clips)
     batch = {"clean": torch.from_numpy(clean), "perturbed": torch.from_numpy(noisy)}
+    check = {k: v[:CHECK_CLIPS] for k, v in batch.items()}
     gan = _gan_to(torch, copy.deepcopy(cpu), dev)
     cpu.g_loss_cfg = gan.g_loss_cfg = dataclasses.replace(shipped, alpha_mag_log=0.0,
                                                           alpha_mel_log=0.0)
     torch.cuda.reset_peak_memory_stats(dev)
     with lrelu_branches(torch) as card, mel_inputs(torch) as mels:
-        loss_d, logs, first_s, d_fake, g_fake, prelus = _csmgan_microbatch(torch, gan, batch)
+        loss_d, logs, first_s, d_fake, g_fake, prelus = _csmgan_microbatch(torch, gan, check)
     grads = _cpu_grads(gan)
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
     try:
         with lrelu_branches(torch, card["masks"]), mel_inputs(torch, mels["mels"]):
-            _csmgan_microbatch(torch, gan, batch, d_fake, prelus["masks"])
+            _csmgan_microbatch(torch, gan, check, d_fake, prelus["masks"])
     finally:
         torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
     grads_tf32 = _cpu_grads(gan)
     with lrelu_branches(torch, card["masks"]) as branches, mel_inputs(torch, mels["mels"]):
         loss_d_cpu, logs_cpu, cpu_s, _, g_fake_cpu, prelus_cpu = _csmgan_microbatch(
-            torch, cpu, batch, d_fake.cpu(), prelus["masks"])
+            torch, cpu, check, d_fake.cpu(), prelus["masks"])
     grads_cpu = _cpu_grads(cpu)
     del cpu, card, mels
     rel, _ = _gan_grad_errors(grads, grads_cpu, set())
@@ -3252,8 +3343,8 @@ def csmgan_train_step_phase(torch, dev):
                  **{k: abs(v - logs_cpu[k]) / max(abs(logs_cpu[k]), 1e-30)
                     for k, v in logs.items() if logs_cpu[k] != 0.0}}
     log_terms = {}
-    for name, fake, cl in (("card", g_fake, batch["clean"].to(dev)),
-                           ("cpu", g_fake_cpu, batch["clean"])):
+    for name, fake, cl in (("card", g_fake, check["clean"].to(dev)),
+                           ("cpu", g_fake_cpu, check["clean"])):
         with torch.no_grad():
             terms = losses.wav_spec_convergence(cl, fake, shipped)
         log_terms[name] = {k: float(terms[k]) for k in ("mag_log", "mel_log")}
@@ -3280,6 +3371,7 @@ def csmgan_train_step_phase(torch, dev):
     kernel_s, busy_s, busy = kernel_busy(prof, wall)
     n_g = len(list(gan.generator.net.parameters()))
     phase("csmgan_train_step", experiment=CSMGAN_EXPERIMENT, clips=clips,
+          check_clips=CHECK_CLIPS,
           clip_samples=int(clean.shape[-1]), dtype="float32",
           tf32=bool(torch.backends.cudnn.allow_tf32), criterion="shipped without mag_log, mel_log",
           loss_D=float(loss_d), loss_D_cpu=float(loss_d_cpu), logs=logs, logs_cpu=logs_cpu,
@@ -3320,6 +3412,168 @@ def csmgan_train_step_phase(torch, dev):
     if failed:
         raise AssertionError("csmgan_train_step: " + "; ".join(failed))
     del gan, state
+    torch.cuda.empty_cache()
+
+
+def zoo_phases(torch, dev):
+    """Phases 26-28; -> {run label: launches by kernel} of train_lsgan_24k
+    and its eval."""
+    timed("gan24k_train_step", gan_train_step_phase, torch, dev, GAN24K_DISCRIMINATOR)
+    runs = timed("train_lsgan_24k", train_gan_phase, torch, dev, GAN_EXPERIMENT,
+                 GAN24K_TRAIN_CLIPS, GAN_SPLICE_S, GAN_CROP_S, GAN_TRAIN_LAUNCHES["remat"],
+                 PER_GENERATOR_FORWARD, (), None, GAN24K_OVERRIDES, "train_lsgan_24k")
+    timed("zoo_forward", zoo_forward_phase, torch, dev)
+    return runs
+
+
+def _flat(torch, out):
+    """The tensors of a nested output (tensors, lists, tuples), in order."""
+    if isinstance(out, torch.Tensor):
+        return [out]
+    return [t for o in out for t in _flat(torch, o)]
+
+
+def _zoo_case(torch, dev, name, cpu_fn, card_fn):
+    """card_fn(), then cpu_fn(), without autograd: every tensor of the
+    card's output against the CPU's, each relative to its own max|ref|; ms
+    a card call (median of 5), peak memory, launches. -> (record, card
+    output, CPU output)."""
+    from use_tpu_torch import ops
+
+    with torch.no_grad():
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        ops.reset_launch_counts()
+        out = card_fn()
+        torch.cuda.synchronize(dev)
+        peak = torch.cuda.max_memory_allocated(dev)
+        counts = ops.launch_counts()
+        t0 = time.perf_counter()
+        ref = cpu_fn()
+        cpu_s = time.perf_counter() - t0
+        ms = time_ms(torch, card_fn, reps=5, warmup=1)
+    got, want = _flat(torch, out), _flat(torch, ref)
+    errs = [_rel(g, w) for g, w in zip(got, want)]
+    rec = {"case": name, "tensors": len(want), "max_rel_err": max(errs),
+           "worst_tensor": int(np.argmax(errs)),
+           "shapes_equal": len(got) == len(want) and all(
+               tuple(g.shape) == tuple(w.shape) for g, w in zip(got, want)),
+           "finite": all(bool(torch.isfinite(g).all()) for g in got),
+           "ms": ms, "cpu_seconds": round(cpu_s, 2), "peak_memory_bytes": peak,
+           "launches": counts}
+    return rec, out, ref
+
+
+def zoo_forward_phase(torch, dev):
+    """Phase 28: the GAN zoo's modules at their default widths, fp32, TF32
+    off, seeded weights, the card against the CPU on the same weights and
+    inputs: HifiganGenerator (512 channels, x8 x8 x2 x2) on ZOO_MELS-bin
+    frames for ZOO_CLIP_S s of 24 kHz audio, NSF off and on (ZOO_NSF; the
+    card draws the source, the CPU takes the card's draws);
+    BandwidthExtender on a ZOO_CLIP_S s clip at ZOO_BWE_RATE;
+    MultiScaleDiscriminator, MultiSpecDiscriminator and the 24k bank on
+    ZOO_D_SHAPE synth_speech crops (the bank on the noisy and the clean
+    crop, the CPU on the card's mel inputs); then lsgan_g_loss,
+    lsgan_d_loss and content_criteria on the
+    bank's logits and the crops, each device on its own. Every output,
+    logit, feature map and loss within ZOO_REL_TOL x its max|ref|; ms a
+    call, peak memory; K1, K2 and K3 launched no time."""
+    from use_tpu_torch.data.synth_speech import synth_pair
+    from use_tpu_torch.models.gan import losses
+    from use_tpu_torch.models.gan.discriminators import reset_parameters
+    from use_tpu_torch.models.gan.hifigan_bwe import BandwidthExtender
+    from use_tpu_torch.models.gan.hifigan_vocoder import HifiganGenerator
+    from use_tpu_torch.models.gan.msd import MultiScaleDiscriminator
+    from use_tpu_torch.models.gan.spec_discriminator import MultiSpecDiscriminator
+    from use_tpu_torch.models.registry import DiscriminatorRegistry
+
+    rng = np.random.default_rng(0)
+    frames = -(-ZOO_CLIP_S * 24000 // ZOO_HOP)
+    mel = rng.standard_normal((1, ZOO_MELS, frames)).astype(np.float32)
+    f0 = rng.uniform(80.0, 300.0, (1, 1, frames)).astype(np.float32)
+    voiced = (rng.uniform(size=(1, 1, frames)) > 0.3).astype(np.float32)
+    records = []
+
+    def case(name, module, fn, *inputs):
+        """`module` seeded on the CPU and copied to the card; fn(module, *inputs)."""
+        card = copy.deepcopy(module).to(dev)
+        on_card = [x.to(dev) if isinstance(x, torch.Tensor) else x for x in inputs]
+        rec, out, ref = _zoo_case(torch, dev, name, lambda: fn(module, *inputs),
+                                  lambda: fn(card, *on_card))
+        records.append(rec)
+        del card
+        return out, ref
+
+    for nsf in (None, ZOO_NSF):
+        gen = HifiganGenerator(nsf_params=nsf, seed=1)
+        x = torch.from_numpy(mel if nsf is None else np.concatenate([mel, f0, voiced], 1))
+        if nsf is None:
+            case("hifigan_generator", gen, lambda m, x: m(x), x)
+        else:
+            draws = gen.source_module.draw(1, frames * ZOO_HOP, dev,
+                                           torch.Generator(device=dev).manual_seed(2))
+            cpu_draws = tuple(d.cpu() for d in draws)
+            card = copy.deepcopy(gen).to(dev)
+            rec, _, _ = _zoo_case(torch, dev, "hifigan_generator nsf",
+                                  lambda: gen(x, source_draws=cpu_draws),
+                                  lambda: card(x.to(dev), source_draws=draws))
+            records.append(rec)
+            del card
+        del gen
+    n = ZOO_CLIP_S * ZOO_BWE_RATE
+    low = torch.from_numpy(synth_pair(n, 50, snr_db=20.0, sr=ZOO_BWE_RATE)[1][None])
+    case("hifigan_bwe", BandwidthExtender(seed=3), lambda m, x: m(x, ZOO_BWE_RATE), low)
+    pairs = [synth_pair(ZOO_D_SHAPE[1], 60 + i, snr_db=5.0) for i in range(ZOO_D_SHAPE[0])]
+    clean, fake = (torch.from_numpy(np.stack([p[j] for p in pairs])) for j in (0, 1))
+    for name, module in (("multi_scale_discriminator", MultiScaleDiscriminator()),
+                         ("multi_spec_discriminator", MultiSpecDiscriminator())):
+        reset_parameters(module, torch.Generator().manual_seed(4))
+        case(name, module, lambda m, x: m(x), fake)
+    # the bank on the noisy and on the clean crop, whose digital silence
+    # gives mel bins of the DFTs' rounding, which log(mel + 1e-5) reads: the
+    # CPU takes the card's mel inputs (mel_inputs, as phase 20)
+    bank = DiscriminatorRegistry.get_by_name(GAN24K_DISCRIMINATOR)(seed=5)
+    card_bank = copy.deepcopy(bank).to(dev)
+    mels = []
+
+    def on_card():
+        if mels:
+            return card_bank(fake.to(dev)), card_bank(clean.to(dev))
+        with mel_inputs(torch) as rec:
+            out = card_bank(fake.to(dev)), card_bank(clean.to(dev))
+        mels.extend(rec["mels"])
+        return out
+
+    def on_cpu():
+        with mel_inputs(torch, mels):
+            return bank(fake), bank(clean)
+
+    rec, out, ref = _zoo_case(torch, dev, GAN24K_DISCRIMINATOR, on_cpu, on_card)
+    records.append(rec)
+    del bank, card_bank
+
+    def criteria(bank_out, f, c):
+        (lg_f, _), (lg_r, _) = bank_out
+        batch = {"predicted_fake_logits": lg_f, "predicted_clean_logits": lg_r}
+        return (losses.lsgan_g_loss(batch)["loss_G"], losses.lsgan_d_loss(batch)["loss_D"],
+                *losses.content_criteria(f, c, 24000))
+
+    with torch.no_grad():
+        got = criteria(out, fake.to(dev), clean.to(dev))
+        want = criteria(ref, fake, clean)
+    names = ("lsgan_g_loss", "lsgan_d_loss", "content_wav", "content_stft", "content_mel")
+    loss_errs = {k: _rel(g.reshape(1), w.reshape(1)) for k, g, w in zip(names, got, want)}
+    loss_values = {k: float(w) for k, w in zip(names, want)}
+    phase("zoo_forward", dtype="float32", tf32=bool(torch.backends.cudnn.allow_tf32),
+          tol=ZOO_REL_TOL, clip_s=ZOO_CLIP_S, mel_frames=frames, bwe_rate=ZOO_BWE_RATE,
+          d_shape=list(ZOO_D_SHAPE), cases=records, loss_rel_errs=loss_errs,
+          losses=loss_values)
+    failed = [f"{r['case']}: {r}" for r in records
+              if not (r["shapes_equal"] and r["finite"] and r["max_rel_err"] <= ZOO_REL_TOL
+                      and r["launches"] == all_kernels(NO_LAUNCHES))]
+    failed += [f"{k} off by {e}" for k, e in loss_errs.items() if not e <= ZOO_REL_TOL]
+    if failed:
+        raise AssertionError("zoo_forward: " + "; ".join(failed))
     torch.cuda.empty_cache()
 
 

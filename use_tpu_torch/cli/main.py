@@ -33,6 +33,13 @@ enhances each file chunk by chunk through a CSMGANStream session of
 `predict.chunk_frames` STFT frames a chunk (default 4, at least 2), reused
 from file to file where the batch allows.
 
+task=lsgan takes its discriminator bank from `model.discriminator=`: the
+recipes' `hifigan_vocoder_discriminator_24k_MVD`, or
+`hifigan_vocoder_discriminator_24k` (MPD, the DWT multi-scale bank, the
+mel bank). The generators `hifigan_generator` and `hifigan_bwe` are
+registered but lack the GAN task's interface: `model.generator.name=` of
+either is refused before a model is built, as use_tpu refuses them.
+
 `train` trains from `train.seed` (task=sgmse the score network; task=lsgan
 the generator and the discriminator, two optimizers), writes
 `metrics.csv`, `checkpoints/` (one step an epoch) and, after a test of the
@@ -130,14 +137,15 @@ def _build_model(cfg: Dict, device: str):
     if cfg["task"] == "lsgan":
         gcfg = dict(cfg["model"]["generator"])
         gen_name = gcfg.pop("name", "ncsnpp_wrapper")
-        gen = GeneratorRegistry.get_by_name(gen_name)(**gcfg, device=device, seed=seed)
-        missing = [a for a in GENERATOR_INTERFACE if not hasattr(gen, a)]
+        cls = GeneratorRegistry.get_by_name(gen_name)
+        missing = [a for a in GENERATOR_INTERFACE if not callable(getattr(cls, a, None))]
         if missing:
             raise SystemExit(
-                f"model.generator.name={gen_name} resolves {type(gen).__name__}, which "
+                f"model.generator.name={gen_name} resolves {cls.__name__}, which "
                 f"lacks the LSGAN generator interface ({', '.join(missing)}); the usable "
                 "generators for the GAN task are ncsnpp_wrapper and csmgan"
             )
+        gen = cls(**gcfg, device=device, seed=seed)
         return LSGAN(generator=gen, discriminator=cfg["model"].get("discriminator"),
                      g_loss_cfg=cfg["model"].get("g_loss"),
                      enhanced_key=cfg["model"].get("enhanced_key", "fake"), seed=seed)

@@ -24,6 +24,12 @@ use_tpu's scope names (``MPD.period2.conv0``):
     2-D conv kernel [kh, kw, I, O]      -> weight [O, I, kh, kw]
     1-D conv kernel [k, I / groups, O]  -> weight [O, I / groups, k]
 
+The GAN zoo's generators, HifiganGenerator and BandwidthExtender, keep
+use_tpu's scopes too (``hifigan_generator_params_to_state_dict``,
+``bwe_params_to_state_dict``), with one more rule for a transposed conv:
+
+    ConvTranspose kernel [k, I, O]      -> weight [I, O, k], taps reversed
+
 ``csmgan_params_to_state_dict`` maps use_tpu's CSMGAN params onto the
 port's CSMGAN, whose keys are the reference's torch module paths (the
 inverse of convert_torch.py::convert_csmgan_state_dict, :358):
@@ -127,18 +133,38 @@ def lsgan_params_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Ten
 
 
 def discriminator_params_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """use_tpu discriminator params (the second of ``LSGAN.init_params``,
-    e.g. HifiganVocoderDiscriminator24kMVD's) -> the port's D state_dict."""
+    """use_tpu discriminator params (the second of ``LSGAN.init_params``:
+    the 24k_MVD and 24k banks', the multi-scale and spectrogram
+    discriminators') -> the port's D state_dict."""
     out: Dict[str, torch.Tensor] = {}
     for path, value in _flatten(params):
         arr = np.asarray(value)
         leaf = path[-1]
-        if leaf == "kernel" and arr.ndim == 3:  # [k, I/g, O] -> [O, I/g, k]
-            leaf, arr = "weight", np.transpose(arr, (2, 1, 0))
+        if leaf == "kernel" and arr.ndim == 3:
+            if path[-2].startswith("ConvTranspose"):  # [k, I, O] -> flipped [I, O, k]
+                arr = np.transpose(arr[::-1], (1, 2, 0))
+            else:  # [k, I/g, O] -> [O, I/g, k]
+                arr = np.transpose(arr, (2, 1, 0))
+            leaf = "weight"
         else:
             leaf, arr = _convert_leaf(leaf, arr)
         out[".".join(path[:-1] + (leaf,))] = torch.from_numpy(np.ascontiguousarray(arr).copy())
     return out
+
+
+def hifigan_generator_params_to_state_dict(params: Mapping[str, Any]
+                                           ) -> Dict[str, torch.Tensor]:
+    """use_tpu HifiganGenerator params -> the port's HifiganGenerator
+    state_dict. Its transposed convs' kernels [k, I, O] are flipped along
+    k and laid out [I, O, k]: lax.conv_transpose correlates with the kernel
+    as given, torch's conv_transpose1d with it flipped."""
+    return discriminator_params_to_state_dict(params)
+
+
+def bwe_params_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """use_tpu BandwidthExtender params -> the port's BandwidthExtender
+    state_dict (1-D kernels [k, I, O] -> [O, I, k])."""
+    return discriminator_params_to_state_dict(params)
 
 
 # use_tpu's GLFB scopes (the path under enc{i}_glfb{d} / dec{i}_glfb{d} up to

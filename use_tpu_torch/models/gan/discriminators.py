@@ -10,7 +10,9 @@ hifigan.py:200-303, hifigan/open_models.py:282-331):
   polyphase resampling;
 - MultiMelSpecDiscriminator: 2-D convs, InstanceNorm and GLU over log-mel;
 - HifiganVocoderDiscriminator24kMVD, the shipped composite of the three,
-  registered as ``hifigan_vocoder_discriminator_24k_MVD``.
+  registered as ``hifigan_vocoder_discriminator_24k_MVD``;
+- HifiganVocoderDiscriminator24k, MPD, the DWT multi-scale bank of msd.py
+  and the multi-mel bank, registered as ``hifigan_vocoder_discriminator_24k``.
 
 Waveforms are [B, T]; feature maps [B, C, T] (1-D) and [B, C, H, W] (2-D),
 use_tpu's NWC / NHWC maps transposed. Each module returns (logits,
@@ -18,7 +20,8 @@ feature maps); a bank returns lists over its discriminators and the
 composite lists over its banks, [bank][disc]. Convolutions are plain, with
 weight norm folded as in use_tpu; parameters are named as use_tpu's Flax
 scopes (``MPD.period2.conv0.weight``), initialized from a seed like Flax's
-defaults (LeCun-normal kernels, zero biases).
+defaults (LeCun-normal kernels, zero biases; ``reset_parameters`` also
+serves the generators of hifigan_vocoder.py and hifigan_bwe.py).
 """
 from __future__ import annotations
 
@@ -46,10 +49,13 @@ def _lrelu(x: torch.Tensor) -> torch.Tensor:
 def reset_parameters(module: nn.Module, generator: Optional[torch.Generator] = None) -> None:
     """Flax's default initialization of every conv under `module`, in
     registration order: kernels LeCun-normal (a normal truncated at two
-    standard deviations, scaled to variance 1 / fan_in), biases zero."""
+    standard deviations, scaled to variance 1 / fan_in), biases zero. A
+    transposed conv's fan-in is its input channels times its taps (Flax's
+    ConvTranspose kernel is [k, I, O])."""
     for m in module.modules():
-        if isinstance(m, (nn.Conv1d, nn.Conv2d)):
-            fan_in = m.weight[0].numel()
+        if isinstance(m, (nn.Conv1d, nn.Conv2d, nn.ConvTranspose1d)):
+            fan_in = (m.weight[:, 0].numel() if isinstance(m, nn.ConvTranspose1d)
+                      else m.weight[0].numel())
             std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
             nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std, generator=generator)
             if m.bias is not None:
@@ -243,5 +249,25 @@ class HifiganVocoderDiscriminator24kMVD(nn.Module):
         return [b[0] for b in banks], [b[1] for b in banks]
 
 
+class HifiganVocoderDiscriminator24k(nn.Module):
+    """MPD, the DWT multi-scale bank and the multi-mel bank
+    (hifigan_dicriminator.py:123-198)."""
+
+    def __init__(self, seed: int = 0):
+        super().__init__()
+        from use_tpu_torch.models.gan.msd import MultiScaleDiscriminator
+
+        self.MPD = MultiPeriodDiscriminator()
+        self.MSD = MultiScaleDiscriminator()
+        self.MMD = MultiMelSpecDiscriminator()
+        reset_parameters(self, torch.Generator().manual_seed(seed))
+
+    def forward(self, x: torch.Tensor) -> Tuple[List, List]:
+        banks = [self.MPD(x), self.MSD(x), self.MMD(x)]
+        return [b[0] for b in banks], [b[1] for b in banks]
+
+
 DiscriminatorRegistry.register("hifigan_vocoder_discriminator_24k_MVD")(
     HifiganVocoderDiscriminator24kMVD)
+DiscriminatorRegistry.register("hifigan_vocoder_discriminator_24k")(
+    HifiganVocoderDiscriminator24k)

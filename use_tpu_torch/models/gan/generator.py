@@ -45,8 +45,10 @@ class Generator(Protocol):
                  train: bool = False, start: Optional[int] = None) -> Batch: ...
 
 
-# the attributes the CLI checks a registered generator for
-GENERATOR_INTERFACE = ("net", "target_len", "draw_start", "forward_infer", "cast_for_inference")
+# the methods the CLI checks a registered generator class for, before it
+# builds one (HifiganGenerator and BandwidthExtender are registered too,
+# and lack them)
+GENERATOR_INTERFACE = ("draw_start", "forward_infer", "cast_for_inference")
 
 
 @GeneratorRegistry.register("ncsnpp_wrapper")

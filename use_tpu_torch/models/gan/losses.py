@@ -5,7 +5,8 @@ Port of use_tpu/models/gan/losses.py (reference
 loss_function/monaural_loss.py:14-321, hifigan_dicriminator.py:257-312)
 over nested [bank][disc] logit and feature lists and [B, T] waveforms.
 The criteria read the batch dict and return a copy with their `loss_*`
-keys, as use_tpu's.
+keys, as use_tpu's; ``content_criteria`` (HiFi-GAN+ BWE's) takes and
+returns tensors.
 """
 from __future__ import annotations
 
@@ -141,3 +142,53 @@ def hifigan_d_loss(batch: Dict, enhanced_key: str = "fake") -> Dict:
     out["loss_D_adv_dsc"] = loss
     out["loss_D"] = loss
     return out
+
+
+def lsgan_g_loss(batch: Dict) -> Dict:
+    """Plain LSGAN G loss (monaural_loss.py:14-24): each discriminator's
+    MSE to 1, summed, not averaged; -> the batch with loss_G."""
+    loss = 0.0
+    for bank in batch["predicted_fake_logits"]:
+        for lg in bank:
+            loss = loss + _mse_to(lg, 1.0)
+    out = dict(batch)
+    out["loss_G"] = loss
+    return out
+
+
+def lsgan_d_loss(batch: Dict) -> Dict:
+    """Plain LSGAN D loss (monaural_loss.py:27-41): fake to 0 and real to
+    1, summed; -> the batch with loss_D."""
+    loss = 0.0
+    for bank_f, bank_r in zip(batch["predicted_fake_logits"], batch["predicted_clean_logits"]):
+        for lf, lr_ in zip(bank_f, bank_r):
+            loss = loss + _mse_to(lf, 0.0) + _mse_to(lr_, 1.0)
+    out = dict(batch)
+    out["loss_D"] = loss
+    return out
+
+
+def content_criteria(y_pred: torch.Tensor, y_true: torch.Tensor, sampling_rate: int = 48000
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """HiFi-GAN+ BWE's content losses (reference GAN/discriminator/hifigan/
+    criteria.py:10-59): -> (L1 of the waveforms, the mean L1 of the
+    log-magnitude STFTs at frame lengths 512 / 1024 / 2048 / 4096 with a
+    quarter hop, the L1 of the log-mel: 128 bands, 25 ms windows, 10 ms
+    hops, f_min 4 kHz at 48 kHz)."""
+    wav_loss = torch.mean(torch.abs(y_pred - y_true))
+    frame_lengths = (512, 1024, 2048, 4096)
+    stft_loss = 0.0
+    for fl in frame_lengths:
+        scfg = STFTConfig(n_fft=fl, hop_length=fl // 4)
+        s_true = torch.log(spectrogram(y_true, scfg) + 1e-5)
+        s_pred = torch.log(spectrogram(y_pred, scfg) + 1e-5)
+        stft_loss = stft_loss + torch.mean(torch.abs(s_pred - s_true))
+    stft_loss = stft_loss / len(frame_lengths)
+    mel_cfg = MelConfig(sample_rate=sampling_rate,
+                        f_min=8000 // 2 if sampling_rate == 48000 else 0.0,
+                        f_max=sampling_rate // 2, n_fft=2048,
+                        win_length=int(0.025 * sampling_rate),
+                        hop_length=int(0.010 * sampling_rate), n_mels=128)
+    m_true = torch.log(melspectrogram(y_true, mel_cfg) + 1e-5)
+    m_pred = torch.log(melspectrogram(y_pred, mel_cfg) + 1e-5)
+    return wav_loss, stft_loss, torch.mean(torch.abs(m_pred - m_true))
