@@ -12,6 +12,9 @@
     python3 chip_smoke.py --int8conv   # build, kernels, then only phases 22-25
     python3 chip_smoke.py --zoo        # build, kernels, then only the GAN zoo's
                                        # phases (26-28)
+    python3 chip_smoke.py --models     # build, kernels, then only the alternative
+                                       # backbones' and the legacy family's
+                                       # phases (29-31)
 
 Phases, one line each (any failure raises and exits non-zero):
   1. environment: torch / CUDA versions, the card's name and power limit;
@@ -192,7 +195,26 @@ Phases, one line each (any failure raises and exits non-zero):
      multi-scale and multi-spec discriminators and the 24k bank on
      ZOO_D_SHAPE, and content_criteria, lsgan_g_loss and lsgan_d_loss on
      the bank's outputs; ms a call, peak memory, K1 / K2 / K3 launches
-     (none).
+     (none);
+ 29. alt_backbones_forward: GaGNet (U^2 encoder, causal, default widths)
+     on GAGNET_SHAPE spectra (6 s at n_fft 1022, hop 160) and ConvTasNet
+     (default widths, gLN and causal) on TASNET_SHAPE waveforms at 24 kHz,
+     the card against the CPU on ALT_CHECK_LANES lanes within ZOO_REL_TOL
+     x max|ref| (fp32, TF32 off): ms a call, peak memory, parameters, no
+     K1 / K2 / K3 launch;
+ 30. legacy_models: StochasticRegenerationModel (the LSGAN generator of
+     experiment=LSGAN, SGMSE_Large's score model with condition='both',
+     sde_input='denoised') on a LEGACY_CLIP_S s clip at N=CHAIN_N, equal to
+     the gan+sgmse chain's computation on the same weights and noise
+     (LEGACY_CHAIN_TOL), its launches exactly LEGACY_REGEN_LAUNCHES,
+     audio-s/s and peak memory; LegacyScoreModel.enhance(timeit=True) (nfe,
+     rtf, its x_hat ScoreModel.sample's); DiscriminativeModel (enhance
+     NCSNPPWrapper's; train_loss and backward on a crop, the loss against
+     the CPU's within LEGACY_LOSS_REL_TOL); one EMA update;
+ 31. legacy_layers_forward: RefineBlock (two inputs, conditional and not),
+     a 'down' ResidualBlock with ConditionalInstanceNorm2dPlus and each norm
+     of the zoo at LEGACY_LAYER_SHAPE, the card against the CPU within
+     ZOO_REL_TOL x max|ref|.
 Each phase prints its seconds. Then a JSON line of the kernels, the card
 line, and the last line {"ok": true, "device": {...}}.
 """
@@ -432,6 +454,22 @@ ZOO_NSF = {"nb_harmonics": 8, "sampling_rate": 24000}
 ZOO_BWE_RATE = 8000
 ZOO_D_SHAPE = (2, 76640)  # the discriminators' input: batch 2 of a generator training crop
 ZOO_REL_TOL = 1e-3  # card against CPU, fp32, relative to max|ref| (CSMGAN's limit)
+# the alternative backbones and the legacy family (phases 29-31)
+GAGNET_SHAPE = (4, 512, 601, 2)  # 6 s at the repo's STFT (n_fft 1022, hop 160): 601 frames
+TASNET_FS, TASNET_SHAPE = 24000, (4, 144000)  # 6 s at 24 kHz
+ALT_CHECK_LANES = 1  # the lanes of the batch the CPU computes too
+LEGACY_CLIP_S = 3
+LEGACY_SCORE_EXPERIMENT = "SGMSE_Large"
+# the regeneration's launches: one LSGAN generator forward and CHAIN_N
+# score forwards (ncsnpplarge, 6 input channels); counted on the CPU by
+# tests/test_torch_legacy.py::test_regeneration_launch_constants_of_chip_smoke
+LEGACY_REGEN_LAUNCHES = {k: PER_GENERATOR_FORWARD[k] + CHAIN_N * PER_FORWARD["float32"][k]
+                         for k in PER_GENERATOR_FORWARD}
+# regeneration against the gan+sgmse chain, both on the card: the same
+# computation, so equal up to this share of max|ref| (or bit for bit)
+LEGACY_CHAIN_TOL = 1e-6
+LEGACY_LOSS_REL_TOL = 1e-4  # DiscriminativeModel.train_loss, card against CPU
+LEGACY_LAYER_SHAPE = (8, 128, 64, 64)
 
 
 def phase(phase_name, **fields):
@@ -461,6 +499,9 @@ def main():
                     help="build, kernels, then only the int8conv, DDPM and .npz phases (22-25)")
     ap.add_argument("--zoo", action="store_true",
                     help="build, kernels, then only the GAN zoo's phases (26-28)")
+    ap.add_argument("--models", action="store_true",
+                    help="build, kernels, then only the alternative backbones' and the "
+                         "legacy family's phases (29-31)")
     args = ap.parse_args()
     # the learn phase runs cuBLAS deterministically, which needs this before its first call
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -503,6 +544,8 @@ def main():
         runs.update(int8conv_phases(torch, dev))
     elif args.zoo:
         runs.update(zoo_phases(torch, dev))
+    elif args.models:
+        runs.update(models_phases(torch, dev))
     elif not args.kernels:
         timed("forward", forward_phase, torch, dev)
         timed("int8_forward", int8_forward_phase, torch, dev)
@@ -535,6 +578,7 @@ def main():
         runs.update(gan_phases(torch, dev))
         runs.update(csmgan_phases(torch, dev))
         runs.update(zoo_phases(torch, dev))
+        runs.update(models_phases(torch, dev))
         if args.profile:
             timed("profile", profile_phase, torch, dev)
             timed("profile_train", profile_train_phase, torch, dev)
@@ -3433,11 +3477,12 @@ def _flat(torch, out):
     return [t for o in out for t in _flat(torch, o)]
 
 
-def _zoo_case(torch, dev, name, cpu_fn, card_fn):
+def _zoo_case(torch, dev, name, cpu_fn, card_fn, lanes=None):
     """card_fn(), then cpu_fn(), without autograd: every tensor of the
-    card's output against the CPU's, each relative to its own max|ref|; ms
-    a card call (median of 5), peak memory, launches. -> (record, card
-    output, CPU output)."""
+    card's output against the CPU's (on the first `lanes` of the card's
+    batch, where the CPU computes those only), each relative to its own
+    max|ref|; ms a card call (median of 5), peak memory, launches. ->
+    (record, card output, CPU output)."""
     from use_tpu_torch import ops
 
     with torch.no_grad():
@@ -3453,6 +3498,8 @@ def _zoo_case(torch, dev, name, cpu_fn, card_fn):
         cpu_s = time.perf_counter() - t0
         ms = time_ms(torch, card_fn, reps=5, warmup=1)
     got, want = _flat(torch, out), _flat(torch, ref)
+    if lanes is not None:
+        got = [g[:lanes] for g in got]
     errs = [_rel(g, w) for g, w in zip(got, want)]
     rec = {"case": name, "tensors": len(want), "max_rel_err": max(errs),
            "worst_tensor": int(np.argmax(errs)),
@@ -3574,6 +3621,233 @@ def zoo_forward_phase(torch, dev):
     failed += [f"{k} off by {e}" for k, e in loss_errs.items() if not e <= ZOO_REL_TOL]
     if failed:
         raise AssertionError("zoo_forward: " + "; ".join(failed))
+    torch.cuda.empty_cache()
+
+
+
+def models_phases(torch, dev):
+    """Phases 29-31; -> {"legacy_regen": the regeneration's launches by kernel}."""
+    timed("alt_backbones_forward", alt_backbones_forward_phase, torch, dev)
+    runs = {"legacy_regen": timed("legacy_models", legacy_models_phase, torch, dev)}
+    timed("legacy_layers_forward", legacy_layers_forward_phase, torch, dev)
+    return runs
+
+
+def alt_backbones_forward_phase(torch, dev):
+    """Phase 29: GaGNet (the U^2 encoder, causal, default widths) on
+    GAGNET_SHAPE spectra and ConvTasNet (default widths, gLN and causal) on
+    TASNET_SHAPE waveforms at TASNET_FS, seeded weights, fp32, TF32 off:
+    the card against the CPU on ALT_CHECK_LANES of the lanes within
+    ZOO_REL_TOL x max|ref|; ms a call (median of 5), peak memory,
+    parameters; K1, K2 and K3 launched no time."""
+    from use_tpu_torch.models import BackboneRegistry
+
+    x = torch.from_numpy(
+        (0.5 * np.random.default_rng(0).standard_normal(GAGNET_SHAPE)).astype(np.float32))
+    wav = torch.from_numpy(
+        (0.3 * np.random.default_rng(1).standard_normal(TASNET_SHAPE)).astype(np.float32))
+    gagnet = BackboneRegistry.get_by_name("gagnet")(seed=1)
+    gagnet.materialize(GAGNET_SHAPE[1] + 1)  # 512 bins, padded to 513
+    cases = [("gagnet", gagnet, x),
+             ("convtasnet", BackboneRegistry.get_by_name("convtasnet")(fs=TASNET_FS, seed=2), wav),
+             ("convtasnet causal",
+              BackboneRegistry.get_by_name("convtasnet")(fs=TASNET_FS, causal=True, seed=3), wav)]
+    records = []
+    for name, net, inp in cases:
+        card, on_card = copy.deepcopy(net).to(dev), inp.to(dev)
+        check = inp[:ALT_CHECK_LANES].contiguous()
+        rec, _, _ = _zoo_case(torch, dev, name, lambda: net(check), lambda: card(on_card),
+                              lanes=ALT_CHECK_LANES)
+        rec["parameters"] = sum(p.numel() for p in net.parameters())
+        rec["shape"] = list(inp.shape)
+        records.append(rec)
+        del card, on_card
+    phase("alt_backbones_forward", dtype="float32", tf32=bool(torch.backends.cudnn.allow_tf32),
+          tol=ZOO_REL_TOL, check_lanes=ALT_CHECK_LANES, cases=records)
+    failed = [f"{r['case']}: {r}" for r in records
+              if not (r["shapes_equal"] and r["finite"] and r["max_rel_err"] <= ZOO_REL_TOL
+                      and r["launches"] == all_kernels(NO_LAUNCHES))]
+    if failed:
+        raise AssertionError("alt_backbones_forward: " + "; ".join(failed))
+    torch.cuda.empty_cache()
+
+
+def _legacy_clip(torch, dev, secs, seed=0):
+    from use_tpu_torch.data.synth_speech import synth_pair
+
+    return torch.from_numpy(synth_pair(secs * 24000, seed, snr_db=5.0)[1][None]).to(dev)
+
+
+def legacy_models_phase(torch, dev):
+    """Phase 30: the legacy family at the shipped widths on the card, fp32.
+    StochasticRegenerationModel with the LSGAN generator as experiment=LSGAN
+    builds it and SGMSE_Large's score model with condition='both',
+    sde_input='denoised' (both seeded unit-scale random): enhance of a
+    LEGACY_CLIP_S s clip at N=CHAIN_N against the gan+sgmse chain's
+    computation (LSGAN.enhance, then ScoreModel.sample of its 'fake') on the
+    same weights and the same generator seed, within LEGACY_CHAIN_TOL x
+    max|ref|; its launches exactly LEGACY_REGEN_LAUNCHES, its audio-s/s
+    (the enhance call, after one untimed) and peak memory.
+    LegacyScoreModel.enhance(timeit=True) at SGMSE_Large, N=CHAIN_N: nfe N,
+    rtf > 0, x_hat that of ScoreModel.sample with the same generator.
+    DiscriminativeModel at the LSGAN widths: enhance that of an
+    NCSNPPWrapper of the same seed; train_loss on a batch-1 crop and its
+    backward on the card, the loss against the CPU's within
+    LEGACY_LOSS_REL_TOL; one EMA update on the card against the formula
+    on the CPU. -> the regeneration's launches by kernel."""
+    from use_tpu_torch import ops
+    from use_tpu_torch.cli.main import _build_model
+    from use_tpu_torch.config.config import load_config
+    from use_tpu_torch.models.gan.generator import NCSNPPWrapper
+    from use_tpu_torch.models.sgmse import legacy
+
+    gan = _build_model(load_config(GAN_EXPERIMENT, []), str(dev))
+    score = _build_model(load_config(LEGACY_SCORE_EXPERIMENT, ["model.condition=both",
+                                                               "model.sde_input=denoised"]),
+                         str(dev))
+    _randomize(torch, gan.generator.net, seed=1)
+    _randomize(torch, score.score_net, seed=2)
+    regen = legacy.StochasticRegenerationModel(denoiser=gan.generator, score=score)
+    y = _legacy_clip(torch, dev, LEGACY_CLIP_S)
+
+    def seeded():
+        return torch.Generator(device=dev).manual_seed(7)
+
+    regen.enhance(y, seeded(), N=CHAIN_N)  # untimed: cuDNN's first calls
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = regen.enhance(y, seeded(), N=CHAIN_N)
+    torch.cuda.synchronize(dev)
+    seconds = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    fake = gan.enhance({"perturbed": y})["fake"]
+    chain = score.sample({"perturbed": y, "fake": fake}, seeded(), N=CHAIN_N)["fake_sde_enhanced"]
+    chain_err = _rel(out, chain)
+    regen_rec = {"clip_s": LEGACY_CLIP_S, "N": CHAIN_N, "seconds": seconds,
+                 "audio_s_per_s": LEGACY_CLIP_S / seconds, "peak_memory_bytes": peak,
+                 "launches": counts, "chain_rel_err": chain_err,
+                 "chain_equal": bool(torch.equal(out, chain)),
+                 "finite": bool(torch.isfinite(out).all())}
+    del regen, gan, fake, chain
+    score_cfg = dict(load_config(LEGACY_SCORE_EXPERIMENT, [])["model"])
+    lsm = legacy.LegacyScoreModel(**score_cfg, device=dev, seed=3)
+    _randomize(torch, lsm.score_net, seed=3)
+    x_hat, nfe, rtf = lsm.enhance(y[0], seeded(), N=CHAIN_N, timeit=True)
+    sampled = lsm.sample({"perturbed": y}, seeded(), N=CHAIN_N)["enhanced"][0]
+    lsm_rec = {"nfe": nfe, "rtf": rtf, "rel_err": _rel(x_hat, sampled),
+               "finite": bool(torch.isfinite(x_hat).all())}
+    del lsm, x_hat, sampled
+    gcfg = dict(load_config(GAN_EXPERIMENT, [])["model"]["generator"])
+    gcfg.pop("name", None)
+    gen_kw = {k: gcfg[k] for k in ("n_fft", "hop_length", "num_frames", "backbone",
+                                   "backbone_kwargs") if k in gcfg}
+    dm = legacy.DiscriminativeModel(**gen_kw, device=dev, seed=4)
+    ref_wrapper = NCSNPPWrapper(**gen_kw, device=dev, seed=4)
+    _randomize(torch, dm.wrapper.net, seed=4)
+    _randomize(torch, ref_wrapper.net, seed=4)
+    dm_enhanced = dm.enhance(y)
+    wrapper_enhanced = ref_wrapper.forward_infer({"perturbed": y})["fake"]
+    del ref_wrapper
+    crop = {k: _legacy_clip(torch, dev, 4, seed=5 + i) for i, k in enumerate(("clean",
+                                                                              "perturbed"))}
+    start = dm.wrapper.draw_start(crop["clean"].shape[-1], torch.Generator().manual_seed(6))
+    loss = dm.train_loss(crop, start=start)
+    loss.backward()
+    grads_finite = all(bool(torch.isfinite(p.grad).all())
+                       for p in dm.wrapper.net.parameters() if p.grad is not None)
+    cpu_dm = legacy.DiscriminativeModel(**gen_kw, device="cpu", seed=4)
+    cpu_dm.wrapper.net.load_state_dict(dm.wrapper.net.state_dict())
+    with torch.no_grad():
+        cpu_loss = cpu_dm.train_loss({k: v.cpu() for k, v in crop.items()}, start=start)
+    loss = float(loss.detach())
+    loss_err = abs(loss - float(cpu_loss)) / abs(float(cpu_loss))
+    ema = legacy.EMA(0.999)
+    state = {k: v.detach() for k, v in dm.wrapper.net.state_dict().items()
+             if v.is_floating_point()}
+    shadow = ema.init(state)
+    moved = {k: v + 0.01 for k, v in state.items()}
+    updated = ema.update(shadow, moved)
+    ema_err = max(_rel(updated[k], 0.999 * shadow[k].cpu() + (1 - 0.999) * moved[k].cpu())
+                  for k in state)
+    dm_rec = {"enhance_rel_err": _rel(dm_enhanced, wrapper_enhanced), "loss": loss,
+              "cpu_loss": float(cpu_loss), "loss_rel_err": loss_err, "start": start,
+              "grads_finite": grads_finite, "ema_rel_err": ema_err}
+    del dm, cpu_dm
+    phase("legacy_models", dtype="float32", tf32=bool(torch.backends.cudnn.allow_tf32),
+          regeneration=regen_rec, expected_launches=all_kernels(LEGACY_REGEN_LAUNCHES),
+          legacy_score=lsm_rec, discriminative=dm_rec, chain_tol=LEGACY_CHAIN_TOL,
+          loss_tol=LEGACY_LOSS_REL_TOL)
+    failed = []
+    if not (regen_rec["finite"] and chain_err <= LEGACY_CHAIN_TOL):
+        failed.append(f"regeneration against the gan+sgmse chain: {chain_err}")
+    if counts != all_kernels(LEGACY_REGEN_LAUNCHES):
+        failed.append(f"regeneration launches {counts}, expected {LEGACY_REGEN_LAUNCHES}")
+    if not (nfe == CHAIN_N and rtf > 0 and lsm_rec["finite"] and lsm_rec["rel_err"] <= 1e-6):
+        failed.append(f"LegacyScoreModel.enhance: {lsm_rec}")
+    if not (dm_rec["enhance_rel_err"] <= 1e-6 and loss_err <= LEGACY_LOSS_REL_TOL
+            and grads_finite and ema_err <= 1e-6):
+        failed.append(f"DiscriminativeModel / EMA: {dm_rec}")
+    if failed:
+        raise AssertionError("legacy_models: " + "; ".join(failed))
+    torch.cuda.empty_cache()
+    return counts
+
+
+def legacy_layers_forward_phase(torch, dev):
+    """Phase 31: the NCSNv1 layers and the norm zoo at LEGACY_LAYER_SHAPE,
+    fp32, TF32 off, seeded weights: RefineBlock on two inputs (the second
+    at half the resolution), unconditional and conditional
+    (ConditionalInstanceNorm2dPlus on 10 classes), a 'down' ResidualBlock
+    with that norm, and each norm of the zoo; the card against the CPU
+    within ZOO_REL_TOL x max|ref| (the CPU on the first two lanes, but the
+    batch norm on all); K1, K2 and K3 launched no time."""
+    from use_tpu_torch.models.ncsnpp import legacy_layers as ll, normalization as nz
+
+    b, c, h, w = LEGACY_LAYER_SHAPE
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(LEGACY_LAYER_SHAPE, generator=gen)
+    x2 = torch.randn((b, c, h // 2, w // 2), generator=gen)
+    y = torch.arange(b) % 10
+    lanes = 2
+
+    def cond(ch):
+        return nz.ConditionalInstanceNorm2dPlus(ch, num_classes=10)
+
+    cases = [
+        ("refine", ll.RefineBlock((c, c), c), lambda m, a, a2, yy: m([a, a2], (h, w)), lanes),
+        ("refine conditional", ll.RefineBlock((c, c), c, normalizer=cond),
+         lambda m, a, a2, yy: m([a, a2], (h, w), yy), lanes),
+        ("residual down conditional", ll.ResidualBlock(c, 2 * c, "down", normalizer=cond),
+         lambda m, a, a2, yy: m(a, yy), lanes),
+    ]
+    for (name, conditional), kw in (
+            (("instancenorm", False), {}), (("batchnorm", False), {}),
+            (("groupnorm", False), {}), (("variancenorm", False), {}),
+            (("variancenorm", True), {"num_classes": 10}), (("instancenorm++", False), {}),
+            (("instancenorm++", True), {"num_classes": 10})):
+        norm = nz.get_normalization(name, conditional)(c, **kw)
+        fn = (lambda m, a, a2, yy: m(a, yy)) if conditional else (lambda m, a, a2, yy: m(a))
+        cases.append((name + (" conditional" if conditional else ""), norm, fn,
+                      None if name == "batchnorm" else lanes))
+    records = []
+    for i, (name, module, fn, n) in enumerate(cases):
+        ll.reset_parameters(module, torch.Generator().manual_seed(10 + i))
+        card = copy.deepcopy(module).to(dev)
+        cut = (lambda t: t) if n is None else (lambda t: t[:n].contiguous())
+        rec, _, _ = _zoo_case(torch, dev, name, lambda: fn(module, cut(x), cut(x2), cut(y)),
+                              lambda: fn(card, x.to(dev), x2.to(dev), y.to(dev)), lanes=n)
+        records.append(rec)
+        del card
+    phase("legacy_layers_forward", dtype="float32", shape=list(LEGACY_LAYER_SHAPE),
+          tf32=bool(torch.backends.cudnn.allow_tf32), tol=ZOO_REL_TOL, cases=records)
+    failed = [f"{r['case']}: {r}" for r in records
+              if not (r["shapes_equal"] and r["finite"] and r["max_rel_err"] <= ZOO_REL_TOL
+                      and r["launches"] == all_kernels(NO_LAUNCHES))]
+    if failed:
+        raise AssertionError("legacy_layers_forward: " + "; ".join(failed))
     torch.cuda.empty_cache()
 
 

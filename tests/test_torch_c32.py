@@ -13,6 +13,15 @@ from use_tpu_torch.ops import gn_stats as tg
 from use_tpu_torch.ops import qconv as tqc
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """Tier-1 runs six test processes at once: two torch threads here."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _int8(rng, shape):
     return torch.from_numpy(rng.integers(-127, 128, shape).astype(np.int8))
 

@@ -38,6 +38,15 @@ SR = 24000
 FILES = {os.path.join("sub", "b.wav"): 6100}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """Tier-1 runs six test processes at once: two torch threads here."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _pair(condition, sde_input, seed_sgmse=11, seed_gan=12):
     jm = JScoreModel(**SGMSE, condition=condition, sde_input=sde_input)
     sp = random_params(jax.eval_shape(jm.init_params, jax.random.PRNGKey(0)), seed=seed_sgmse)
@@ -98,12 +107,16 @@ def test_chain_gan_then_sgmse_matches_jax():
     _close(out["fake_sde_enhanced"].numpy(), want)
 
 
-@pytest.fixture
-def wav_tree(tmp_path):
+def _write_tree(root):
     rng = np.random.default_rng(0)
     for rel, n in FILES.items():
-        write_wav(str(tmp_path / "in" / rel), (0.1 * rng.standard_normal(n)).astype(np.float32), SR)
-    return tmp_path
+        write_wav(str(root / "in" / rel), (0.1 * rng.standard_normal(n)).astype(np.float32), SR)
+    return root
+
+
+@pytest.fixture
+def wav_tree(tmp_path):
+    return _write_tree(tmp_path)
 
 
 def _predict(root, out, experiment, *extra):
@@ -132,15 +145,25 @@ def test_cli_chain_sgmse_then_gan(wav_tree):
     _check_outputs(wav_tree, "out")
 
 
-def test_cli_chain_gan_then_sgmse(wav_tree):
-    summary = _predict(wav_tree, "out", "LSGAN_debug", *GAN_FIRST)
+@pytest.fixture(scope="module")
+def gan_first_run(tmp_path_factory):
+    """The CLI's gan+sgmse chain on the seeded weights of both stages, run
+    once for the tests that read it; -> (its tree, its summary)."""
+    root = _write_tree(tmp_path_factory.mktemp("gan_first"))
+    return root, _predict(root, "out", "LSGAN_debug", *GAN_FIRST)
+
+
+def test_cli_chain_gan_then_sgmse(gan_first_run):
+    wav_tree, summary = gan_first_run
     assert (summary["files"], summary["nfe"]) == (len(FILES), len(FILES))
     _check_outputs(wav_tree, "out")
 
 
-def test_cli_chain_loads_both_checkpoints(wav_tree):
+def test_cli_chain_loads_both_checkpoints(gan_first_run):
     """ckpt_path= loads the first stage's net, predict.second_ckpt= the
-    second's (here the 6-channel score net of condition=both)."""
+    second's (here the 6-channel score net of condition=both); against the
+    seeded run (gan_first_run's "out")."""
+    wav_tree = gan_first_run[0]
     first = TGenerator(backbone="ncsnpp6M", device="cpu", seed=3).net
     second = TScoreModel(backbone="ncsnpp6M", condition="both", device="cpu", seed=4).score_net
     gen = torch.Generator().manual_seed(5)
@@ -151,7 +174,6 @@ def test_cli_chain_loads_both_checkpoints(wav_tree):
                     p.copy_(torch.randn(p.shape, generator=gen) / p[0].numel() ** 0.5)
     torch.save(first.state_dict(), wav_tree / "g.pt")
     torch.save(second.state_dict(), wav_tree / "s.pt")
-    _predict(wav_tree, "out", "LSGAN_debug", *GAN_FIRST)
     _predict(wav_tree, "out_g", "LSGAN_debug", *GAN_FIRST, f"ckpt_path={wav_tree / 'g.pt'}")
     _predict(wav_tree, "out_gs", "LSGAN_debug", *GAN_FIRST, f"ckpt_path={wav_tree / 'g.pt'}",
              f"predict.second_ckpt={wav_tree / 's.pt'}")

@@ -5,6 +5,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from use_tpu.config import config as jconfig
 from use_tpu.data import collate as jcollate
@@ -13,6 +14,15 @@ from use_tpu_torch.config import config as tconfig
 from use_tpu_torch.data import loadwav as tload
 from use_tpu_torch.data.audio_io import write_wav
 from use_tpu_torch.utils.registry import Registry
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """Tier-1 runs six test processes at once: two torch threads here."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.mark.parametrize("name", ["SGMSE_Large", "SGMSE_debug"])

@@ -12,6 +12,7 @@ import random
 
 import numpy as np
 import pytest
+import torch
 
 from use_tpu.data import collate as jcollate
 from use_tpu.data import datamodule as jdm
@@ -36,6 +37,15 @@ KWARGS = {"WhiteNoisePerturb": {"snr_min": 5, "snr_max": 20},
           "LowPassPerturb": {"max_cutoff_freq": 11000},  # below the 12 kHz Nyquist
           "_CodecSimulacrum": {"bandwidth_hz": 3400, "bits_min": 4, "bits_max": 8,
                                "delay_samples": 10}}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """Tier-1 runs six test processes at once: two torch threads here."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
 
 
 def _seeded(seed, fn):

@@ -13,6 +13,15 @@ from use_tpu.ops import pallas_skip as ps
 from use_tpu_torch.ops.fused_skip import fused_skip_add, fused_skip_add_plain
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """Tier-1 runs six test processes at once: two torch threads here."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_plain_matches_pallas_interpret_and_xla(dtype, monkeypatch):
     rng = np.random.default_rng(0)

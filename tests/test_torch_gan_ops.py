@@ -25,6 +25,15 @@ SR = 24000
 MMD = [(1024, 960, 240, 128), (256, 240, 60, 64), (512, 480, 120, 80)]  # n_fft, win, hop, mels
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """Tier-1 runs six test processes at once: two torch threads here."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _wav(seed, shape=(2, 7001)):
     return (0.3 * np.random.default_rng(seed).standard_normal(shape)).astype(np.float32)
 

@@ -254,8 +254,24 @@ def test_forward_train_on_a_given_start_matches_jax(models, length):
     assert 0 <= drawn < CLIP - 496
 
 
+@pytest.fixture(scope="module")
+def jax_micro_grads(models):
+    """use_tpu's D and G gradients of one microbatch (D's on the detached
+    fake, G's against the stepped D `new_dp`), one compile for every
+    microbatch of every case."""
+    jgan = models[0]
+
+    @jax.jit
+    def grads(gp, dp, new_dp, mb, r):
+        fake = jax.lax.stop_gradient(jgan.g_forward(gp, mb, r))
+        return (jax.grad(jgan.d_loss)(dp, fake),
+                jax.grad(lambda p: jgan.g_loss(new_dp, jgan.g_forward(p, mb, r))[0])(gp))
+
+    return grads
+
+
 @pytest.mark.parametrize("accum", [1, 2])
-def test_gan_train_step_matches_jax(models, accum):
+def test_gan_train_step_matches_jax(models, jax_micro_grads, accum):
     """One step of each optimizer over `accum` microbatches on use_tpu's crop
     draws (split(rng, accum); split(rng, 1) at 1): the gradients D and G
     apply are the SUMS of the microbatches' (use_tpu's, computed here from
@@ -274,20 +290,12 @@ def test_gan_train_step_matches_jax(models, accum):
     new, metrics = make_gan_train_step(jgan, g_tx, d_tx, accum=accum, donate=False)(
         jstate, stacked, rng)
     rngs = list(jax.random.split(rng, max(accum, 1)))
-
-    @jax.jit
-    def summed(gp, dp, new_dp, mbs, rs):
-        gd = jax.tree.map(jnp.zeros_like, dp)
-        gg = jax.tree.map(jnp.zeros_like, gp)
-        for mb, r in zip(mbs, rs):
-            fake = jax.lax.stop_gradient(jgan.g_forward(gp, mb, r))
-            gd = jax.tree.map(jnp.add, gd, jax.grad(jgan.d_loss)(dp, fake))
-            gg = jax.tree.map(jnp.add, gg, jax.grad(
-                lambda p: jgan.g_loss(new_dp, jgan.g_forward(p, mb, r))[0])(gp))
-        return gd, gg
-
     jb = [{k: jnp.asarray(v) for k, v in m.items()} for m in micro]
-    gd_j, gg_j = summed(g_params, d_params, new.d.params, jb, rngs)
+    gd_j = jax.tree.map(jnp.zeros_like, d_params)
+    gg_j = jax.tree.map(jnp.zeros_like, g_params)
+    for mb, r in zip(jb, rngs):
+        gd, gg = jax_micro_grads(g_params, d_params, new.d.params, mb, r)
+        gd_j, gg_j = jax.tree.map(jnp.add, gd_j, gd), jax.tree.map(jnp.add, gg_j, gg)
     starts = [int(jax.random.randint(r, (), 0, CLIP - 496)) for r in rngs]
 
     tgan = _port(g_params, d_params)

@@ -20,6 +20,15 @@ from use_tpu_torch.ops import gn_stats as tgn
 RTOL = ATOL = 1e-5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """Tier-1 runs six test processes at once: two torch threads here."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _bsc(seed, shape=(3, 64, 24)):
     return (1.5 + np.random.default_rng(seed).standard_normal(shape)).astype(np.float32)
 

@@ -97,3 +97,28 @@ def test_train_entry_points_default_to_cuda():
     with pytest.raises(RuntimeError, match="device=cpu"):
         main(["train", "experiment=SGMSE_debug", "data.clean_json_path=x.jsonl",
               "data.noise_json_path=x.jsonl"])
+
+
+def test_legacy_and_backbone_entry_points_default_to_cuda():
+    """The legacy family (LegacyScoreModel, DiscriminativeModel,
+    StochasticRegenerationModel) runs on CUDA unless asked for the CPU,
+    raising without a card; the backbones GaGNet and ConvTasNet are
+    modules, built on the CPU and moved as any torch module."""
+    from use_tpu_torch.models.gan.generator import NCSNPPWrapper
+    from use_tpu_torch.models.sgmse import legacy
+    from use_tpu_torch.models.sgmse.score_model import ScoreModel
+
+    tiny = dict(backbone="ncsnpp", n_fft=126, hop_length=32, num_frames=32,
+                backbone_kwargs=dict(nf=8, ch_mult=(1, 1), num_res_blocks=1))
+    if torch.cuda.is_available():
+        assert legacy.DiscriminativeModel(**tiny).device.type == "cuda"
+        return
+    for build in (lambda: legacy.LegacyScoreModel(**tiny),
+                  lambda: legacy.DiscriminativeModel(**tiny),
+                  lambda: legacy.StochasticRegenerationModel()):
+        with pytest.raises(RuntimeError, match="device=cpu"):
+            build()
+    assert legacy.DiscriminativeModel(**tiny, device="cpu").device.type == "cpu"
+    regen = legacy.StochasticRegenerationModel(
+        denoiser=NCSNPPWrapper(**tiny, device="cpu"), score=ScoreModel(**tiny, device="cpu"))
+    assert regen.score.device.type == "cpu"

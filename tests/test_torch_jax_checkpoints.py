@@ -182,32 +182,42 @@ def test_sgmse_checkpoint_exported_and_served(wav_tree, checkpoints, jax_draws, 
         _close(port[rel], want[rel])
 
 
-def test_lsgan_checkpoint_exported_and_served(wav_tree, checkpoints):
+@pytest.fixture(scope="module")
+def lsgan_exports(wav_tree, checkpoints):
+    """use_tpu's two LSGAN_debug layouts exported, and the port's predict of
+    the training directory's export, run once for the tests that read it;
+    -> (the two exports' metadata, the port's outputs)."""
+    metas = {name: _export(wav_tree, "LSGAN_debug", name, f"{name}.npz")
+             for name in ("lsgan_run", "lsgan_params")}
+    return metas, _port_predict(wav_tree, "LSGAN_debug", "lsgan_run.npz", "port_lsgan")
+
+
+def test_lsgan_checkpoint_exported_and_served(wav_tree, checkpoints, lsgan_exports):
     """The training directory (generator and discriminator) served against
     use_tpu's predict of it; the params directory's export holds the same
     generator arrays."""
-    meta = _export(wav_tree, "LSGAN_debug", "lsgan_run", "lsgan_run.npz")
+    metas, port = lsgan_exports
+    meta = metas["lsgan_run"]
     assert (meta["task"], meta["generator"], meta["discriminator"]) == (
         "lsgan", "ncsnpp_wrapper", True)
     loaded = load_flat_params(str(wav_tree / "lsgan_run.npz"))
     _assert_holds(wav_tree / "lsgan_run.npz", {**checkpoints["lsgan"]["params"],
                                                "D": checkpoints["lsgan"]["d"]})
-    meta = _export(wav_tree, "LSGAN_debug", "lsgan_params", "lsgan_params.npz")
-    assert not meta["discriminator"]
+    assert not metas["lsgan_params"]["discriminator"]
     _assert_holds(wav_tree / "lsgan_params.npz", checkpoints["lsgan"]["params"])
     assert "D" in loaded
     want = _jax_predict(wav_tree, "LSGAN_debug", "lsgan_run", "jax_lsgan")
-    port = _port_predict(wav_tree, "LSGAN_debug", "lsgan_run.npz", "port_lsgan")
     for rel in FILES:
         assert port[rel].shape == (FILES[rel],) and np.isfinite(port[rel]).all()
         _close(port[rel], want[rel])
 
 
-def test_lenient_load_of_an_export_skips_leaves(wav_tree, checkpoints):
+def test_lenient_load_of_an_export_skips_leaves(wav_tree, lsgan_exports):
     """An export missing two leaves: strict loads refuse it, ckpt.lenient=true
-    keeps the port's own initialization of those two and serves the rest."""
-    if not (wav_tree / "lsgan_params.npz").exists():
-        _export(wav_tree, "LSGAN_debug", "lsgan_params", "lsgan_params.npz")
+    keeps the port's own initialization of those two and serves the rest,
+    unlike the full export's (lsgan_exports' predict of the training
+    directory's export, which holds the same generator arrays)."""
+    full = lsgan_exports[1]
     with np.load(wav_tree / "lsgan_params.npz") as flat:
         arrays = {k: flat[k] for k in flat.files}
     dropped = [k for k in arrays if k.endswith("GroupNorm_0/scale")][:2]
@@ -218,7 +228,6 @@ def test_lenient_load_of_an_export_skips_leaves(wav_tree, checkpoints):
         _port_predict(wav_tree, "LSGAN_debug", "lsgan_partial.npz", "port_strict")
     port = _port_predict(wav_tree, "LSGAN_debug", "lsgan_partial.npz", "port_lenient",
                          "ckpt.lenient=true")
-    full = _port_predict(wav_tree, "LSGAN_debug", "lsgan_params.npz", "port_full")
     for rel in FILES:
         assert np.isfinite(port[rel]).all() and not np.array_equal(port[rel], full[rel])
 
@@ -253,7 +262,8 @@ class _Stop(Exception):
     pass
 
 
-def test_train_starts_from_an_export_with_its_discriminator(wav_tree, checkpoints, monkeypatch):
+def test_train_starts_from_an_export_with_its_discriminator(wav_tree, checkpoints, lsgan_exports,
+                                                            monkeypatch):
     """`train ckpt_path=<x>.npz` initializes the model from the export (an
     LSGAN training directory's: G and D) instead of resuming; `eval` loads
     the same D (``_load_discriminator``)."""
@@ -262,8 +272,6 @@ def test_train_starts_from_an_export_with_its_discriminator(wav_tree, checkpoint
     from use_tpu_torch.engine.convert_jax import (
         discriminator_params_to_state_dict, lsgan_params_to_state_dict)
 
-    if not (wav_tree / "lsgan_run.npz").exists():
-        _export(wav_tree, "LSGAN_debug", "lsgan_run", "lsgan_run.npz")
     seen = {}
 
     def fit(model, dm, **kw):

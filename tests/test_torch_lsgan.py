@@ -33,6 +33,15 @@ SR = 24000
 FILES = {os.path.join("sub", "dir", "b.wav"): 6101}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """Tier-1 runs six test processes at once: two torch threads here."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _close(got, want):
     want = np.asarray(want)
     np.testing.assert_allclose(np.asarray(got), want, rtol=1e-4,
@@ -122,12 +131,20 @@ def test_generator_serving_cast_gives_the_shortcut_bf16_weights():
     assert out.dtype == torch.float32 and torch.isfinite(out).all()
 
 
-@pytest.fixture
-def wav_tree(tmp_path):
+@pytest.fixture(scope="module")
+def wav_tree(tmp_path_factory):
+    root = tmp_path_factory.mktemp("lsgan_cli")
     rng = np.random.default_rng(0)
     for rel, n in FILES.items():
-        write_wav(str(tmp_path / "in" / rel), (0.1 * rng.standard_normal(n)).astype(np.float32), SR)
-    return tmp_path
+        write_wav(str(root / "in" / rel), (0.1 * rng.standard_normal(n)).astype(np.float32), SR)
+    return root
+
+
+@pytest.fixture(scope="module")
+def seeded_run(wav_tree):
+    """predict experiment=LSGAN_debug on the generator seeded from
+    train.seed, run once for the tests that read it (into "out")."""
+    return _predict(wav_tree, "out")
 
 
 def _predict(root, out, *extra):
@@ -140,17 +157,18 @@ def _read(root, out):
     return {rel: read_wav(str(root / out / rel)) for rel in FILES}
 
 
-def test_cli_predict_lsgan_writes_mirrored_finite_wavs(wav_tree):
-    summary = _predict(wav_tree, "out")
+def test_cli_predict_lsgan_writes_mirrored_finite_wavs(wav_tree, seeded_run):
+    summary = seeded_run
     assert summary["files"] == len(FILES) and "nfe" not in summary
     assert summary["audio_seconds"] == pytest.approx(sum(FILES.values()) / SR)
     for rel, (data, sr) in _read(wav_tree, "out").items():
         assert sr == SR and data.shape == (FILES[rel],) and np.isfinite(data).all()
 
 
-def test_cli_predict_lsgan_loads_generator_state_dict(wav_tree):
+def test_cli_predict_lsgan_loads_generator_state_dict(wav_tree, seeded_run):
     """ckpt_path= is a .pt state_dict of the generator's NCSN++; the CLI's
-    output equals the generator's own enhance with those weights."""
+    output equals the generator's own enhance with those weights, and
+    differs from the seeded generator's (seeded_run's "out")."""
     net = TGenerator(backbone="ncsnpp6M", device="cpu").net
     gen = torch.Generator().manual_seed(7)
     with torch.no_grad():  # unit-scale weights (the DDPM init zeroes output convs)
@@ -159,9 +177,8 @@ def test_cli_predict_lsgan_loads_generator_state_dict(wav_tree):
             p.copy_(torch.randn(p.shape, generator=gen) / fan_in ** 0.5)
     ckpt = wav_tree / "g.pt"
     torch.save(net.state_dict(), ckpt)
-    _predict(wav_tree, "out_seed")
     _predict(wav_tree, "out_ckpt", f"ckpt_path={ckpt}")
-    seed_out, ckpt_out = _read(wav_tree, "out_seed"), _read(wav_tree, "out_ckpt")
+    seed_out, ckpt_out = _read(wav_tree, "out"), _read(wav_tree, "out_ckpt")
     ref = TGenerator(backbone="ncsnpp6M", n_fft=254, hop_length=64, num_frames=32, device="cpu")
     ref.net.load_state_dict(net.state_dict())
     for rel in FILES:
@@ -189,4 +206,4 @@ def test_cli_rejects_generator_without_the_lsgan_interface(wav_tree, monkeypatch
 
     monkeypatch.setitem(GeneratorRegistry._registry, "bare", Bare)
     with pytest.raises(SystemExit, match="lacks the LSGAN generator interface"):
-        _predict(wav_tree, "out", "model.generator.name=bare")
+        _predict(wav_tree, "out_refused", "model.generator.name=bare")

@@ -24,6 +24,15 @@ from use_tpu_torch.models.ncsnpp.ncsnpp import NCSNpp as TNCSNpp, NCSNppConfig a
 RTOL, ATOL = 1e-4, 1e-5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """Tier-1 runs six test processes at once: two torch threads here."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _jax_apply(module, params, *args):
     return np.asarray(module.apply({"params": params}, *args))
 

@@ -14,6 +14,15 @@ SR = 24000
 FILES = {"a.wav": 9000, os.path.join("sub", "dir", "b.wav"): 6100}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """Tier-1 runs six test processes at once: two torch threads here."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture
 def wav_tree(tmp_path):
     rng = np.random.default_rng(0)

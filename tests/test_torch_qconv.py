@@ -43,6 +43,15 @@ BLOCK_RTOL, BLOCK_ATOL = 1e-4, 1e-5
 MODEL_REL_L2 = 0.05
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """Tier-1 runs six test processes at once: two torch threads here."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(a):
     return torch.from_numpy(np.ascontiguousarray(a))
 

@@ -25,6 +25,15 @@ TINY = dict(backbone="ncsnpp", sde="ouve", condition="noisy", sde_input="noisy",
             backbone_kwargs=dict(nf=16, ch_mult=(1, 2, 2)))
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """Tier-1 runs six test processes at once: two torch threads here."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("name", ["ouve", "ouvp"])
 def test_sde_marginals_match_jax(name):
     rng = np.random.default_rng(0)

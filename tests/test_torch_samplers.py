@@ -29,6 +29,15 @@ TINY = dict(backbone="ncsnpp", sde="ouve", condition="noisy", sde_input="noisy",
 ATOL = 1e-4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """Tier-1 runs six test processes at once: two torch threads here."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _models(seed=11):
     jm = JScoreModel(**TINY)
     params = random_params(jax.eval_shape(jm.init_params, jax.random.PRNGKey(0)), seed=seed)

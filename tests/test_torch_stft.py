@@ -19,6 +19,15 @@ CASES = [(1022, 160, 24000), (1022, 160, 24000 + 77), (254, 64, 4000), (254, 64,
 IDS = ["1022-aligned", "1022-ragged", "254-aligned", "254-ragged"]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """Tier-1 runs six test processes at once: two torch threads here."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _signal(length, seed=0):
     return (0.1 * np.random.default_rng(seed).standard_normal((2, length))).astype(np.float32)
 
@@ -61,3 +70,16 @@ def test_window_matches_jax():
     for window in ("hann", "sqrthann", "hamm"):
         np.testing.assert_array_equal(tstft.get_window(window, 510),
                                       jstft.get_window(window, 510))
+
+
+def test_complex_pair_helpers_match_jax():
+    """to_complex / from_complex (use_tpu/ops/stft.py:266-273): [..., 2]
+    pairs to complex and back, exactly."""
+    from use_tpu.ops import from_complex as jfrom, to_complex as jto
+    from use_tpu_torch.ops import from_complex, to_complex
+
+    pair = np.random.default_rng(0).standard_normal((2, 5, 3, 2)).astype(np.float32)
+    z = to_complex(torch.from_numpy(pair))
+    np.testing.assert_array_equal(z.numpy(), np.asarray(jto(jnp.asarray(pair))))
+    np.testing.assert_array_equal(from_complex(z).numpy(), np.asarray(jfrom(jto(jnp.asarray(pair)))))
+    np.testing.assert_array_equal(from_complex(z).numpy(), pair)

@@ -35,6 +35,15 @@ CASES = {
 }
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """Tier-1 runs six test processes at once: two torch threads here."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _close(got, want):
     want = np.asarray(want)
     assert tuple(got.shape) == want.shape

@@ -5,12 +5,22 @@ import importlib
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from tests.helpers.torch_parity import nchw_to_nhwc, nhwc_to_nchw
 
 jfir = importlib.import_module("use_tpu.ops.upfirdn2d")
 tfir = importlib.import_module("use_tpu_torch.ops.upfirdn2d")
 ATOL = 1e-6
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """Tier-1 runs six test processes at once: two torch threads here."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
 
 
 def _x(seed=0, shape=(2, 8, 12, 3)):

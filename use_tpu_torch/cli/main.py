@@ -124,6 +124,21 @@ def _split_args(argv: List[str]):
     return experiment, overrides, extras
 
 
+# backbones registered as library modules that no task wrapper can build: a
+# GaGNet takes [B, F, T, 2] (no conditioning channels) and a ConvTasNet a
+# waveform; use_tpu's ScoreModel and NCSNPPWrapper fail on both as well
+LIBRARY_BACKBONES = ("gagnet", "convtasnet")
+
+
+def _refuse_registry_backbone(name: Optional[str], key: str, wrapper: str) -> None:
+    if name in LIBRARY_BACKBONES:
+        raise SystemExit(
+            f"{key}={name} is a library module of the backbone registry that {wrapper} "
+            "cannot build, nor can use_tpu's task wrappers; build it directly "
+            f"(BackboneRegistry.get_by_name({name!r})) or use an NCSN++ backbone"
+        )
+
+
 def _build_model(cfg: Dict, device: str):
     import use_tpu_torch.models  # noqa: F401 (populate the registries)
     from use_tpu_torch.models.gan.generator import GENERATOR_INTERFACE
@@ -133,10 +148,14 @@ def _build_model(cfg: Dict, device: str):
 
     seed = int(cfg["train"].get("seed", 0))
     if cfg["task"] == "sgmse":
+        _refuse_registry_backbone(cfg["model"].get("backbone"), "model.backbone", "ScoreModel")
         return ScoreModel(**dict(cfg["model"]), device=device, seed=seed)
     if cfg["task"] == "lsgan":
         gcfg = dict(cfg["model"]["generator"])
         gen_name = gcfg.pop("name", "ncsnpp_wrapper")
+        if gen_name == "ncsnpp_wrapper":
+            _refuse_registry_backbone(gcfg.get("backbone"), "model.generator.backbone",
+                                      "NCSNPPWrapper")
         cls = GeneratorRegistry.get_by_name(gen_name)
         missing = [a for a in GENERATOR_INTERFACE if not callable(getattr(cls, a, None))]
         if missing:

@@ -30,6 +30,18 @@ use_tpu's scopes too (``hifigan_generator_params_to_state_dict``,
 
     ConvTranspose kernel [k, I, O]      -> weight [I, O, k], taps reversed
 
+The modules of the rest of the zoo keep use_tpu's scopes as well: GaGNet
+(its heads built for the same bins, ``GaGNet.materialize``) and the NCSNv1
+layers and norms load ``flax_params_to_state_dict(params)``, ConvTasNet
+``convtasnet_params_to_state_dict`` (its ``decoder`` a transposed conv).
+The walker adds
+
+    2-D ConvTranspose kernel [kh, kw, I, O] -> [I, O, kh, kw], both taps reversed
+    PReLU negative_slope ()              -> weight [1]
+    PReLUC alpha, InstanceNorm++ alpha / gamma / beta -> unchanged
+    Embed embedding [classes, F]         -> weight
+    CumLN1d gain / bias [C]              -> [1, C, 1]
+
 ``csmgan_params_to_state_dict`` maps use_tpu's CSMGAN params onto the
 port's CSMGAN, whose keys are the reference's torch module paths (the
 inverse of convert_torch.py::convert_csmgan_state_dict, :358):
@@ -54,7 +66,7 @@ weights are the EMA ones, whether D is there).
 from __future__ import annotations
 
 import json
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -132,24 +144,41 @@ def lsgan_params_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Ten
     return ncsnpp_params_to_state_dict(params)
 
 
+def flax_params_to_state_dict(params: Mapping[str, Any], transposed: Tuple[str, ...] = ()
+                              ) -> Dict[str, torch.Tensor]:
+    """use_tpu params of a module whose port keeps Flax's scope names as its
+    module paths -> its state_dict: the path kept, each leaf converted
+    (``_convert_leaf`` for the rest). A transposed conv is a scope named
+    ``ConvTranspose_*`` or listed in `transposed`."""
+    out: Dict[str, torch.Tensor] = {}
+    for path, value in _flatten(params):
+        arr = np.asarray(value)
+        leaf, scope = path[-1], path[:-1]
+        if leaf == "kernel" and arr.ndim in (3, 4):
+            if scope[-1].startswith("ConvTranspose") or scope[-1] in transposed:
+                # [k..., I, O] -> [I, O, k...], the taps reversed
+                taps = tuple(range(arr.ndim - 2))
+                arr = np.transpose(np.flip(arr, taps), (arr.ndim - 2, arr.ndim - 1) + taps)
+            else:  # [k..., I / groups, O] -> [O, I / groups, k...]
+                arr = np.transpose(arr, (arr.ndim - 1, arr.ndim - 2) + tuple(range(arr.ndim - 2)))
+            leaf = "weight"
+        elif leaf == "negative_slope":  # Flax's PReLU: one slope
+            arr, leaf = arr.reshape(1), "weight"
+        elif leaf == "embedding":
+            leaf = "weight"
+        elif leaf in ("gain", "bias") and scope and scope[-1].startswith("CumLN1d"):
+            arr = arr.reshape(1, -1, 1)
+        elif leaf not in ("alpha", "gamma", "beta"):
+            leaf, arr = _convert_leaf(leaf, arr)
+        out[".".join(scope + (leaf,))] = torch.from_numpy(np.ascontiguousarray(arr).copy())
+    return out
+
+
 def discriminator_params_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """use_tpu discriminator params (the second of ``LSGAN.init_params``:
     the 24k_MVD and 24k banks', the multi-scale and spectrogram
     discriminators') -> the port's D state_dict."""
-    out: Dict[str, torch.Tensor] = {}
-    for path, value in _flatten(params):
-        arr = np.asarray(value)
-        leaf = path[-1]
-        if leaf == "kernel" and arr.ndim == 3:
-            if path[-2].startswith("ConvTranspose"):  # [k, I, O] -> flipped [I, O, k]
-                arr = np.transpose(arr[::-1], (1, 2, 0))
-            else:  # [k, I/g, O] -> [O, I/g, k]
-                arr = np.transpose(arr, (2, 1, 0))
-            leaf = "weight"
-        else:
-            leaf, arr = _convert_leaf(leaf, arr)
-        out[".".join(path[:-1] + (leaf,))] = torch.from_numpy(np.ascontiguousarray(arr).copy())
-    return out
+    return flax_params_to_state_dict(params)
 
 
 def hifigan_generator_params_to_state_dict(params: Mapping[str, Any]
@@ -165,6 +194,12 @@ def bwe_params_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tenso
     """use_tpu BandwidthExtender params -> the port's BandwidthExtender
     state_dict (1-D kernels [k, I, O] -> [O, I, k])."""
     return discriminator_params_to_state_dict(params)
+
+
+def convtasnet_params_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """use_tpu ConvTasNet params -> the port's ConvTasNet state_dict: the
+    ``decoder`` is a transposed conv (taps flipped, [N, 1, win])."""
+    return flax_params_to_state_dict(params, transposed=("decoder",))
 
 
 # use_tpu's GLFB scopes (the path under enc{i}_glfb{d} / dec{i}_glfb{d} up to

@@ -17,6 +17,8 @@ from use_tpu_torch.models.gan import csmgan as _csmgan  # noqa: F401
 from use_tpu_torch.models.gan import discriminators as _discriminators  # noqa: F401
 from use_tpu_torch.models.gan import hifigan_bwe as _hifigan_bwe  # noqa: F401
 from use_tpu_torch.models.gan import hifigan_vocoder as _hifigan_vocoder  # noqa: F401
+from use_tpu_torch.models import convtasnet as _convtasnet  # noqa: F401
+from use_tpu_torch.models import gagnet as _gagnet  # noqa: F401
 
 __all__ = [
     "BackboneRegistry",

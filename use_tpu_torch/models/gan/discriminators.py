@@ -51,10 +51,11 @@ def reset_parameters(module: nn.Module, generator: Optional[torch.Generator] = N
     registration order: kernels LeCun-normal (a normal truncated at two
     standard deviations, scaled to variance 1 / fan_in), biases zero. A
     transposed conv's fan-in is its input channels times its taps (Flax's
-    ConvTranspose kernel is [k, I, O])."""
+    ConvTranspose kernel is [k..., I, O])."""
     for m in module.modules():
-        if isinstance(m, (nn.Conv1d, nn.Conv2d, nn.ConvTranspose1d)):
-            fan_in = (m.weight[:, 0].numel() if isinstance(m, nn.ConvTranspose1d)
+        if isinstance(m, (nn.Conv1d, nn.Conv2d, nn.ConvTranspose1d, nn.ConvTranspose2d)):
+            fan_in = (m.weight[:, 0].numel() if isinstance(m, (nn.ConvTranspose1d,
+                                                                 nn.ConvTranspose2d))
                       else m.weight[0].numel())
             std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
             nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std, generator=generator)

@@ -9,12 +9,14 @@ from use_tpu_torch.ops.gn_stats import channel_sums, gn_apply, gn_apply_int8
 from use_tpu_torch.ops.qconv import qconv3x3_s8
 from use_tpu_torch.ops.stft import (
     STFTConfig,
+    from_complex,
     get_window,
     istft,
     pad_spec,
     spec_back,
     spec_fwd,
     stft,
+    to_complex,
 )
 
 KERNEL_WRAPPERS = (channel_sums, gn_apply, fused_skip_add, qconv3x3_fused, gn_apply_int8,
@@ -38,6 +40,8 @@ __all__ = [
     "spec_back",
     "pad_spec",
     "get_window",
+    "to_complex",
+    "from_complex",
     "channel_sums",
     "gn_apply",
     "fused_skip_add",

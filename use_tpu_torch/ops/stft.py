@@ -178,3 +178,13 @@ def pad_spec(spec: torch.Tensor, multiple: int = 64) -> torch.Tensor:
     if num_pad == 0:
         return spec
     return torch.nn.functional.pad(spec, (0, 0, 0, num_pad))
+
+
+def to_complex(pair: torch.Tensor) -> torch.Tensor:
+    """[..., 2] real pair -> complex."""
+    return torch.complex(pair[..., 0], pair[..., 1])
+
+
+def from_complex(z: torch.Tensor) -> torch.Tensor:
+    """complex -> [..., 2] real pair."""
+    return torch.stack([z.real, z.imag], dim=-1)
