@@ -15,6 +15,8 @@
     python3 chip_smoke.py --models     # build, kernels, then only the alternative
                                        # backbones' and the legacy family's
                                        # phases (29-31)
+    python3 chip_smoke.py --dist       # build, kernels, then only bf16 and
+                                       # data-parallel training (phases 32-34)
 
 Phases, one line each (any failure raises and exits non-zero):
   1. environment: torch / CUDA versions, the card's name and power limit;
@@ -214,7 +216,31 @@ Phases, one line each (any failure raises and exits non-zero):
  31. legacy_layers_forward: RefineBlock (two inputs, conditional and not),
      a 'down' ResidualBlock with ConditionalInstanceNorm2dPlus and each norm
      of the zoo at LEGACY_LAYER_SHAPE, the card against the CPU within
-     ZOO_REL_TOL x max|ref|.
+     ZOO_REL_TOL x max|ref|;
+ 32. train_bf16_step: one SGMSE_Large microbatch (TRAIN_SHAPE, remat) and
+     one LSGAN microbatch (both phases) with the backbone computing in bf16
+     (model.backbone_kwargs.dtype=bfloat16; the weights float32) against
+     fp32 on the same weights and draws, for BF16_SEEDS: the loss and every
+     gradient's error, the L2 error of all of them within BF16_GRAD_L2_TOL,
+     which a control (K2's bf16 backward without its scale) must exceed;
+     launches exactly TRAIN_LAUNCHES / GAN_TRAIN_LAUNCHES["remat"]; seconds
+     and peak memory of a bf16 microbatch beside fp32's;
+ 33. train_ddp: `python -m torch.distributed.run --standalone
+     --nproc_per_node=<the cards> -m use_tpu_torch.cli.main train
+     experiment=SGMSE_Large` (DDP_TRAIN_ARGS, train.async_ckpt=true): exit
+     0, the world size and NCCL printed, exact launches, its weights within
+     the spread of two runs without torchrun (DDP_WEIGHTS_FLOOR where they
+     agree bit for bit); `train experiment=LSGAN` under torchrun with the
+     generator in bf16 (DDP_LSGAN_ARGS, train.mesh_idle=warn): exit 0,
+     finite losses, exact launches; an asynchronous checkpoint read back
+     equals a synchronous one of the same state bit for bit, though the
+     state changed right after the save returned;
+ 34. ddp_two_ranks: two ranks share the card through gloo (NCCL refuses
+     two ranks on one GPU), each one sgmse_train_step of SGMSE_Large at
+     batch 1 through the engine: the ranks bit-identical, the gradient they
+     apply the one-process step's over the 2-clip batch with the same
+     global draws (TRAIN_GRAD_REL_TOL), the weights after Adam its; the
+     step's and a gloo all-reduce's seconds.
 Each phase prints its seconds. Then a JSON line of the kernels, the card
 line, and the last line {"ok": true, "device": {...}}.
 """
@@ -470,6 +496,37 @@ LEGACY_REGEN_LAUNCHES = {k: PER_GENERATOR_FORWARD[k] + CHAIN_N * PER_FORWARD["fl
 LEGACY_CHAIN_TOL = 1e-6
 LEGACY_LOSS_REL_TOL = 1e-4  # DiscriminativeModel.train_loss, card against CPU
 LEGACY_LAYER_SHAPE = (8, 128, 64, 64)
+# bf16 and data-parallel training (phases 32-34): the bf16 microbatches'
+# seeds (weights and batch) and the limit on the L2 error of all of a bf16
+# microbatch's gradients against fp32's on the same weights and draws
+# (PERF.md: the seeds' readings and the control's)
+BF16_SEEDS = (1, 2, 3)
+BF16_GRAD_L2_TOL = 0.1
+# the torchrun runs: 2 optimizer steps of 2 microbatches of 2 clips over
+# DDP_CLIPS clips (the overfit subset, the loader in the main process), one
+# epoch; validation and test of the DDP_CLIPS clips in batches of 2
+# (DDP_EVAL_BATCHES forwards); LSGAN one step of one microbatch, its
+# generator in bf16. The overfit subset seeds numpy a item; the
+# perturbations that draw from Python's random module are off, so that
+# every run trains on the same items
+DDP_CLIPS = 8
+DDP_EVAL_BATCHES = DDP_CLIPS // 2 + -(-DDP_CLIPS // 2)
+DDP_SAME_ITEMS = ("data.eq_perturb_prob=0", "data.eq_much_gain_prob=0",
+                  "data.spectral_leakage_prob=0", "data.colored_noise_prob=0",
+                  "data.colored_noise_post_prob=0")
+DDP_TRAIN_ARGS = (IN_PROCESS_LOADER, f"data.overfit_items={DDP_CLIPS}", "data.batch_size=2",
+                  "train.accumulate_grad_batches=2", "train.max_epochs=1", *DDP_SAME_ITEMS)
+DDP_LSGAN_ARGS = (IN_PROCESS_LOADER, "data.overfit_items=2", "data.batch_size=2",
+                  "train.accumulate_grad_batches=1", "train.max_epochs=1",
+                  f"data.speech_splice_seconds={GAN_SPLICE_S}",
+                  "model.generator.backbone_kwargs.dtype=bfloat16")
+# the torchrun run's last weights against a plain run's, the L2 of their
+# difference over that of the plain run's update: within twice the plain
+# runs' own, or this where those agree bit for bit (a run on another
+# number of CPU threads reads 2.1e-5 on the CPU; a gradient not averaged
+# or not applied moves the weights by a whole update)
+DDP_WEIGHTS_FLOOR = 1e-3
+DDP_BACKEND = "nccl"  # torchrun's ranks on CUDA
 
 
 def phase(phase_name, **fields):
@@ -502,7 +559,15 @@ def main():
     ap.add_argument("--models", action="store_true",
                     help="build, kernels, then only the alternative backbones' and the "
                          "legacy family's phases (29-31)")
+    ap.add_argument("--dist", action="store_true",
+                    help="build, kernels, then only bf16 and data-parallel training "
+                         "(phases 32-34)")
+    ap.add_argument("--ddp-rank-worker", nargs=2, metavar=("DIR", "DEVICE"),
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.ddp_rank_worker:  # one rank of phase 34, started by it
+        ddp_rank_worker(*args.ddp_rank_worker)
+        return 0
     # the learn phase runs cuBLAS deterministically, which needs this before its first call
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
@@ -546,6 +611,8 @@ def main():
         runs.update(zoo_phases(torch, dev))
     elif args.models:
         runs.update(models_phases(torch, dev))
+    elif args.dist:
+        runs.update(dist_phases(torch, dev))
     elif not args.kernels:
         timed("forward", forward_phase, torch, dev)
         timed("int8_forward", int8_forward_phase, torch, dev)
@@ -579,6 +646,7 @@ def main():
         runs.update(csmgan_phases(torch, dev))
         runs.update(zoo_phases(torch, dev))
         runs.update(models_phases(torch, dev))
+        runs.update(dist_phases(torch, dev))
         if args.profile:
             timed("profile", profile_phase, torch, dev)
             timed("profile_train", profile_train_phase, torch, dev)
@@ -2863,7 +2931,7 @@ def train_gan_phase(torch, dev, experiment, clips, splice_s, crop_s, per_micro, 
     eval_label = f"eval {experiment}" if label is None else f"eval {label}"
     label = label or f"train_{experiment.lower()}"
     cfg = load_config(experiment, overrides)
-    resolve_auto_batch(cfg)
+    resolve_auto_batch(cfg, 1)
     batch = cfg["data"]["batch_size"]
     per_step = batch * cfg["train"]["accumulate_grad_batches"]
     with tempfile.TemporaryDirectory(prefix="chip_smoke_gan_") as tmp:
@@ -3848,6 +3916,570 @@ def legacy_layers_forward_phase(torch, dev):
                       and r["launches"] == all_kernels(NO_LAUNCHES))]
     if failed:
         raise AssertionError("legacy_layers_forward: " + "; ".join(failed))
+    torch.cuda.empty_cache()
+
+
+# -- data-parallel and bf16 training (phases 32-34) ------------------------
+
+def dist_phases(torch, dev):
+    """Phases 32-34; -> {run label: launches by kernel} of the torchrun run."""
+    timed("train_bf16_step", train_bf16_step_phase, torch, dev)
+    runs = timed("train_ddp", train_ddp_phase, torch, dev)
+    timed("ddp_two_ranks", ddp_two_ranks_phase, torch, dev)
+    return runs
+
+
+def _grad_rel(got, want, skip=()):
+    """{name: max |got - want| / max |want|} over `want`'s tensors but
+    `skip`, and |got - want| / |want| (L2) over all of them together."""
+    rel, num, den = {}, 0.0, 0.0
+    for k, w in want.items():
+        if k in skip:
+            continue
+        g = got[k].float()
+        rel[k] = float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+        num += float(((g - w) ** 2).sum())
+        den += float((w ** 2).sum())
+    return rel, math.sqrt(num / den)
+
+
+@contextlib.contextmanager
+def k2_backward_without_scale(torch):
+    """A bf16 training path broken on purpose, for the bf16 gate to reject:
+    K2's backward without its skip_rescale factor (1/sqrt(2))."""
+    from use_tpu_torch.ops import fused_skip
+
+    backward = fused_skip._FusedSkipAdd.backward
+
+    def unscaled(ctx, dy):
+        scale, ctx.scale = ctx.scale, 1.0
+        try:
+            return backward(ctx, dy)
+        finally:
+            ctx.scale = scale
+
+    fused_skip._FusedSkipAdd.backward = staticmethod(unscaled)
+    try:
+        yield
+    finally:
+        fused_skip._FusedSkipAdd.backward = staticmethod(backward)
+
+
+def _bf16_cases(torch, dev, recipe):
+    """`recipe` ('sgmse': SGMSE_Large's score model on TRAIN_SHAPE[0] clips;
+    'lsgan': LSGAN's generator and D on GAN_TRAIN_SHAPE[0] clips), remat:
+    for each of BF16_SEEDS (the weights and the batch), one microbatch in
+    fp32 and one with the backbone in bf16 (the same fp32 weights, the same
+    draws), and the first seed's again with the control; -> a record a
+    case: the bf16 loss and gradients against the fp32 ones, launches,
+    seconds and peak memory (the first seed's timed, median of 3)."""
+    from use_tpu_torch import ops
+
+    if recipe == "sgmse":
+        model, _ = _train_model(torch, dev)
+        owner, attr = model, "score_net"
+
+        def batch_of(seed):
+            return _train_batch(torch, model, TRAIN_SHAPE[0], seed=seed)
+
+        def run(data):
+            loss, s = _microbatch(torch, model, *data)
+            return float(loss), {k: p.grad for k, p in model.score_net.named_parameters()
+                                 if p.grad is not None}, s
+    else:
+        model, _ = _gan_model(torch, dev)
+        owner, attr = model.generator, "net"
+
+        def batch_of(seed):
+            return _gan_batch(torch, model, GAN_TRAIN_SHAPE[0], seed=seed)
+
+        def run(data):
+            loss_d, logs, s = _gan_microbatch(torch, model, *data)
+            return logs["loss_G"] + float(loss_d), _gan_grads(model), s
+
+    fp32 = getattr(owner, attr)
+    bf16 = _bf16_twin(torch, fp32, dev)
+    key_biases = {f"{name}.NIN_1.b" for name, m in fp32.named_modules()
+                  if type(m).__name__ == "AttnBlockpp"}
+    key_biases |= {f"G.{k}" for k in key_biases}
+    records = []
+    for seed, control in [(s, False) for s in BF16_SEEDS] + [(BF16_SEEDS[0], True)]:
+        _randomize(torch, fp32, seed=seed)
+        bf16.load_state_dict(fp32.state_dict())
+        data = batch_of(seed)
+        setattr(owner, attr, fp32)
+        loss32, g32, _ = run(data)
+        want = {k: g.detach().clone() for k, g in g32.items()}
+        timed32 = [run(data)[2] for _ in range(3)] if seed == BF16_SEEDS[0] and not control \
+            else []
+        setattr(owner, attr, bf16)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        ops.reset_launch_counts()
+        with k2_backward_without_scale(torch) if control else contextlib.nullcontext():
+            loss16, g16, s = run(data)
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+        rel, l2 = _grad_rel(g16, want, key_biases)
+        worst = max(rel, key=rel.get)
+        rec = {"recipe": recipe, "seed": seed, "control": control, "loss_fp32": loss32,
+               "loss_bf16": loss16, "loss_rel_err": abs(loss16 - loss32) / abs(loss32),
+               "grad_l2_rel_err": l2, "max_grad_rel_err": rel[worst], "worst_grad": worst,
+               "median_grad_rel_err": float(np.median(list(rel.values()))), "grads": len(rel),
+               "launches": counts, "seconds": s, "peak_memory_bytes": peak,
+               "param_dtypes": sorted({str(p.dtype) for p in bf16.parameters()})}
+        if timed32:
+            rec["microbatch_s"] = float(np.median([run(data)[2] for _ in range(3)]))
+            rec["microbatch_s_fp32"] = float(np.median(timed32))
+        records.append(rec)
+        del want, g32, g16
+    setattr(owner, attr, fp32)
+    del model, fp32, bf16
+    torch.cuda.empty_cache()
+    return records
+
+
+def _bf16_twin(torch, net, dev):
+    """A copy of the NCSN++ `net` that computes in bf16 (its config's
+    dtype; the weights float32), on `dev`."""
+    from use_tpu_torch.models.ncsnpp.ncsnpp import NCSNpp
+
+    twin = NCSNpp(dataclasses.replace(net.cfg, dtype="bfloat16"))
+    twin.load_state_dict(net.state_dict())
+    return twin.to(dev)
+
+
+def train_bf16_step_phase(torch, dev):
+    """bf16 training (phase 32): one SGMSE_Large microbatch (TRAIN_SHAPE,
+    remat) and one LSGAN microbatch (GAN_TRAIN_SHAPE, both phases, remat),
+    each with the backbone in bf16 against fp32 on the card, on the same
+    weights, batch and draws, for BF16_SEEDS: the loss, and every gradient
+    against the fp32 one (its largest-relative error per tensor, and the L2
+    error of them all, which BF16_GRAD_L2_TOL gates); the control (K2's bf16
+    backward without its scale) must exceed that limit; the weights stay
+    float32; launches exactly TRAIN_LAUNCHES["remat"] and
+    GAN_TRAIN_LAUNCHES["remat"]; seconds a bf16 microbatch (median of 3)
+    and its peak memory beside the fp32 ones of phases 10 and 13."""
+    records = _bf16_cases(torch, dev, "sgmse") + _bf16_cases(torch, dev, "lsgan")
+    phase("train_bf16_step", shapes={"sgmse": list(TRAIN_SHAPE), "lsgan": list(GAN_TRAIN_SHAPE)},
+          tol=BF16_GRAD_L2_TOL, control="K2's bf16 backward without its scale",
+          tf32=bool(torch.backends.cudnn.allow_tf32), cases=records)
+    want = {"sgmse": all_kernels(TRAIN_LAUNCHES["remat"]),
+            "lsgan": all_kernels(GAN_TRAIN_LAUNCHES["remat"])}
+    failed = []
+    for r in records:
+        if r["control"]:
+            if not r["grad_l2_rel_err"] > BF16_GRAD_L2_TOL:
+                failed.append(f"{r['recipe']}: the control passes ({r['grad_l2_rel_err']})")
+            continue
+        if not (r["grad_l2_rel_err"] <= BF16_GRAD_L2_TOL and math.isfinite(r["loss_bf16"])):
+            failed.append(f"{r['recipe']} seed {r['seed']}: L2 {r['grad_l2_rel_err']}, "
+                          f"loss {r['loss_bf16']}")
+        if r["launches"] != want[r["recipe"]] or r["param_dtypes"] != ["torch.float32"]:
+            failed.append(f"{r['recipe']}: launches {r['launches']}, weights {r['param_dtypes']}")
+    if failed:
+        raise AssertionError("train_bf16_step: " + "; ".join(failed))
+
+
+def _last_state(out_dir):
+    """The model weights of a train run's last checkpoint."""
+    from use_tpu_torch.engine.checkpoint import CheckpointManager
+
+    mgr = CheckpointManager(os.path.join(out_dir, "checkpoints"))
+    return mgr.restore(mgr.latest_step())["model"]
+
+
+def _update_rel(a, b, start):
+    """|a - b| / |b - start| over all the tensors of b together (L2): how
+    far two trained weights part, as a share of the training's update."""
+    num = sum(float(((a[k].float() - v.float()) ** 2).sum()) for k, v in b.items())
+    den = sum(float(((v.float() - start[k].float()) ** 2).sum()) for k, v in b.items())
+    return math.sqrt(num / den)
+
+
+def _torchrun(args, log_path):
+    """Start `python -m torch.distributed.run --standalone` over every card
+    with `args`, its output to log_path; -> the process."""
+    import torch
+
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc_per_node={torch.cuda.device_count()}", *args]
+    env = {**os.environ, "PYTHONPATH": os.path.dirname(os.path.abspath(__file__))}
+    with open(log_path, "w") as log:
+        return subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT, env=env,
+                                cwd=os.path.dirname(os.path.abspath(__file__)))
+
+
+@contextlib.contextmanager
+def _reaping(procs):
+    """Kill whatever of `procs` still runs when the block ends."""
+    try:
+        yield
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def _finished(proc, log_path, what, timeout=600):
+    """Wait for a _torchrun process; -> its output, or raise where it failed."""
+    rc = proc.wait(timeout=timeout)
+    with open(log_path) as f:
+        text = f.read()
+    if rc != 0:
+        raise AssertionError(f"{what}: torchrun exited {rc}:\n{text[-6000:]}")
+    return text
+
+
+def _summary_line(text):
+    lines = [ln for ln in text.splitlines() if "train summary: " in ln]
+    if not lines:
+        raise AssertionError(f"train_ddp: no train summary in the run's output:\n{text[-4000:]}")
+    return json.loads(lines[-1].split("train summary: ", 1)[1])
+
+
+def _async_checkpoint_check(torch, dev):
+    """An SGMSE_Large train state after one optimizer step, saved
+    synchronously and asynchronously; a second step changes it in place
+    right after the asynchronous save returns: both files hold the first
+    state, bit for bit. -> (equal, seconds of the save call, seconds of
+    the write it hides)."""
+    from use_tpu_torch.engine.checkpoint import CheckpointManager
+    from use_tpu_torch.engine.loop import build_train_state
+
+    model, cfg = _train_model(torch, dev)
+    batch, draws = _train_batch(torch, model, 1)
+    _microbatch(torch, model, batch, draws)
+    t = cfg["train"]
+    state = build_train_state(model, t["lr"], t["weight_decay"], t["grad_clip"])
+    state.apply_gradients()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
+        sync = CheckpointManager(os.path.join(tmp, "sync"))
+        t0 = time.perf_counter()
+        sync.save(0, state)
+        sync_s = time.perf_counter() - t0
+        mgr = CheckpointManager(os.path.join(tmp, "async"), async_save=True)
+        t0 = time.perf_counter()
+        mgr.save(0, state)
+        call_s = time.perf_counter() - t0
+        state.apply_gradients()  # the next step, in place, while the write runs
+        mgr.wait()
+        a, b = mgr.restore(0), sync.restore(0)
+    equal = all(torch.equal(a["model"][k], v) for k, v in b["model"].items()) and all(
+        torch.equal(x, y) for s, o in zip(a["optimizer"]["state"].values(),
+                                          b["optimizer"]["state"].values())
+        for x, y in zip(s.values(), o.values()) if isinstance(x, torch.Tensor))
+    del model, state, a, b
+    torch.cuda.empty_cache()
+    return equal, call_s, sync_s
+
+
+def train_ddp_phase(torch, dev):
+    """Data-parallel training through the CLI (phase 33): `python -m
+    torch.distributed.run --standalone --nproc_per_node=<the cards> -m
+    use_tpu_torch.cli.main train experiment=SGMSE_Large` with
+    DDP_TRAIN_ARGS (2 optimizer steps of 2 microbatches of 2 clips, the
+    loader in the main process, train.async_ckpt=true, mesh_idle=error):
+    exit 0, its world size and backend (NCCL) printed, K1 and K2 launched
+    exactly TRAIN_LAUNCHES["remat"] a microbatch plus PER_FORWARD a
+    validation or test batch; its last checkpoint's weights against two
+    runs of the same command without torchrun (in this process, checkpoints
+    written synchronously): within twice their spread (cuDNN's backward
+    sums in no fixed order). Then the LSGAN recipe under torchrun with the
+    generator in bf16 (DDP_LSGAN_ARGS, mesh_idle=warn): exit 0, finite
+    losses, launches exactly GAN_TRAIN_LAUNCHES["remat"] a microbatch plus
+    PER_GENERATOR_FORWARD an eval batch. The torchrun runs start first and
+    run beside the plain ones. And the asynchronous checkpoint read back
+    equals a synchronous one of the same state, bit for bit; and an
+    optimizer step through DDP at world 1 is timed against the plain step.
+    -> {"train_ddp": the SGMSE run's launches}."""
+    from use_tpu_torch.cli.main import _build_model
+    from use_tpu_torch.cli.main import main as cli_main
+    from use_tpu_torch.config.config import load_config
+
+    sr = 24000
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ddp_") as tmp:
+        jl = write_corpus(os.path.join(tmp, "corpus"), DDP_CLIPS, TRAIN_CLIP_S, sr)
+        data = [f"data.clean_json_path={jl}", f"data.noise_json_path={jl}",
+                "data.reverb_use_FRA=true"]
+        # the torchrun runs start first and run beside the plain runs: a new
+        # process's start (imports, the model, CUDA's first calls) is most
+        # of their time
+        out, gan_out = os.path.join(tmp, "ddp"), os.path.join(tmp, "lsgan")
+        t0 = time.perf_counter()
+        logs = {"sgmse": os.path.join(tmp, "ddp.log"), "lsgan": os.path.join(tmp, "lsgan.log")}
+        procs = {"sgmse": _torchrun(["-m", "use_tpu_torch.cli.main", "train",
+                                     f"experiment={TRAIN_EXPERIMENT}", *data, *DDP_TRAIN_ARGS,
+                                     "train.async_ckpt=true", "train.mesh_idle=error",
+                                     f"out_dir={out}"], logs["sgmse"]),
+                 "lsgan": _torchrun(["-m", "use_tpu_torch.cli.main", "train",
+                                     f"experiment={GAN_EXPERIMENT}", *data, *DDP_LSGAN_ARGS,
+                                     "train.async_ckpt=true", "train.mesh_idle=warn",
+                                     f"out_dir={gan_out}"], logs["lsgan"])}
+        with _reaping(procs.values()):
+            plain = []
+            for i in range(2):
+                p_out = os.path.join(tmp, f"plain{i}")
+                with train_steps_timed(torch, dev, profile_step=False) as rec:
+                    s = cli_main(["train", f"experiment={TRAIN_EXPERIMENT}", *data,
+                                  *DDP_TRAIN_ARGS, f"out_dir={p_out}", f"device={dev}"])
+                plain.append((p_out, s, rec))
+            text = _finished(procs["sgmse"], logs["sgmse"], "train_ddp")
+            wall = time.perf_counter() - t0
+            summary = _summary_line(text)
+            start = _build_model(load_config(TRAIN_EXPERIMENT), "cpu").score_net.state_dict()
+            ref = _last_state(plain[0][0])
+            spread = _update_rel(_last_state(plain[1][0]), ref, start)
+            err = _update_rel(_last_state(out), ref, start)
+            _, s0, rec0 = plain[0]
+            want = {k: v * s0["microbatches"] + all_kernels(PER_FORWARD["float32"])[k]
+                    * DDP_EVAL_BATCHES for k, v in all_kernels(TRAIN_LAUNCHES["remat"]).items()}
+            printed = (f"data-parallel over {torch.cuda.device_count()} ranks "
+                       f"(backend {DDP_BACKEND})")
+            phase("train_ddp", experiment=TRAIN_EXPERIMENT, args=list(DDP_TRAIN_ARGS),
+                  clips=DDP_CLIPS, world_size=summary["world_size"], backend=summary["backend"],
+                  printed=printed in text, optimizer_steps=summary["optimizer_steps"],
+                  microbatches=summary["microbatches"], fit_seconds=summary["fit_seconds"],
+                  plain_fit_seconds=[p[1]["fit_seconds"] for p in plain],
+                  plain_step_seconds=[p[2]["step_s"] for p in plain],
+                  wall_seconds=wall, launches=summary["launches"], expected_launches=want,
+                  plain_launches=s0["launches"],
+                  eval_batches=rec0["eval_steps"], weights_rel_err_of_update=err,
+                  plain_runs_rel_spread_of_update=spread, floor=DDP_WEIGHTS_FLOOR)
+            if not (printed in text and summary["backend"] == DDP_BACKEND
+                    and summary["world_size"] == torch.cuda.device_count()):
+                raise AssertionError(f"train_ddp: world {summary['world_size']}, backend "
+                                     f"{summary['backend']}, printed {printed in text}")
+            if (summary["launches"] != want or s0["launches"] != want
+                    or rec0["eval_steps"] != DDP_EVAL_BATCHES or summary["optimizer_steps"] != 2):
+                raise AssertionError(f"train_ddp: launches {summary['launches']}, expected {want}; "
+                                     f"{summary['optimizer_steps']} steps")
+            if not err <= max(2 * spread, DDP_WEIGHTS_FLOOR):
+                raise AssertionError(f"train_ddp: weights off the plain runs' by {err} (their "
+                                     f"spread {spread})")
+            del ref, start
+
+            text = _finished(procs["lsgan"], logs["lsgan"], "train_ddp lsgan")
+            gan_wall = time.perf_counter() - t0
+            gsum = _summary_line(text)
+            micro = gsum["microbatches"]
+            with open(os.path.join(gan_out, "optimized_metric.json")) as f:
+                record = json.load(f)
+            gwant = {k: v * micro + all_kernels(PER_GENERATOR_FORWARD)[k] * DDP_EVAL_BATCHES
+                     for k, v in all_kernels(GAN_TRAIN_LAUNCHES["remat"]).items()}
+            phase("train_ddp_lsgan", experiment=GAN_EXPERIMENT, args=list(DDP_LSGAN_ARGS),
+                  world_size=gsum["world_size"], backend=gsum["backend"],
+                  optimizer_steps=gsum["optimizer_steps"], microbatches=micro,
+                  fit_seconds=gsum["fit_seconds"], wall_seconds=gan_wall,
+                  optimized_metric=record, launches=gsum["launches"], expected_launches=gwant)
+            if not (np.isfinite(record["value"]) and gsum["launches"] == gwant
+                    and gsum["optimizer_steps"] == 1):
+                raise AssertionError(f"train_ddp lsgan: {record}, launches {gsum['launches']}, "
+                                     f"expected {gwant}")
+    equal, call_s, sync_s = _async_checkpoint_check(torch, dev)
+    phase("async_checkpoint", experiment=TRAIN_EXPERIMENT, bit_equal=equal,
+          async_call_seconds=call_s, sync_save_seconds=sync_s)
+    if not equal:
+        raise AssertionError("train_ddp: the asynchronous checkpoint differs from the "
+                             "synchronous one")
+    _ddp_world1_step(torch, dev)
+    torch.cuda.empty_cache()
+    return {"train_ddp": summary["launches"]}
+
+
+def _ddp_world1_step(torch, dev):
+    """An SGMSE_Large optimizer step (TRAIN_SHAPE, one microbatch, remat)
+    plain and through DDP in a process group of one rank (NCCL), in turns
+    (plain, DDP, DDP, plain, ...), in this process: the seconds of each
+    (medians of 3), the cost of DDP's hooks and bucket copies at world 1."""
+    import torch.distributed as dist
+
+    from use_tpu_torch.engine.loop import distribute, build_train_state
+    from use_tpu_torch.engine.train import sgmse_train_step
+    from use_tpu_torch.parallel.mesh import World
+
+    model, cfg = _train_model(torch, dev)
+    batch, draws = _train_batch(torch, model, TRAIN_SHAPE[0])
+    micro = [{k: v.to(dev) for k, v in batch.items()}]
+    tc = cfg["train"]
+    state = build_train_state(model, tc["lr"], tc["weight_decay"], tc["grad_clip"])
+    dist.init_process_group(DDP_BACKEND, init_method=f"tcp://localhost:{_free_port()}",
+                            world_size=1, rank=0)
+    try:
+        distribute(state, World(), dev)
+        ddp = state.ddp
+        times = {"plain": [], "ddp": []}
+        for label in ("ddp", "plain") + ("plain", "ddp", "ddp", "plain") * 2 + ("ddp",):
+            state.ddp = ddp if label == "ddp" else None
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            sgmse_train_step(model, state, micro, draws=[draws])
+            torch.cuda.synchronize(dev)
+            times[label].append(time.perf_counter() - t0)
+    finally:
+        dist.destroy_process_group()
+    plain, wrapped = times["plain"][1:], times["ddp"][1:]  # the first of each warms up
+    phase("ddp_world1_step", experiment=TRAIN_EXPERIMENT, shape=list(TRAIN_SHAPE),
+          backend=DDP_BACKEND, plain_step_s=float(np.median(plain)),
+          ddp_step_s=float(np.median(wrapped)), plain_steps_s=plain, ddp_steps_s=wrapped)
+    del model, state, ddp
+
+
+def ddp_rank_worker(tmp, device):
+    """One of ddp_two_ranks' two processes (torchrun's environment set by
+    the phase): joins the gloo group, takes one sgmse_train_step of
+    SGMSE_Large at batch 1 (its row of the 2-clip batch and of the global
+    draws) on the card, and saves the gradient it applied and the weights
+    after the step; times the step and one all-reduce of the whole
+    gradient."""
+    import torch
+    import torch.distributed as dist
+
+    from use_tpu_torch.engine.loop import distribute, build_train_state
+    from use_tpu_torch.engine.train import sgmse_train_step
+    from use_tpu_torch.parallel.mesh import default_world, init_distributed, local_rows
+
+    assert init_distributed("gloo")
+    dev = torch.device(device)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    model, cfg = _train_model(torch, dev)
+    batch, (start, t, z) = _train_batch(torch, model, 2)
+    world = default_world(2)
+    tc = cfg["train"]
+    state = build_train_state(model, tc["lr"], tc["weight_decay"], tc["grad_clip"])
+    distribute(state, world, dev)
+    seen = {}
+    real = state.apply_gradients
+
+    def record():
+        seen.update({k: p.grad.detach().cpu() for k, p in model.score_net.named_parameters()
+                     if p.grad is not None})
+        real()
+
+    state.apply_gradients = record
+    local = {k: local_rows(v, world).to(dev) for k, v in batch.items()}
+    dist.barrier()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    out = sgmse_train_step(model, state, [local],
+                           draws=[(start, local_rows(t, world), local_rows(z, world))])
+    torch.cuda.synchronize(dev)
+    step_s = time.perf_counter() - t0
+    flat = torch.cat([p.grad.flatten() for p in model.score_net.parameters()
+                      if p.grad is not None])
+    dist.barrier()
+    t0 = time.perf_counter()
+    dist.all_reduce(flat)
+    torch.cuda.synchronize(dev)
+    reduce_s = time.perf_counter() - t0
+    torch.save({"rank": world.rank, "grads": seen, "loss": float(out["loss_Score"]),
+                "weights": {k: p.detach().cpu() for k, p in model.score_net.named_parameters()},
+                "step_s": step_s, "all_reduce_s": reduce_s, "all_reduce_bytes": flat.numel() * 4},
+               os.path.join(tmp, f"rank{world.rank}.pt"))
+    dist.destroy_process_group()
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def ddp_two_ranks_phase(torch, dev):
+    """Two ranks share the card through gloo (phase 34; NCCL refuses two
+    ranks on one GPU), each one sgmse_train_step of SGMSE_Large at batch 1
+    through the engine (ddp_rank_worker): both ranks end bit-identical, and
+    the gradient they apply is the one-process step's over the 2-clip batch
+    with the same global draws, each tensor within TRAIN_GRAD_REL_TOL of its
+    largest (the attention's key biases below KEY_BIAS_GRAD_FLOOR of the
+    largest of all); the weights after Adam within rtol 1e-5 + 1e-7 where
+    the gradient is not within twice that gate of 0 (there a first Adam
+    step is lr sign(g), the sign rounding's), within 2 lr everywhere.
+    Seconds of the step and of a gloo all-reduce of the whole gradient."""
+    from use_tpu_torch.engine.loop import build_train_state
+    from use_tpu_torch.engine.train import sgmse_train_step
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ranks_") as tmp:
+        port = _free_port()
+        procs = []
+        for rank in range(2):
+            env = {**os.environ, "RANK": str(rank), "WORLD_SIZE": "2", "LOCAL_RANK": "0",
+                   "MASTER_ADDR": "localhost", "MASTER_PORT": str(port)}
+            procs.append(subprocess.Popen(
+                [sys.executable, sys.argv[0], "--ddp-rank-worker", tmp, str(dev)],
+                env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        with _reaping(procs):
+            logs = [p.communicate(timeout=600)[0] for p in procs]
+        if any(p.returncode for p in procs):
+            raise AssertionError("ddp_two_ranks: a rank failed:\n" + "\n".join(
+                log[-4000:] for log in logs))
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+                 for r in range(2)]
+    identical = all(torch.equal(ranks[0][part][k], ranks[1][part][k])
+                    for part in ("grads", "weights") for k in ranks[0][part])
+    model, cfg = _train_model(torch, dev)
+    batch, draws = _train_batch(torch, model, 2)
+    tc = cfg["train"]
+    lr = tc["lr"]
+    state = build_train_state(model, lr, tc["weight_decay"], tc["grad_clip"])
+    seen = {}
+    real = state.apply_gradients
+
+    def record():
+        seen.update({k: p.grad.detach().cpu() for k, p in model.score_net.named_parameters()
+                     if p.grad is not None})
+        real()
+
+    state.apply_gradients = record
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    out = sgmse_train_step(model, state, [{k: v.to(dev) for k, v in batch.items()}],
+                           draws=[draws])
+    torch.cuda.synchronize(dev)
+    one_s = time.perf_counter() - t0
+    key_biases = {f"{name}.NIN_1.b" for name, m in model.score_net.named_modules()
+                  if type(m).__name__ == "AttnBlockpp"}
+    got = ranks[0]
+    rel, _ = _grad_rel(got["grads"], seen, key_biases)
+    worst = max(rel, key=rel.get)
+    top = max(float(g.abs().max()) for g in seen.values())
+    key_bias = {k: [float(got["grads"][k].abs().max()) / top, float(seen[k].abs().max()) / top]
+                for k in key_biases}
+    step_off, sure_off = 0.0, 0.0
+    for k, p in model.score_net.named_parameters():
+        w, g = p.detach().cpu(), seen.get(k)
+        diff = (got["weights"][k] - w).abs()
+        step_off = max(step_off, float(diff.max()) / lr)
+        if g is None or k in key_biases:
+            continue
+        sure = g.abs() > 2 * TRAIN_GRAD_REL_TOL * float(g.abs().max())
+        if bool(sure.any()):
+            sure_off = max(sure_off, float((diff[sure] - 1e-5 * w.abs()[sure]).max()))
+    phase("ddp_two_ranks", experiment=TRAIN_EXPERIMENT, backend="gloo", ranks=2,
+          clips_a_rank=1, ranks_bit_identical=identical,
+          losses=[r["loss"] for r in ranks], loss_one_process=float(out["loss_Score"]),
+          grad_tol=TRAIN_GRAD_REL_TOL, max_grad_rel_err=rel[worst], worst_grad=worst,
+          median_grad_rel_err=float(np.median(list(rel.values()))),
+          key_bias_grads_over_top=key_bias, max_weight_step_over_lr=step_off,
+          max_sure_weight_err=sure_off, step_seconds=[r["step_s"] for r in ranks],
+          one_process_step_seconds=one_s,
+          all_reduce_seconds=[r["all_reduce_s"] for r in ranks],
+          all_reduce_bytes=ranks[0]["all_reduce_bytes"])
+    loss_err = abs(np.mean([r["loss"] for r in ranks]) - float(out["loss_Score"])) \
+        / abs(float(out["loss_Score"]))
+    if not identical:
+        raise AssertionError("ddp_two_ranks: the ranks' weights or gradients differ")
+    if not (rel[worst] <= TRAIN_GRAD_REL_TOL and loss_err <= 1e-4
+            and max(max(v) for v in key_bias.values()) <= KEY_BIAS_GRAD_FLOOR):
+        raise AssertionError(f"ddp_two_ranks: gradient {worst} off by {rel[worst]}, loss "
+                             f"{loss_err}, key biases {key_bias}")
+    if not (sure_off <= 1e-7 and step_off <= 2 * (1 + 1e-5)):
+        raise AssertionError(f"ddp_two_ranks: weights off by {sure_off} (sure gradients), "
+                             f"{step_off} lr (any)")
+    del model, state, seen, ranks
     torch.cuda.empty_cache()
 
 

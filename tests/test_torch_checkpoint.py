@@ -247,6 +247,6 @@ def test_ckpt_with_pickled_objects_loads_only_as_a_lightning_ckpt(tmp_path, capl
 def test_resolve_auto_batch_matches_jax_on_one_device(data, train):
     got = {"data": dict(data), "train": dict(train)}
     want = {"data": dict(data), "train": dict(train)}
-    resolve_auto_batch(got)
+    resolve_auto_batch(got, 1)
     jresolve(want, 1)
     assert got == want

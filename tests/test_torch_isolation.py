@@ -33,6 +33,25 @@ def test_import_loads_no_jax_or_use_tpu():
     assert int(out.stdout.strip()) >= 40  # every submodule was imported
 
 
+def test_data_parallel_and_tool_modules_import_alone():
+    """The modules of data-parallel training and the tools (parallel/mesh,
+    cli/sweep, utils/utils and the ranked logger) are part of the package
+    walk above, and each imports without JAX or use_tpu on its own."""
+    names = ("use_tpu_torch.parallel.mesh", "use_tpu_torch.cli.sweep",
+             "use_tpu_torch.utils.utils", "use_tpu_torch.utils.logging")
+    code = (
+        "import importlib, sys\n"
+        f"for n in {names}:\n"
+        "    importlib.import_module(n)\n"
+        f"bad = sorted(n for n in sys.modules if n.split('.')[0] in {FORBIDDEN_ROOTS})\n"
+        "assert not bad, bad\n"
+    )
+    env = {**os.environ, "PYTHONPATH": REPO}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
 def test_sources_import_no_jax_or_use_tpu():
     paths = [os.path.join(REPO, "chip_smoke.py")]
     for root, _dirs, names in os.walk(os.path.join(REPO, "use_tpu_torch")):

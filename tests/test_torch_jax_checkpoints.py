@@ -278,7 +278,7 @@ def test_train_starts_from_an_export_with_its_discriminator(wav_tree, checkpoint
         seen.update(model=model, resume=kw["resume"])
         raise _Stop
 
-    monkeypatch.setattr(cli, "_build_datamodule", lambda cfg: None)
+    monkeypatch.setattr(cli, "_build_datamodule", lambda cfg, world=None: None)
     monkeypatch.setattr(loop, "fit_lsgan", fit)
     with pytest.raises(_Stop):
         main(["train", "experiment=LSGAN_debug", "device=cpu",

@@ -44,7 +44,23 @@ either is refused before a model is built, as use_tpu refuses them.
 the generator and the discriminator, two optimizers), writes
 `metrics.csv`, `checkpoints/` (one step an epoch) and, after a test of the
 best checkpoint, `optimized_metric.json` under `out_dir`; `ckpt_path=`
-(a checkpoint directory) resumes.
+(a checkpoint directory) resumes. Under `torchrun` it trains data-parallel
+over the ranks, one card each (NCCL; gloo with `device=cpu`):
+
+    torchrun --standalone --nproc_per_node=4 -m use_tpu_torch.cli.main train \
+        experiment=LSGAN data.clean_json_path=... data.noise_json_path=... \
+        [train.async_ckpt=true] [train.mesh_idle=error|warn] \
+        [model.generator.backbone_kwargs.dtype=bfloat16]
+
+as use_tpu trains over its mesh: `data.batch_size=auto` is
+micro_batch_per_device x the ranks, each rank loads its share of it with
+its own seeds, and where the global batch splits over fewer than half of
+the ranks `train.mesh_idle=error` (the default) refuses, `warn` trains on
+as many as it splits over. `train.async_ckpt=true` writes checkpoints on a
+background thread; `model.backbone_kwargs.dtype=bfloat16` (task=lsgan:
+`model.generator.backbone_kwargs.dtype=`) computes in bf16 with float32
+weights. Rank 0 prints the run's summary as one line, `train summary:
+{...}` (steps, microbatches, clips, ranks, backend, kernel launches).
 
 `eval` reports the test split's losses (task=sgmse `loss_Score`;
 task=lsgan every `loss_G*`, against the checkpoint's discriminator, or a
@@ -85,8 +101,9 @@ import numpy as np
 import torch
 
 from use_tpu_torch.config.config import load_config
+from use_tpu_torch.utils.logging import ranked_logger
 
-log = logging.getLogger("use_tpu_torch")
+log = ranked_logger()
 
 _PREDICT_KEYS = {"predict.data_folder", "predict.target_folder", "predict.chain",
                  "predict.second_experiment", "predict.second_ckpt", "predict.streaming",
@@ -285,23 +302,29 @@ def _generator_name(cfg: Dict) -> str:
     return dict(cfg["model"].get("generator") or {}).get("name", "ncsnpp_wrapper")
 
 
-def resolve_auto_batch(cfg: Dict) -> None:
-    """data.batch_size: auto -> micro_batch_per_device (one device) and
-    train.accumulate_grad_batches: auto -> max(1, effective_batch // batch),
-    in place (use_tpu/cli/main.py:109, with n_devices 1)."""
+def resolve_auto_batch(cfg: Dict, n_devices: int) -> None:
+    """The recipes' slice-aware batch, in place (use_tpu/cli/main.py:109-131):
+    data.batch_size: auto -> micro_batch_per_device x n_devices (the global
+    batch grows with the ranks, each rank's work stays) and
+    train.accumulate_grad_batches: auto -> max(1, effective_batch // batch)
+    (accumulation shrinks as the ranks grow)."""
     d, t = cfg["data"], cfg["train"]
     if d.get("batch_size") == "auto":
-        d["batch_size"] = int(d.get("micro_batch_per_device", 1))
+        d["batch_size"] = int(d.get("micro_batch_per_device", 1)) * n_devices
     if t.get("accumulate_grad_batches") == "auto":
         eff = int(t.get("effective_batch", d.get("batch_size", 4)))
         t["accumulate_grad_batches"] = max(1, eff // int(d["batch_size"]))
 
 
-def _build_datamodule(cfg: Dict):
+def _build_datamodule(cfg: Dict, world=None):
+    """The DistortDataModule of cfg's data, for `world`'s ranks (a
+    parallel.mesh.World; one device where None): this rank's share of the
+    global batch and its own loader seeds."""
     from use_tpu_torch.data.datamodule import DistortDataModule
     from use_tpu_torch.data.distort_dataset import DistortConfig
 
-    resolve_auto_batch(cfg)
+    size, rank = (1, 0) if world is None else (world.size, world.rank)
+    resolve_auto_batch(cfg, size)
     d = dict(cfg["data"])
     batch_size = d.pop("batch_size", 4)
     num_workers = d.pop("num_workers", 4)
@@ -310,7 +333,7 @@ def _build_datamodule(cfg: Dict):
     return DistortDataModule(
         train_cfg=DistortConfig(**{k: v for k, v in d.items() if k in known}),
         batch_size=batch_size, num_workers=num_workers, seed=cfg["train"].get("seed", 0),
-        overfit_items=overfit_items,
+        world_size=size, process_index=rank, overfit_items=overfit_items,
     )
 
 
@@ -387,17 +410,50 @@ def cmd_train(experiment: str, overrides: List[str], extras: Dict[str, str]) -> 
     """Training (reference src/train.py:42-131): task=sgmse score matching
     (with train.rich_eval_every, the rich harness on validation utterances
     every K epochs), task=lsgan adversarial training of G and D; then the
-    test of the best checkpoint. -> a summary: the fit's history, optimizer
-    steps, microbatches, clips, seconds of the fit and out_dir."""
-    from use_tpu_torch.engine import loop
+    test of the best checkpoint. Under torchrun, data-parallel over the
+    ranks (each on card LOCAL_RANK; NCCL, gloo with device=cpu):
+    ``data.batch_size=auto`` scales with them, ``train.mesh_idle`` (error |
+    warn, use_tpu's default_mesh) decides a batch that leaves more than
+    half of them idle, and ``train.async_ckpt`` writes checkpoints on a
+    background thread. -> a summary: the fit's history, optimizer steps,
+    microbatches, clips (over all ranks), seconds of the fit, out_dir, the
+    ranks and backend, and this process's kernel launches."""
+    import torch.distributed as dist
+
+    from use_tpu_torch.parallel.mesh import World, default_world, init_distributed, local_device
     from use_tpu_torch.utils.device import resolve_device
-    from use_tpu_torch.utils.logging import MetricLogger
 
     cfg = load_config(experiment, overrides)
     device = resolve_device(extras.get("device", "cuda"))
+    started = not dist.is_initialized()
+    distributed = init_distributed("gloo" if device.type == "cpu" else None)
+    device = local_device(device)
     _cuda_fp32(device)
+    t = cfg["train"]
+    resolve_auto_batch(cfg, dist.get_world_size() if distributed else 1)
+    world = (default_world(int(cfg["data"]["batch_size"]), on_idle=t.get("mesh_idle", "error"))
+             if distributed else World())
+    backend = dist.get_backend() if distributed else None
     out_dir = extras.get("out_dir",
                          os.path.join("runs", experiment, time.strftime("%Y%m%d-%H%M%S")))
+    summary = {"out_dir": out_dir, "world_size": world.size, "backend": backend}
+    try:
+        if world.trains:
+            summary.update(_train(cfg, experiment, extras, device, world, out_dir))
+            log.info("train summary: %s",
+                     json.dumps({k: v for k, v in summary.items() if k != "history"}))
+    finally:
+        if distributed and started:
+            dist.destroy_process_group()
+    return summary
+
+
+def _train(cfg: Dict, experiment: str, extras: Dict[str, str], device: torch.device, world,
+           out_dir: str) -> Dict:
+    from use_tpu_torch import ops
+    from use_tpu_torch.engine import loop
+    from use_tpu_torch.utils.logging import MetricLogger
+
     ckpt_dir = os.path.join(out_dir, "checkpoints")
     resume = extras.get("ckpt_path")
     init = resume if resume and resume.endswith(".npz") else None
@@ -405,6 +461,7 @@ def cmd_train(experiment: str, overrides: List[str], extras: Dict[str, str]) -> 
     if resume and os.path.abspath(resume) != os.path.abspath(ckpt_dir):
         raise SystemExit(f"ckpt_path={resume}: train resumes from its own out_dir's "
                          f"checkpoints ({ckpt_dir})")
+    launches = ops.launch_counts()
     logger = MetricLogger(csv_path=os.path.join(out_dir, "metrics.csv"),
                           tensorboard_dir=os.path.join(out_dir, "tb"))
     model = _build_model(cfg, str(device))
@@ -413,12 +470,13 @@ def cmd_train(experiment: str, overrides: List[str], extras: Dict[str, str]) -> 
                        use_ema=extras.get("ckpt.use_ema", "").lower() in _TRUE)
         if cfg["task"] == "lsgan":
             _load_discriminator(model, init)
-    dm = _build_datamodule(cfg)
+    dm = _build_datamodule(cfg, world)
     t = cfg["train"]
     t0 = time.perf_counter()
     common = dict(accumulate_grad_batches=t.get("accumulate_grad_batches", 1),
                   scheduler=t.get("scheduler"), max_epochs=t.get("max_epochs", 1),
-                  seed=t.get("seed", 0), ckpt_dir=ckpt_dir, resume=bool(resume), logger=logger)
+                  seed=t.get("seed", 0), ckpt_dir=ckpt_dir, resume=bool(resume), logger=logger,
+                  async_ckpt=bool(t.get("async_ckpt", False)), mesh=world)
     if cfg["task"] == "sgmse":
         result = loop.fit_sgmse(
             model, dm, lr=t["lr"], weight_decay=t["weight_decay"],
@@ -432,12 +490,15 @@ def cmd_train(experiment: str, overrides: List[str], extras: Dict[str, str]) -> 
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     fit_seconds = time.perf_counter() - t0
-    _test_after_fit(model, cfg, dm, out_dir, result.history, logger)
+    if world.rank == 0:  # as use_tpu's: the other ranks would race on one file
+        _test_after_fit(model, cfg, dm, out_dir, result.history, logger)
     logger.close()
+    summary = {"history": result.history, "fit_seconds": fit_seconds,
+               "optimizer_steps": result.steps, "microbatches": result.microbatches,
+               "clips": result.clips,
+               "launches": {k: v - launches[k] for k, v in ops.launch_counts().items()}}
     log.info("training done -> %s", out_dir)
-    return {"history": result.history, "fit_seconds": fit_seconds, "out_dir": out_dir,
-            "optimizer_steps": result.steps, "microbatches": result.microbatches,
-            "clips": result.clips}
+    return summary
 
 
 def _load_for_serving(model, cfg: Dict, path: Optional[str], extras: Dict[str, str]) -> None:

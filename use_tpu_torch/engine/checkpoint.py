@@ -8,18 +8,23 @@ mode), written with ``torch.save`` instead of Orbax:
     <directory>/<step>/metrics.json  the metrics saved with it
 
 Beyond max_to_keep the worst step by the monitored metric goes (steps
-without a finite metric first, then the oldest). ``save_params`` /
+without a finite metric first, then the oldest). ``async_save=True`` (use_tpu's
+checkpoint.py:26-56, Orbax's async checkpointing) copies the state to host
+memory in ``save`` and writes it on a background thread while training goes
+on; the next ``save`` and ``wait`` join that thread. ``save_params`` /
 ``load_params`` are the one-file form of a backbone's state_dict, and
 ``merge_params_lenient`` the shape-tolerant merge of use_tpu's lenient load
 (checkpoint.py:132), on flat state_dicts.
 """
 from __future__ import annotations
 
+import copy
 import json
 import logging
 import math
 import os
 import shutil
+import threading
 from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import torch
@@ -29,7 +34,7 @@ log = logging.getLogger("use_tpu_torch")
 
 class CheckpointManager:
     def __init__(self, directory: str, max_to_keep: int = 10, monitor: str = "val/loss",
-                 mode: str = "min"):
+                 mode: str = "min", async_save: bool = False):
         if mode not in ("min", "max"):
             raise ValueError(f"mode {mode!r} (min | max)")
         self.directory = os.path.abspath(directory)
@@ -37,6 +42,9 @@ class CheckpointManager:
         self.max_to_keep = max_to_keep
         self.monitor = monitor
         self.mode = mode
+        self.async_save = async_save
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
 
     def steps(self) -> List[int]:
         return sorted(int(d) for d in os.listdir(self.directory)
@@ -59,20 +67,47 @@ class CheckpointManager:
         return v if self.mode == "min" else -v
 
     def save(self, step: int, state: Any, metrics: Optional[Dict[str, float]] = None) -> None:
-        """Write `state` (a TrainState or a picklable dict of tensors) as `step`."""
+        """Write `state` (a TrainState or a picklable dict of tensors) as
+        `step`; with async_save, a host copy of it, on a background thread."""
+        self.wait()
+        payload = state.state_dict() if hasattr(state, "state_dict") else state
+        metrics = {k: float(v) for k, v in (metrics or {}).items()}
+        if not self.async_save:
+            self._write(step, payload, metrics)
+            return
+        payload = _to_host(payload)  # the snapshot: training may now change the state
+        self._thread = threading.Thread(target=self._write_caught, args=(step, payload, metrics),
+                                        name=f"checkpoint-{step}", daemon=True)
+        self._thread.start()
+
+    def _write_caught(self, step: int, payload: Any, metrics: Dict[str, float]) -> None:
+        try:
+            self._write(step, payload, metrics)
+        except BaseException as e:  # re-raised by wait()
+            self._error = e
+
+    def _write(self, step: int, payload: Any, metrics: Dict[str, float]) -> None:
         d = os.path.join(self.directory, str(step))
         os.makedirs(d, exist_ok=True)
-        payload = state.state_dict() if hasattr(state, "state_dict") else state
         tmp = self._file(step, "state.pt.tmp")
         torch.save(payload, tmp)
         with open(self._file(step, "metrics.json"), "w") as f:
-            json.dump({k: float(v) for k, v in (metrics or {}).items()}, f)
+            json.dump(metrics, f)
         os.replace(tmp, self._file(step, "state.pt"))
         steps = self.steps()
         while len(steps) > self.max_to_keep:
             worst = self._worst(steps)
             shutil.rmtree(os.path.join(self.directory, str(worst)))
             steps.remove(worst)
+
+    def wait(self) -> None:
+        """Join an asynchronous save in flight; raise what it raised."""
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            error, self._error = self._error, None
+            raise error
 
     def _worst(self, steps: List[int]) -> int:
         """The oldest step without a finite metric, else the worst scored
@@ -83,6 +118,7 @@ class CheckpointManager:
         return max(steps, key=lambda s: (self._score(s), -s))
 
     def restore(self, step: Optional[int] = None, map_location: Any = "cpu") -> Dict:
+        self.wait()
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.directory}")
@@ -100,6 +136,17 @@ class CheckpointManager:
         if not scored:
             return None
         return min(scored, key=lambda vs: (vs[0], -vs[1]))[1]
+
+
+def _to_host(tree: Any) -> Any:
+    """A copy of a state dict's tensors in host memory (nested dicts, lists)."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True)
+    if isinstance(tree, dict):
+        return {k: _to_host(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_host(v) for v in tree)
+    return copy.deepcopy(tree)
 
 
 def is_manager_dir(path: str) -> bool:

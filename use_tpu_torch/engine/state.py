@@ -6,11 +6,18 @@ autograd left in ``.grad``: clip, then the optimizer's step (coupled L2,
 Adam), then, where ema_decay > 0, ema = d ema + (1 - d) p over every
 parameter (the frozen ones too, as use_tpu's tree map). ``GANTrainState``
 pairs the generator's and the discriminator's for LSGAN's two optimizers.
+
+Data-parallel (parallel/mesh.py): ``ddp`` is the DistributedDataParallel
+wrapper of ``model`` that the train steps call, ``world`` the training
+ranks. The optimizer, the clip and the EMA work on ``model``'s own
+parameters, which the wrapper shares; every rank applies the same
+all-reduced gradients, so the ranks' parameters stay bit-identical.
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -23,6 +30,8 @@ class TrainState:
     step: int = 0
     ema_params: Optional[Dict[str, torch.Tensor]] = None
     ema_decay: float = 0.0
+    ddp: Optional[torch.nn.Module] = None
+    world: Any = None  # parallel.mesh.World of the training ranks
 
     @classmethod
     def create(cls, model: torch.nn.Module, optimizer: torch.optim.Optimizer,
@@ -46,6 +55,11 @@ class TrainState:
                 new = dict(self.model.named_parameters())
                 torch._foreach_mul_(ema, d)
                 torch._foreach_add_(ema, [new[k].detach() for k in names], alpha=1.0 - d)
+
+    def no_sync(self):
+        """A context in which backward leaves the gradients local (the
+        first microbatches of a group); a no-op without DDP."""
+        return self.ddp.no_sync() if self.ddp is not None else contextlib.nullcontext()
 
     def state_dict(self) -> Dict:
         """What a checkpoint holds: weights, optimizer state, step, EMA."""

@@ -13,15 +13,63 @@ activations are alive at a time.
   microbatch's fake made without autograd, D's gradients SUMMED over the
   group (manual_backward), then D's step; the G phase second, against the
   updated D, on the same crops, G's gradients summed, then G's step.
+
+Data-parallel (a state with ``ddp``, parallel/mesh.py): the network that
+takes gradients runs through its DistributedDataParallel wrapper, the
+first k - 1 microbatches of a group under ``no_sync``, so the last backward
+all-reduces the group's sum once and the clip sees the global gradient.
+LSGAN's D phase makes the fake through G's own module without autograd
+and its G phase calls D's own module: a wrapper whose network takes no
+gradient would wait for one. Without ``draws`` each rank draws the global
+batch's (start, t, z) from the shared generator and takes its rows, so a
+W-rank step is the one-process step over the ranks' batches in rank order.
+The reported losses are means over the ranks.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, List, Optional, Sequence
 
 import torch
 
 from use_tpu_torch.engine.state import GANTrainState, TrainState
 from use_tpu_torch.models.sgmse.score_model import Batch, ScoreModel, TrainDraws
+from use_tpu_torch.parallel.mesh import local_rows
+
+
+@contextlib.contextmanager
+def _through(owner, attr: str, wrapper: Optional[torch.nn.Module]):
+    """owner.<attr> is `wrapper` (a DDP wrapper of it) inside the block."""
+    if wrapper is None:
+        yield
+        return
+    own = getattr(owner, attr)
+    setattr(owner, attr, wrapper)
+    try:
+        yield
+    finally:
+        setattr(owner, attr, own)
+
+
+def _synced(state: TrainState, i: int, k: int):
+    """All but the group's last microbatch keep their gradients local."""
+    return state.no_sync() if i < k - 1 else contextlib.nullcontext()
+
+
+def _rank_mean(state: TrainState, values: torch.Tensor) -> torch.Tensor:
+    """`values` averaged over the training ranks (one all-reduce)."""
+    world = state.world
+    if world is None or not world.distributed:
+        return values
+    return world.all_reduce(values.clone()) / world.size
+
+
+def rank_draws(model: ScoreModel, rows: int, length: int, world,
+               generator: Optional[torch.Generator] = None) -> TrainDraws:
+    """The draws of the global batch (rows x world.size clips of `length`),
+    this rank's rows of them."""
+    start, t, z = model.draw_train(rows * world.size, length, generator)
+    return start, local_rows(t, world), local_rows(z, world)
 
 
 def sgmse_train_step(model: ScoreModel, state: TrainState, micro: List[Batch],
@@ -31,21 +79,29 @@ def sgmse_train_step(model: ScoreModel, state: TrainState, micro: List[Batch],
     mean loss over the group} (a 0-d tensor on the device). ``draws`` gives
     each microbatch's (start, t, z) in place of the generator's."""
     k = len(micro)
+    world = state.world
+    if draws is None and world is not None and world.distributed:
+        draws = [rank_draws(model, mb["clean"].shape[0], mb["clean"].shape[-1], world, generator)
+                 for mb in micro]
     state.optimizer.zero_grad(set_to_none=True)
     total = None
-    for i, mb in enumerate(micro):
-        loss = model.train_loss(mb, generator, None if draws is None else draws[i])
-        (loss / k).backward()
-        total = loss.detach() if total is None else total + loss.detach()
+    with _through(model, "score_net", state.ddp):
+        for i, mb in enumerate(micro):
+            with _synced(state, i, k):
+                loss = model.train_loss(mb, generator, None if draws is None else draws[i])
+                (loss / k).backward()
+            total = loss.detach() if total is None else total + loss.detach()
     state.apply_gradients()
-    return {"loss_Score": total / k}
+    return {"loss_Score": _rank_mean(state, total / k)}
 
 
 @torch.no_grad()
 def sgmse_eval_step(model: ScoreModel, batch: Batch,
-                    generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
-    """The score-matching loss on one batch, no gradient (validation and test)."""
-    return {"loss_Score": model.train_loss(batch, generator)}
+                    generator: Optional[torch.Generator] = None,
+                    draws: Optional[TrainDraws] = None) -> Dict[str, torch.Tensor]:
+    """The score-matching loss on one batch, no gradient (validation and
+    test); ``draws`` in place of the generator's, as train_loss takes them."""
+    return {"loss_Score": model.train_loss(batch, generator, draws)}
 
 
 def gan_train_step(gan, state: GANTrainState, micro: List[Batch],
@@ -59,15 +115,18 @@ def gan_train_step(gan, state: GANTrainState, micro: List[Batch],
     reported loss_G is the last microbatch's too, as its logs hold loss_G."""
     if starts is None:
         starts = [gan.generator.draw_start(mb["clean"].shape[-1], generator) for mb in micro]
+    k = len(micro)
     # D phase: the fake without autograd, D's gradients summed
     state.d.optimizer.zero_grad(set_to_none=True)
     loss_d = None
-    for mb, start in zip(micro, starts):
-        with torch.no_grad():
-            mb = gan.g_forward(mb, start=start)
-        loss = gan.d_loss(mb)
-        loss.backward()
-        loss_d = loss.detach() if loss_d is None else loss_d + loss.detach()
+    with _through(gan, "discriminator", state.d.ddp):
+        for i, (mb, start) in enumerate(zip(micro, starts)):
+            with torch.no_grad():
+                mb = gan.g_forward(mb, start=start)
+            with _synced(state.d, i, k):
+                loss = gan.d_loss(mb)
+                loss.backward()
+            loss_d = loss.detach() if loss_d is None else loss_d + loss.detach()
     state.d.apply_gradients()
     # G phase against the updated D, which takes no gradient
     state.g.optimizer.zero_grad(set_to_none=True)
@@ -76,15 +135,19 @@ def gan_train_step(gan, state: GANTrainState, micro: List[Batch],
     try:
         for p in d_params:
             p.requires_grad_(False)
-        for mb, start in zip(micro, starts):
-            loss, logs = gan.g_loss(gan.g_forward(mb, start=start))
-            loss.backward()
-            logs = {k: v.detach() for k, v in logs.items()}
+        with _through(gan.generator, "net", state.g.ddp):
+            for i, (mb, start) in enumerate(zip(micro, starts)):
+                with _synced(state.g, i, k):
+                    loss, logs = gan.g_loss(gan.g_forward(mb, start=start))
+                    loss.backward()
+                logs = {name: v.detach() for name, v in logs.items()}
     finally:
         for p in d_params:
             p.requires_grad_(True)
     state.g.apply_gradients()
-    return {"loss_D": loss_d / len(micro), **logs}
+    names = sorted(logs)
+    means = _rank_mean(state.g, torch.stack([loss_d / k] + [logs[n] for n in names]))
+    return {"loss_D": means[0], **{n: means[i + 1] for i, n in enumerate(names)}}
 
 
 @torch.inference_mode()

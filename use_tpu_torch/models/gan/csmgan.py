@@ -449,6 +449,10 @@ class CSMGANWrapper:
         # the discriminator-init wav length of use_tpu's LSGAN.init_params
         self.target_len = input_freq * hop_length
 
+    # the last TCN block's res_out reaches no output (use_tpu's net as the
+    # reference's): under DDP the reducer must look for unused parameters
+    ddp_find_unused_parameters = True
+
     def draw_start(self, length: int, generator: Optional[torch.Generator] = None) -> int:
         return 0
 

@@ -1,11 +1,15 @@
-"""Metric logging: console + CSV, and TensorBoard where it is installed.
+"""Metric logging: a rank-aware console logger, CSV, and TensorBoard where
+it is installed.
 
-Port of use_tpu/utils/logging.py::MetricLogger for one process: every
-``log(row)`` goes to the "use_tpu_torch" logger and to a CSV file (a new
-header where the row's keys change); scalars, and the eval harness's
-figures and audio (``log_figure``, ``log_audio``), also go to TensorBoard
-when ``torch.utils.tensorboard`` imports. use_tpu's other trackers (wandb,
-comet, mlflow, neptune, aim) are not ported.
+Port of use_tpu/utils/logging.py. ``ranked_logger`` (logging.py:21-61,
+the reference's RankedLogger) drops the records of every process but rank
+0 of a torch.distributed group, the rank read when a record is emitted, so
+a logger made before the group starts still filters right. Every
+``MetricLogger.log(row)`` goes to that logger and, on rank 0 only, to a CSV
+file (a new header where the row's keys change); scalars, and the eval
+harness's figures and audio (``log_figure``, ``log_audio``), also go to
+TensorBoard when ``torch.utils.tensorboard`` imports. use_tpu's other
+trackers (wandb, comet, mlflow, neptune, aim) are not ported.
 """
 from __future__ import annotations
 
@@ -16,7 +20,33 @@ from typing import Dict, Optional
 
 import numpy as np
 
-log = logging.getLogger("use_tpu_torch")
+
+def _dist_rank() -> int:
+    """This process's rank in the torch.distributed group; 0 before one
+    starts and without one."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank()
+    return 0
+
+
+class _RankZero(logging.Filter):
+    def filter(self, record: logging.LogRecord) -> bool:
+        return _dist_rank() == 0
+
+
+def ranked_logger(name: str = "use_tpu_torch") -> logging.Logger:
+    """The logger `name`, dropping the records of every rank but 0 (the
+    reference's rank_zero_only); its records reach the handlers the
+    application configured (the CLI's ``logging.basicConfig``)."""
+    logger = logging.getLogger(name)
+    if not any(isinstance(f, _RankZero) for f in logger.filters):
+        logger.addFilter(_RankZero())
+    return logger
+
+
+log = ranked_logger()
 
 
 class MetricLogger:
@@ -24,7 +54,7 @@ class MetricLogger:
         self.csv_path = csv_path
         self._csv_keys = None
         self._tb = None
-        if tensorboard_dir:
+        if tensorboard_dir and _dist_rank() == 0:
             try:
                 from torch.utils.tensorboard import SummaryWriter
             except ImportError:
@@ -35,7 +65,7 @@ class MetricLogger:
     def log(self, row: Dict) -> None:
         log.info(" ".join(f"{k}={v:.5g}" if isinstance(v, float) else f"{k}={v}"
                           for k, v in row.items()))
-        if self.csv_path:
+        if self.csv_path and _dist_rank() == 0:
             keys = list(row.keys())
             new = not os.path.exists(self.csv_path)
             os.makedirs(os.path.dirname(os.path.abspath(self.csv_path)), exist_ok=True)

@@ -2,7 +2,7 @@
 
 Port of use_tpu/utils/metrics.py (reference src/models/components/sgmse/
 util/other.py:23-135 and util/inference.py:49-51): SI-SDR and its
-components (SI-SIR, SI-SAR), LSD, SNR, mean/std, ESTOI (`pystoi` where it
+components (SI-SIR, SI-SAR), LSD, WER, SNR, mean/std, ESTOI (`pystoi` where it
 imports, else the native utils/intelligibility.py) and wide-band PESQ (the
 optional `pesq` package; its key is absent without it), and
 ``evaluate_pair``, one utterance's metric dict.
@@ -54,6 +54,22 @@ def lsd(s_hat: np.ndarray, s: np.ndarray, eps: float = 1e-10) -> float:
     lp_hat = 2 * np.log(eps + np.abs(np_stft(s_hat, 510, 128)))
     lp = 2 * np.log(eps + np.abs(np_stft(s, 510, 128)))
     return float(np.mean(np.sqrt(np.mean(np.abs(lp_hat - lp)))))
+
+
+def wer(r, h) -> float:
+    """Word error rate of the hypothesis `h` against the reference `r`
+    (sequences of words) by the edit distance's dynamic program (other.py's
+    wer(); an int32 table where the reference's uint8 one overflows)."""
+    d = np.zeros((len(r) + 1, len(h) + 1), dtype=np.int32)
+    d[:, 0] = np.arange(len(r) + 1)
+    d[0, :] = np.arange(len(h) + 1)
+    for i in range(1, len(r) + 1):
+        for j in range(1, len(h) + 1):
+            if r[i - 1] == h[j - 1]:
+                d[i, j] = d[i - 1, j - 1]
+            else:
+                d[i, j] = 1 + min(d[i - 1, j - 1], d[i, j - 1], d[i - 1, j])
+    return float(d[len(r), len(h)]) / max(len(r), 1)
 
 
 def snr_db(s: np.ndarray, n: np.ndarray) -> float:
