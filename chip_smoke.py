@@ -17,6 +17,8 @@
                                        # phases (29-31)
     python3 chip_smoke.py --dist       # build, kernels, then only bf16 and
                                        # data-parallel training (phases 32-34)
+    python3 chip_smoke.py --tp         # build, kernels, then only tensor-parallel
+                                       # training (phase 35)
 
 Phases, one line each (any failure raises and exits non-zero):
   1. environment: torch / CUDA versions, the card's name and power limit;
@@ -97,7 +99,8 @@ Phases, one line each (any failure raises and exits non-zero):
  12. learn: use_tpu's learning gate (tests/test_learning.py::
      test_sgmse_learns_to_enhance) on the card at its seed 0, one run with
      deterministic algorithms: a tiny score net overfit for 600 steps must
-     enhance held-out speech probes by more than 2 dB SI-SDR;
+     enhance held-out speech probes by more than 2 dB SI-SDR (run in a
+     spawned process beside phase 16's runs, and printed with them);
  13. gan_train_step: one full-width microbatch of the LSGAN recipe (the
      `ncsnpp` generator, fp32, remat conv_outs, net input [2, 512, 480, 2];
      the 24k_MVD bank on 76 640-sample clips): its D phase and G phase on
@@ -107,9 +110,9 @@ Phases, one line each (any failure raises and exits non-zero):
      control that must exceed it), then gan_train_step with both Adam
      steps: its exact launches (GAN_TRAIN_LAUNCHES, with remat and
      without), seconds per microbatch and peak device memory;
- 14. train_lsgan: the CLI's `train experiment=LSGAN` as shipped (micro 2 x
-     accumulation 16) on GAN_TRAIN_CLIPS synth_speech clips, one optimizer
-     step: finite losses, a checkpoint of G and D, optimized_metric.json,
+ 14. train_lsgan: the CLI's `train experiment=LSGAN` (micro 2, the
+     accumulation cut to 4: GAN_TRAIN_ARGS) on GAN_TRAIN_CLIPS synth_speech
+     clips, one optimizer step: finite losses, a checkpoint of G and D, optimized_metric.json,
      the run's exact launches (training microbatches, validation and test
      forwards), seconds per optimizer step, trained audio-s/s, the
      loader's wait and peak memory; then `predict experiment=LSGAN
@@ -149,8 +152,9 @@ Phases, one line each (any failure raises and exits non-zero):
      its tensor's largest; TF32 on is the control that must fail), then
      gan_train_step with both Adam
      steps: seconds a microbatch, peak memory, a profiled step's busy share;
- 21. train_csmgan: the CLI's `train experiment=CSMGAN` as shipped (4 x 8)
-     for one optimizer step over CSMGAN_TRAIN_CLIPS synth_speech clips (6 s
+ 21. train_csmgan: the CLI's `train experiment=CSMGAN` (micro 4, the
+     accumulation cut to 2: CSMGAN_TRAIN_ARGS) for one optimizer step over
+     CSMGAN_TRAIN_CLIPS synth_speech clips (6 s
      items), with its validation and test: finite losses, a checkpoint of G
      and D, seconds a step, trained audio-s/s, the loader's wait; then
      `predict ... ckpt_path=<out_dir>/checkpoints predict.streaming=true` on
@@ -240,7 +244,23 @@ Phases, one line each (any failure raises and exits non-zero):
      batch 1 through the engine: the ranks bit-identical, the gradient they
      apply the one-process step's over the 2-clip batch with the same
      global draws (TRAIN_GRAD_REL_TOL), the weights after Adam its; the
-     step's and a gloo all-reduce's seconds.
+     step's and a gloo all-reduce's seconds;
+ 35. tp_ranks: four ranks share the card through gloo as make_mesh(data=2,
+     model=2) (parallel/sharding.py: every kernel weight of use_tpu's rule
+     held as its output slice by each model rank, DDP over the data group),
+     one sgmse_train_step of SGMSE_Large (full width, remat, fp32, grad_clip
+     TP_GRAD_CLIP) on one clip a data rank, the crop cut to TP_FRAMES
+     frames, against the one-process unsharded step on the card over both
+     clips with the same draws: the loss and every gathered gradient within
+     TRAIN_GRAD_REL_TOL of its largest (the attention's key biases below
+     KEY_BIAS_GRAD_FLOOR), the gathered weights after Adam as phase 34's;
+     replicated parameters bit-identical within each model group, each
+     slice across its data group; launches exactly TRAIN_LAUNCHES["remat"]
+     on every rank; the same step with a gather whose backward sums over
+     the model ranks (torch.distributed.nn's all_gather) must exceed the
+     gradient gate. The step's seconds beside the one-process step's, the
+     bytes each rank gathered and all-reduced over its model group, each
+     rank's peak memory and K2's shapes.
 Each phase prints its seconds. Then a JSON line of the kernels, the card
 line, and the last line {"ok": true, "device": {...}}.
 """
@@ -293,6 +313,11 @@ SKIP_SHAPES = [  # (B, Ci, Co, H, W)
     (8, 512, 256, 128, 240),  # up path at 128 x 240
     (2, 256, 128, 512, 512),  # training: up path, full resolution, a microbatch of the recipe
     (2, 128, 256, 256, 240),  # LSGAN training: level 1's first block (128 -> 256), a microbatch
+    # tensor-parallel training (phase 35), one clip a rank at TP_FRAMES: the
+    # up block into level 1 (256 -> 256, Conv_2 sharded), this rank's output
+    # channels at model 2 (Co 128) and at model 4 (Co 64: half a channel tile)
+    (1, 256, 128, 256, 64),
+    (1, 256, 64, 256, 64),
 ]
 SKIP_RAGGED = (2, 36, 40, 5, 7)  # ragged Ci, Co and positions, scalar path: checked, not timed
 QCONV_SHAPES = [  # (B, C, O, H, W): int8 predict path, 8 lanes
@@ -393,7 +418,10 @@ GAN_TRAIN_LAUNCHES = {
     "remat": {"channel_sums": 130, "gn_apply": 130, "fused_skip_add": 45, "qconv3x3_fused": 0},
     "no_remat": {"channel_sums": 90, "gn_apply": 90, "fused_skip_add": 30, "qconv3x3_fused": 0},
 }
-GAN_TRAIN_CLIPS = 32  # one optimizer step of 2 x 16 an epoch
+# one optimizer step of the recipe's micro 2, its accumulation cut from 16
+# to 4 (the default run outgrew 1,200 s on a slow host)
+GAN_TRAIN_CLIPS = 8
+GAN_TRAIN_ARGS = ("train.accumulate_grad_batches=4",)
 # the items of train_lsgan spliced to 3.5 s (the recipe's 6 s): still longer
 # than the 3.19 s crop, and the loaders' synthesis of the 32 training, 32
 # validation and 32 test items, most of that phase's time, shrinks with them
@@ -422,7 +450,9 @@ STREAM_CHUNK_FRAMES = (2, 4, 8)
 STREAM_REL_TOL = 1e-3
 STREAM_WARMUP, STREAM_CHUNKS = 5, 100  # chunks before the latency count, and counted
 STREAM_CPU_CHUNKS = 20  # the first chunks of a stream the CPU streams too
-CSMGAN_TRAIN_CLIPS = 32  # one optimizer step of 4 x 8
+# one optimizer step of the recipe's micro 4, its accumulation cut from 8 to 2
+CSMGAN_TRAIN_CLIPS = 8
+CSMGAN_TRAIN_ARGS = ("train.accumulate_grad_batches=2",)
 NO_LAUNCHES = {"channel_sums": 0, "gn_apply": 0, "fused_skip_add": 0, "qconv3x3_fused": 0}
 # every kernel wrapper (use_tpu_torch.ops.KERNEL_WRAPPERS); a launch table
 # leaves out the kernels a path launches no time (``launches`` fills them in)
@@ -527,6 +557,14 @@ DDP_LSGAN_ARGS = (IN_PROCESS_LOADER, "data.overfit_items=2", "data.batch_size=2"
 # or not applied moves the weights by a whole update)
 DDP_WEIGHTS_FLOOR = 1e-3
 DDP_BACKEND = "nccl"  # torchrun's ranks on CUDA
+# tensor-parallel training (phase 35): four gloo ranks on the card as
+# make_mesh(data=2, model=2), one SGMSE_Large step (full width, remat, fp32)
+# of one clip a data rank, the crop cut to TP_FRAMES frames; the recipe's
+# grad_clip. K2's shapes there: Co 128 of a sharded Co 256 (and Co 64 at
+# model 4), in SKIP_SHAPES
+TP_LAYOUT = (2, 2)
+TP_FRAMES = 128
+TP_GRAD_CLIP = 100.0
 
 
 def phase(phase_name, **fields):
@@ -562,11 +600,18 @@ def main():
     ap.add_argument("--dist", action="store_true",
                     help="build, kernels, then only bf16 and data-parallel training "
                          "(phases 32-34)")
+    ap.add_argument("--tp", action="store_true",
+                    help="build, kernels, then only tensor-parallel training (phase 35)")
     ap.add_argument("--ddp-rank-worker", nargs=2, metavar=("DIR", "DEVICE"),
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--tp-rank-worker", nargs=2, metavar=("DIR", "DEVICE"),
                     help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.ddp_rank_worker:  # one rank of phase 34, started by it
         ddp_rank_worker(*args.ddp_rank_worker)
+        return 0
+    if args.tp_rank_worker:  # one rank of phase 35, started by it
+        tp_rank_worker(*args.tp_rank_worker)
         return 0
     # the learn phase runs cuBLAS deterministically, which needs this before its first call
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -613,6 +658,8 @@ def main():
         runs.update(models_phases(torch, dev))
     elif args.dist:
         runs.update(dist_phases(torch, dev))
+    elif args.tp:
+        runs["tp_ranks"] = timed("tp_ranks", tp_ranks_phase, torch, dev)
     elif not args.kernels:
         timed("forward", forward_phase, torch, dev)
         timed("int8_forward", int8_forward_phase, torch, dev)
@@ -641,12 +688,12 @@ def main():
                                 experiment, extra, clips, per_stage)
         timed("train_step", train_step_phase, torch, dev)
         runs["train"] = timed("train", train_phase, torch, dev)
-        timed("learn", learn_phase, torch, dev)
         runs.update(gan_phases(torch, dev))
         runs.update(csmgan_phases(torch, dev))
         runs.update(zoo_phases(torch, dev))
         runs.update(models_phases(torch, dev))
         runs.update(dist_phases(torch, dev))
+        runs["tp_ranks"] = timed("tp_ranks", tp_ranks_phase, torch, dev)
         if args.profile:
             timed("profile", profile_phase, torch, dev)
             timed("profile_train", profile_train_phase, torch, dev)
@@ -2098,14 +2145,17 @@ def grad_check_phase(torch, dev):
     torch.cuda.empty_cache()
 
 
-def _train_model(torch, device, remat=True):
+def _train_model(torch, device, remat=True, num_frames=None):
     """The recipe's score model (SGMSE_Large: ncsnpplarge, fp32, remat
-    conv_outs) on `device`, seeded random unit-scale weights."""
+    conv_outs) on `device`, seeded random unit-scale weights; its crop cut
+    to `num_frames` where given."""
     from use_tpu_torch.config.config import load_config
     from use_tpu_torch.models.sgmse.score_model import ScoreModel
 
     cfg = load_config(TRAIN_EXPERIMENT)
     mcfg = dict(cfg["model"])
+    if num_frames is not None:
+        mcfg["num_frames"] = num_frames
     mcfg["backbone_kwargs"] = {**mcfg["backbone_kwargs"], "remat": remat}
     model = ScoreModel(**mcfg, device="cpu", seed=0)
     _randomize(torch, model.score_net, seed=1)
@@ -2435,19 +2485,28 @@ def train_phase(torch, dev):
     return counts
 
 
-def learn_phase(torch, dev):
-    """use_tpu's learning gate on the card (tests/test_learning.py::
-    test_sgmse_learns_to_enhance) as it runs it: one run at its seed 0
-    (tools/learn_gate.py) with deterministic algorithms, as XLA's CPU run is
-    one fixed trajectory; the loss must fall and the mean SI-SDR gain of two
-    held-out probes over their noisy input must exceed learn_gate.GATE_DB."""
+def _learn_worker(device):
+    """The SGMSE learning gate's run (phase 12) in a spawned process:
+    deterministic algorithms, TF32 off as in the parent."""
+    import torch
+
+    import use_tpu_torch.models  # noqa: F401 (registries)
     from use_tpu_torch.tools import learn_gate
 
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
     learn_gate.deterministic(torch, True)
-    try:
-        run = learn_gate.learn_run(torch, dev)
-    finally:
-        learn_gate.deterministic(torch, False)
+    return learn_gate.learn_run(torch, device)
+
+
+def learn_check(run):
+    """use_tpu's learning gate on the card (tests/test_learning.py::
+    test_sgmse_learns_to_enhance) as it runs it: one run at its seed 0
+    (tools/learn_gate.py, `_learn_worker`) with deterministic algorithms, as
+    XLA's CPU run is one fixed trajectory; the loss must fall and the mean
+    SI-SDR gain of two held-out probes over their noisy input must exceed
+    learn_gate.GATE_DB."""
+    from use_tpu_torch.tools import learn_gate
+
     phase("learn", **run, deterministic=True, gate_db=learn_gate.GATE_DB,
           use_tpu_cpu_gain_db=JAX_LEARN_GAIN_DB)
     if not run["loss_last_epoch"] < run["loss_first_epoch"]:
@@ -2529,7 +2588,8 @@ def gan_phases(torch, dev):
     the evals."""
     timed("gan_train_step", gan_train_step_phase, torch, dev)
     runs = timed("train_lsgan", train_gan_phase, torch, dev, GAN_EXPERIMENT, GAN_TRAIN_CLIPS,
-                 GAN_SPLICE_S, GAN_CROP_S, GAN_TRAIN_LAUNCHES["remat"], PER_GENERATOR_FORWARD)
+                 GAN_SPLICE_S, GAN_CROP_S, GAN_TRAIN_LAUNCHES["remat"], PER_GENERATOR_FORWARD,
+                 (), None, GAN_TRAIN_ARGS)
     runs[f"eval {EVAL_SGMSE}"] = timed(f"eval {EVAL_SGMSE}", eval_phase, torch, dev, EVAL_SGMSE,
                                        None, PER_FORWARD["float32"])
     timed("learn_lsgan", learn_lsgan_phase, torch, dev)
@@ -3035,13 +3095,16 @@ def learn_lsgan_phase(torch, dev):
     input, over the runs without deterministic algorithms, must exceed
     learn_gate.GAN_GATE_DB. One trajectory is one sample: this adversarial
     probe's runs part within three steps between any two of the card's
-    algorithm choices and the CPU, and end 6 dB apart (PERF.md)."""
+    algorithm choices and the CPU, and end 6 dB apart (PERF.md). The SGMSE
+    gate's run (phase 12, `learn_check`) runs beside them in the same pool."""
     import multiprocessing
 
     from use_tpu_torch.tools import learn_gate
 
-    with multiprocessing.get_context("spawn").Pool(len(LEARN_LSGAN_RUNS)) as pool:
+    with multiprocessing.get_context("spawn").Pool(len(LEARN_LSGAN_RUNS) + 1) as pool:
+        sgmse = pool.apply_async(_learn_worker, (str(dev),))
         runs = pool.starmap(_gan_learn_worker, [(det, str(dev)) for det in LEARN_LSGAN_RUNS])
+        learn_check(sgmse.get())
     gains = [r["gain_db"] for r in runs]
     median = float(np.median([r["gain_db"] for r in runs if not r["deterministic"]]))
     phase("learn_lsgan", runs=runs, gains_db=gains, median_gain_db=median,
@@ -3077,7 +3140,7 @@ def csmgan_phases(torch, dev):
     # CSMGAN trains crop-free: a microbatch trains on the whole 6 s items
     runs.update(timed("train_csmgan", train_gan_phase, torch, dev, CSMGAN_EXPERIMENT,
                       CSMGAN_TRAIN_CLIPS, CSMGAN_CLIP_S, CSMGAN_CLIP_S, NO_LAUNCHES,
-                      NO_LAUNCHES, ("predict.streaming=true",), CSMGAN))
+                      NO_LAUNCHES, ("predict.streaming=true",), CSMGAN, CSMGAN_TRAIN_ARGS))
     return runs
 
 
@@ -4481,6 +4544,249 @@ def ddp_two_ranks_phase(torch, dev):
                              f"{step_off} lr (any)")
     del model, state, seen, ranks
     torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def summing_gather_backward():
+    """A tensor-parallel path broken on purpose, for phase 35's gates to
+    reject: the gather's backward summed over the model ranks before this
+    rank's slice, as torch.distributed.nn's all_gather has it."""
+    from use_tpu_torch.parallel import sharding
+
+    real = sharding._GatherFromModel.backward
+
+    def summing(ctx, g):
+        return real(ctx, sharding._all_reduce(g.contiguous().clone(), ctx.world))
+
+    sharding._GatherFromModel.backward = staticmethod(summing)
+    try:
+        yield
+    finally:
+        sharding._GatherFromModel.backward = staticmethod(real)
+
+
+def tp_rank_worker(tmp, device):
+    """One of tp_ranks' four processes (torchrun's environment set by the
+    phase): joins the gloo group, lays the ranks out as make_mesh(*TP_LAYOUT),
+    shards SGMSE_Large's net (shard_params, the rule's default min_size),
+    and takes one sgmse_train_step through DDP over its data group on its
+    data index's clip and rows of the global draws with the summing gather
+    backward (the control, and the warm-up), then the step itself from the
+    same weights. Saves each step's loss, seconds, launches, peak memory and
+    the bytes gathered and all-reduced over the model group, and this
+    rank's weights after the step; rank 0 also the gradient the optimizer
+    applied (after the clip) gathered whole, the weights after the step
+    gathered whole, and K2's call shapes."""
+    import torch
+    import torch.distributed as dist
+
+    from use_tpu_torch import ops
+    from use_tpu_torch.engine.loop import build_train_state, distribute
+    from use_tpu_torch.engine.train import sgmse_train_step
+    from use_tpu_torch.models.ncsnpp import layers
+    from use_tpu_torch.parallel import sharding
+    from use_tpu_torch.parallel.mesh import init_distributed, local_rows, make_mesh
+
+    assert init_distributed("gloo")
+    dev = torch.device(device)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    world = make_mesh(*TP_LAYOUT)
+    model, cfg = _train_model(torch, dev, num_frames=TP_FRAMES)
+    batch, (start, t, z) = _train_batch(torch, model, TP_LAYOUT[0])
+    net = model.score_net
+    sharding.shard_params(net, world)
+    init = {k: v.clone() for k, v in net.state_dict().items()}
+    names = sharding.sharded_parameters(net)
+    k2_shapes = {}
+    k2 = layers.fused_skip_add
+
+    def counted_k2(x, h, w, b, scale):
+        key = str([x.shape[0], x.shape[1], h.shape[1], x.shape[2], x.shape[3]])
+        k2_shapes[key] = k2_shapes.get(key, 0) + 1
+        return k2(x, h, w, b, scale)
+
+    local = {k: local_rows(v, world).to(dev) for k, v in batch.items()}
+    draws = [(start, local_rows(t, world), local_rows(z, world))]
+    tc = cfg["train"]
+    out = {"rank": dist.get_rank(), "data_rank": world.rank, "model_rank": world.model_rank,
+           "sharded": sorted(names), "k2_shapes": k2_shapes}
+    ddp = None
+    for run in ("summing", "step"):
+        net.load_state_dict(init)
+        state = build_train_state(model, tc["lr"], tc["weight_decay"], TP_GRAD_CLIP)
+        if ddp is None:
+            distribute(state, world, dev)
+            ddp = state.ddp
+        else:
+            state.world, state.ddp = world, ddp
+        seen = {}
+        real = state.optimizer.step
+
+        def step(*a, **kw):
+            seen.update({k: p.grad.detach().clone() for k, p in net.named_parameters()
+                         if p.grad is not None})
+            return real(*a, **kw)
+
+        state.optimizer.step = step
+        ops.reset_launch_counts()
+        for k in sharding.model_bytes:
+            sharding.model_bytes[k] = 0
+        torch.cuda.reset_peak_memory_stats(dev)
+        layers.fused_skip_add = counted_k2 if run == "step" else k2
+        dist.barrier()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        with summing_gather_backward() if run == "summing" else contextlib.nullcontext():
+            metrics = sgmse_train_step(model, state, [local], draws=draws)
+        torch.cuda.synchronize(dev)
+        res = {"step_s": time.perf_counter() - t0, "loss": float(metrics["loss_Score"]),
+               "launches": ops.launch_counts(), "bytes": dict(sharding.model_bytes),
+               "peak_bytes": torch.cuda.max_memory_allocated(dev)}
+        layers.fused_skip_add = k2
+        group = world.model_group.group_name
+        grads = {k: sharding.model_all_gather(g, 0, group, world.model) if k in names else g
+                 for k, g in seen.items()}
+        if run == "step":
+            weights = sharding.gather_state_dict(net, world)
+            res["local"] = {k: p.detach().to("cpu", copy=True) for k, p in net.named_parameters()}
+        if out["rank"] == 0:  # every rank gathers the same whole tensors
+            res["grads"] = {k: g.cpu() for k, g in grads.items()}
+            if run == "step":
+                res["weights"] = {k: v.to("cpu", copy=True) for k, v in weights.items()}
+        out[run] = res
+        del grads, seen
+    torch.save(out, os.path.join(tmp, f"rank{out['rank']}.pt"))
+    dist.destroy_process_group()
+
+
+def tp_ranks_phase(torch, dev):
+    """Phase 35: four ranks share the card through gloo as make_mesh(data=2,
+    model=2), one sharded sgmse_train_step each (tp_rank_worker), against
+    the one-process unsharded step on the card over the same clips and
+    draws; -> rank 0's launches. Gates in the module docstring. The timed
+    steps are each process's second (the control warms the ranks up, a
+    step from the same weights the one process); the first beside them."""
+    from use_tpu_torch import ops
+    from use_tpu_torch.engine.loop import build_train_state
+    from use_tpu_torch.engine.train import sgmse_train_step
+
+    n = TP_LAYOUT[0] * TP_LAYOUT[1]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as tmp:
+        port = _free_port()
+        procs = []
+        for rank in range(n):
+            env = {**os.environ, "RANK": str(rank), "WORLD_SIZE": str(n), "LOCAL_RANK": "0",
+                   "MASTER_ADDR": "localhost", "MASTER_PORT": str(port)}
+            procs.append(subprocess.Popen(
+                [sys.executable, sys.argv[0], "--tp-rank-worker", tmp, str(dev)],
+                env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        with _reaping(procs):
+            logs = [p.communicate(timeout=600)[0] for p in procs]
+        if any(p.returncode for p in procs):
+            raise AssertionError("tp_ranks: a rank failed:\n" + "\n".join(
+                log[-4000:] for log in logs))
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+                 for r in range(n)]
+    model, cfg = _train_model(torch, dev, num_frames=TP_FRAMES)
+    batch, draws = _train_batch(torch, model, TP_LAYOUT[0])
+    batch = {k: v.to(dev) for k, v in batch.items()}
+    tc = cfg["train"]
+    lr = tc["lr"]
+    init = {k: v.clone() for k, v in model.score_net.state_dict().items()}
+    seen, one_s = {}, []
+    for _ in range(2):  # a warm-up step, then the reference from the same weights
+        model.score_net.load_state_dict(init)
+        state = build_train_state(model, lr, tc["weight_decay"], TP_GRAD_CLIP)
+        real = state.optimizer.step
+
+        def record(*a, **kw):
+            seen.update({k: p.grad.detach().clone() for k, p in model.score_net.named_parameters()
+                         if p.grad is not None})
+            return real(*a, **kw)
+
+        state.optimizer.step = record
+        ops.reset_launch_counts()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        out = sgmse_train_step(model, state, [batch], draws=[draws])
+        torch.cuda.synchronize(dev)
+        one_s.append(time.perf_counter() - t0)
+    seen = {k: g.cpu() for k, g in seen.items()}
+    one_launches = ops.launch_counts()
+    loss = float(out["loss_Score"])
+    grad_norm = math.sqrt(sum(float((g.double() ** 2).sum()) for g in seen.values()))
+    key_biases = {f"{name}.NIN_1.b" for name, m in model.score_net.named_modules()
+                  if type(m).__name__ == "AttnBlockpp"}
+    top = max(float(g.abs().max()) for g in seen.values())
+    sharded = set(ranks[0]["sharded"])
+    steps = [r["step"] for r in ranks]
+    # replicas within each model group (one data index), everything within
+    # each data group (one model index); rank = d * model + m
+    model_groups = [range(d * TP_LAYOUT[1], (d + 1) * TP_LAYOUT[1]) for d in range(TP_LAYOUT[0])]
+    data_groups = [range(m, n, TP_LAYOUT[1]) for m in range(TP_LAYOUT[1])]
+    replicas_equal = all(torch.equal(steps[g[0]]["local"][k], steps[r]["local"][k])
+                         for g in model_groups for r in g[1:]
+                         for k in steps[0]["local"] if k not in sharded)
+    slices_equal = all(torch.equal(steps[g[0]]["local"][k], steps[r]["local"][k])
+                       for g in data_groups for r in g[1:] for k in steps[g[0]]["local"])
+    report = {}
+    for run in ("step", "summing"):
+        rel, _ = _grad_rel(ranks[0][run]["grads"], seen, key_biases)
+        worst = max(rel, key=rel.get)
+        report[run] = {"max_grad_rel_err": rel[worst], "worst_grad": worst,
+                       "median_grad_rel_err": float(np.median(list(rel.values()))),
+                       "loss_rel_err": abs(ranks[0][run]["loss"] - loss) / abs(loss)}
+    got = steps[0]["grads"]
+    key_bias = {k: [float(got[k].abs().max()) / top, float(seen[k].abs().max()) / top]
+                for k in key_biases}
+    step_off, sure_off = 0.0, 0.0
+    for k, p in model.score_net.named_parameters():
+        w, g = p.detach().cpu(), seen.get(k)
+        diff = (steps[0]["weights"][k] - w).abs()
+        step_off = max(step_off, float(diff.max()) / lr)
+        if g is None or k in key_biases:
+            continue
+        sure = g.abs() > 2 * TRAIN_GRAD_REL_TOL * float(g.abs().max())
+        if bool(sure.any()):
+            sure_off = max(sure_off, float((diff[sure] - 1e-5 * w.abs()[sure]).max()))
+    want = all_kernels(TRAIN_LAUNCHES["remat"])
+    launches = [all_kernels(s["launches"]) for s in steps]
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    phase("tp_ranks", experiment=TRAIN_EXPERIMENT,
+          layout={"data": TP_LAYOUT[0], "model": TP_LAYOUT[1]}, backend="gloo",
+          frames=TP_FRAMES, clips_a_data_rank=1, grad_clip=TP_GRAD_CLIP,
+          sharded_weights=len(sharded), nvidia_smi=smi,
+          ranks=[[r["rank"], r["data_rank"], r["model_rank"]] for r in ranks],
+          losses=[s["loss"] for s in steps], loss_one_process=loss,
+          grad_tol=TRAIN_GRAD_REL_TOL, applied_grad_norm=grad_norm, step=report["step"],
+          summing_control=report["summing"],
+          key_bias_grads_over_top=key_bias, max_weight_step_over_lr=step_off,
+          max_sure_weight_err=sure_off, replicas_bit_identical=replicas_equal,
+          slices_bit_identical=slices_equal, launches=launches,
+          one_process_launches=all_kernels(one_launches),
+          step_seconds=[s["step_s"] for s in steps],
+          first_step_seconds=[r["summing"]["step_s"] for r in ranks],
+          one_process_step_seconds=one_s[1], one_process_first_step_seconds=one_s[0],
+          model_group_bytes=[s["bytes"] for s in steps],
+          peak_memory_bytes=[s["peak_bytes"] for s in steps], k2_shapes=ranks[0]["k2_shapes"])
+    if not (replicas_equal and slices_equal):
+        raise AssertionError(f"tp_ranks: replicas equal {replicas_equal}, "
+                             f"slices equal {slices_equal}")
+    if any(lc != want for lc in launches):
+        raise AssertionError(f"tp_ranks: launches {launches}, want {want} on every rank")
+    if not (report["step"]["max_grad_rel_err"] <= TRAIN_GRAD_REL_TOL
+            and report["step"]["loss_rel_err"] <= TRAIN_GRAD_REL_TOL
+            and max(max(v) for v in key_bias.values()) <= KEY_BIAS_GRAD_FLOOR):
+        raise AssertionError(f"tp_ranks: {report['step']}, key biases {key_bias}")
+    if not (sure_off <= 1e-7 and step_off <= 2 * (1 + 1e-5)):
+        raise AssertionError(f"tp_ranks: weights off by {sure_off} (sure gradients), "
+                             f"{step_off} lr (any)")
+    if report["summing"]["max_grad_rel_err"] <= TRAIN_GRAD_REL_TOL:
+        raise AssertionError(f"tp_ranks: the summing-backward control passed: {report}")
+    del model, state, seen, ranks, steps
+    torch.cuda.empty_cache()
+    return launches[0]
 
 
 if __name__ == "__main__":

@@ -34,11 +34,13 @@ def test_import_loads_no_jax_or_use_tpu():
 
 
 def test_data_parallel_and_tool_modules_import_alone():
-    """The modules of data-parallel training and the tools (parallel/mesh,
-    cli/sweep, utils/utils and the ranked logger) are part of the package
+    """The modules of data-parallel and tensor-parallel training and the
+    tools (parallel/mesh with make_mesh, parallel/sharding, cli/sweep,
+    utils/utils and the logger with its trackers) are part of the package
     walk above, and each imports without JAX or use_tpu on its own."""
-    names = ("use_tpu_torch.parallel.mesh", "use_tpu_torch.cli.sweep",
-             "use_tpu_torch.utils.utils", "use_tpu_torch.utils.logging")
+    names = ("use_tpu_torch.parallel.mesh", "use_tpu_torch.parallel.sharding",
+             "use_tpu_torch.cli.sweep", "use_tpu_torch.utils.utils",
+             "use_tpu_torch.utils.logging")
     code = (
         "import importlib, sys\n"
         f"for n in {names}:\n"

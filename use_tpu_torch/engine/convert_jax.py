@@ -15,6 +15,9 @@ flax->torch transpositions:
                                    reference holds them; their plain convs
                                    are Conv_0 like any other)
 
+A net sharded over a model axis loads ``ncsnpp_params_to_shards``: the
+state_dict cut to the rank's output slices (parallel/sharding.py).
+
 The LSGAN generator's backbone is the same NCSN++ in discriminative mode:
 ``lsgan_params_to_state_dict`` maps use_tpu's generator params onto
 ``NCSNPPWrapper.net``, and ``discriminator_params_to_state_dict`` use_tpu's
@@ -134,6 +137,17 @@ def ncsnpp_params_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Te
             parts = parts[:-1] + [leaf]
         out[".".join(parts)] = torch.from_numpy(np.ascontiguousarray(arr).copy())
     return out
+
+
+def ncsnpp_params_to_shards(params: Mapping[str, Any], plan: Mapping[str, Any],
+                            world) -> Dict[str, torch.Tensor]:
+    """Flax NCSNpp params -> this model rank's state_dict of a net that
+    ``parallel/sharding.shard_params`` cut (`plan`, its shardings, over
+    `world`'s model axis): each sharded weight's output slice, as use_tpu's
+    ``shard_params`` places the same params on a ('data', 'model') mesh."""
+    from use_tpu_torch.parallel.sharding import shard_state_dict
+
+    return shard_state_dict(ncsnpp_params_to_state_dict(params), dict(plan), world)
 
 
 def lsgan_params_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:

@@ -12,6 +12,9 @@ wrapper of ``model`` that the train steps call, ``world`` the training
 ranks. The optimizer, the clip and the EMA work on ``model``'s own
 parameters, which the wrapper shares; every rank applies the same
 all-reduced gradients, so the ranks' parameters stay bit-identical.
+Sharded over a model axis as well (``world.model`` > 1,
+parallel/sharding.py): the replicated parameters' gradients are averaged
+over the model group and the clip's norm is the whole gradient's.
 """
 from __future__ import annotations
 
@@ -20,6 +23,8 @@ from dataclasses import dataclass
 from typing import Any, Dict, Optional
 
 import torch
+
+from use_tpu_torch.parallel import sharding
 
 
 @dataclass
@@ -31,7 +36,7 @@ class TrainState:
     ema_params: Optional[Dict[str, torch.Tensor]] = None
     ema_decay: float = 0.0
     ddp: Optional[torch.nn.Module] = None
-    world: Any = None  # parallel.mesh.World of the training ranks
+    world: Any = None  # parallel.mesh.World of the training ranks (and the model axis)
 
     @classmethod
     def create(cls, model: torch.nn.Module, optimizer: torch.optim.Optimizer,
@@ -43,7 +48,11 @@ class TrainState:
 
     def apply_gradients(self) -> None:
         params = [p for group in self.optimizer.param_groups for p in group["params"]]
-        if self.grad_clip is not None:
+        if self.world is not None and self.world.model > 1:
+            sharding.average_replicated_grads(self.model, self.world)
+            if self.grad_clip is not None:
+                sharding.clip_grad_norm_(self.model, params, self.grad_clip, self.world)
+        elif self.grad_clip is not None:
             torch.nn.utils.clip_grad_norm_(params, self.grad_clip)
         self.optimizer.step()
         self.step += 1

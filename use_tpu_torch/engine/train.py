@@ -23,7 +23,10 @@ and its G phase calls D's own module: a wrapper whose network takes no
 gradient would wait for one. Without ``draws`` each rank draws the global
 batch's (start, t, z) from the shared generator and takes its rows, so a
 W-rank step is the one-process step over the ranks' batches in rank order.
-The reported losses are means over the ranks.
+The reported losses are means over the ranks. Sharded over a model axis
+(parallel/sharding.py), DDP runs over the data group, the model ranks of
+one data index take the same rows of the same global draws, and the loss is
+the mean over the data ranks.
 """
 from __future__ import annotations
 
@@ -80,7 +83,7 @@ def sgmse_train_step(model: ScoreModel, state: TrainState, micro: List[Batch],
     each microbatch's (start, t, z) in place of the generator's."""
     k = len(micro)
     world = state.world
-    if draws is None and world is not None and world.distributed:
+    if draws is None and world is not None and (world.distributed or world.model > 1):
         draws = [rank_draws(model, mb["clean"].shape[0], mb["clean"].shape[-1], world, generator)
                  for mb in micro]
     state.optimizer.zero_grad(set_to_none=True)

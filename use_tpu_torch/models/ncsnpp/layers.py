@@ -20,6 +20,12 @@ the hand-written kernels: ``GroupNormAct`` (K1, and under quant='int8' K1's
 apply with its int8 epilogue), the ``Conv_2`` shortcut of
 ``ResnetBlockBigGANpp`` (K2), under quant='int8_pallas' ``FusedQConv3x3``
 (K3) and under quant='int8' ``QConv`` (the s8 conv, ops/qconv.py).
+
+Tensor parallelism (parallel/sharding.py): a ``Conv2d`` or ``Linear`` whose
+``tp`` is set holds its output channels of this model rank; it computes
+them, gathers them over the model group and adds the whole bias. Where a
+BigGAN block's ``Conv_2`` is sharded, K2 runs on this rank's output
+channels and one gather follows it.
 """
 from __future__ import annotations
 
@@ -43,6 +49,7 @@ from use_tpu_torch.ops.upfirdn2d import (
     upsample_2d,
     upsample_conv_2d,
 )
+from use_tpu_torch.parallel.sharding import copy_to_model, gather_from_model, split_to_model
 
 _SKIP_SCALE = float(1.0 / np.sqrt(2.0))
 
@@ -73,6 +80,8 @@ def default_init_(w: torch.Tensor, scale: float, fan_in: int, fan_out: int,
 class Conv2d(nn.Module):
     """kxk conv (stride 1, 'same' padding) with DDPM init; OIHW weight."""
 
+    tp = None  # the World whose model ranks hold the output channels (parallel/sharding.py)
+
     def __init__(self, in_ch: int, out_ch: int, kernel: int = 3, bias: bool = True,
                  init_scale: float = 1.0, dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -89,8 +98,26 @@ class Conv2d(nn.Module):
             nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        b = None if self.bias is None else self.bias.to(self.dtype)
-        return F.conv2d(x.to(self.dtype), self.weight.to(self.dtype), b, padding=self.padding)
+        return self.conv_with(x, lambda x, w, b: F.conv2d(x, w, b, padding=self.padding),
+                              self.dtype)
+
+    def conv_with(self, x: torch.Tensor, conv: Callable, dtype: torch.dtype) -> torch.Tensor:
+        """conv(x, weight, bias) in `dtype`. Sharded (``tp``): conv on this
+        rank's output channels without the bias, gathered over the model
+        group, then the bias."""
+        w = self.weight.to(dtype)
+        b = None if self.bias is None else self.bias.to(dtype)
+        if self.tp is None:
+            return conv(x.to(dtype), w, b)
+        y = gather_from_model(conv(copy_to_model(x, self.tp).to(dtype), w, None), self.tp, 1)
+        return y if b is None else y + b[None, :, None, None]
+
+    def local(self, x: torch.Tensor) -> torch.Tensor:
+        """This model rank's output channels of forward(x), with their
+        slice of the bias (sharded convs only)."""
+        b = None if self.bias is None else split_to_model(self.bias.to(self.dtype), self.tp, 0)
+        return F.conv2d(copy_to_model(x, self.tp).to(self.dtype), self.weight.to(self.dtype), b,
+                        padding=self.padding)
 
 
 def _state(t: torch.Tensor) -> Optional[tuple]:
@@ -188,6 +215,8 @@ class QConv(Conv2d):
 class Linear(nn.Module):
     """Dense layer with DDPM init; [out, in] weight."""
 
+    tp = None  # as Conv2d's
+
     def __init__(self, in_features: int, out_features: int, init_scale: float = 1.0,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -202,7 +231,11 @@ class Linear(nn.Module):
         nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x.to(self.dtype), self.weight.to(self.dtype), self.bias.to(self.dtype))
+        w, b = self.weight.to(self.dtype), self.bias.to(self.dtype)
+        if self.tp is None:
+            return F.linear(x.to(self.dtype), w, b)
+        return gather_from_model(F.linear(copy_to_model(x, self.tp).to(self.dtype), w),
+                                 self.tp, -1) + b
 
 
 class GroupNormAct(nn.Module):
@@ -415,9 +448,9 @@ class Downsample(nn.Module):
         if not self.fir:
             if not self.with_conv:
                 return F.avg_pool2d(x, 2)
-            conv = self.Conv_0
-            return F.conv2d(F.pad(x.float(), (0, 1, 0, 1)), conv.weight.float(),
-                            conv.bias.float(), stride=2)
+            return self.Conv_0.conv_with(F.pad(x.float(), (0, 1, 0, 1)),
+                                         lambda x, w, b: F.conv2d(x, w, b, stride=2),
+                                         torch.float32)
         if not self.with_conv:
             return downsample_2d(x, self.fir_kernel, factor=2)
         conv = self.Conv2d_0
@@ -580,15 +613,16 @@ class ResnetBlockBigGANpp(nn.Module):
             x = self._resample(x)
         if temb is not None and self.Dense_0 is not None:
             h = h + self.Dense_0(self.act(temb))[:, :, None, None]
+        scale = _SKIP_SCALE if self.skip_rescale else 1.0
         if self.qp1:
             h = self.Conv_1(h, *self.GroupNorm_1(h))
         elif self.q1:
             h = self.Conv_1(*self.GroupNorm_1(h))
         else:
-            h = self.GroupNorm_1(h)
-            h = F.dropout(h, self.dropout, training=self.training)
+            h = F.dropout(self.GroupNorm_1(h), self.dropout, training=self.training)
+            if self.Conv_2 is not None and self.Conv_2.tp is not None:
+                return self._sharded_skip(x, h, scale)
             h = self.Conv_1(h)
-        scale = _SKIP_SCALE if self.skip_rescale else 1.0
         if self.Conv_2 is not None:
             conv = self.Conv_2
             return fused_skip_add(
@@ -597,3 +631,15 @@ class ResnetBlockBigGANpp(nn.Module):
             )
         x = x.to(h.dtype)
         return (x + h) * scale if self.skip_rescale else x + h
+
+    def _sharded_skip(self, x: torch.Tensor, h: torch.Tensor, scale: float) -> torch.Tensor:
+        """Conv_1 and K2 on this model rank's output channels (Conv_2
+        sharded, so Conv_1 too: its 9 out^2 weights outnumber Conv_2's
+        in x out in every NCSN++ block): K2 takes Conv_1's output channels
+        of this rank before their gather, Conv_2's weight slice and bias
+        slice; one gather follows."""
+        tp, conv = self.Conv_2.tp, self.Conv_2
+        out = fused_skip_add(copy_to_model(x.to(self.dtype), tp).contiguous(),
+                             self.Conv_1.local(h).contiguous(), conv.weight.to(self.dtype),
+                             split_to_model(conv.bias.to(self.dtype), tp, 0), scale)
+        return gather_from_model(out, tp, 1)

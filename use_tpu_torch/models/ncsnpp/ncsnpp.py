@@ -321,9 +321,13 @@ class NCSNpp(nn.Module):
 
 def _conv_out_policy(ctx, op, *args, **kwargs):
     """Selective remat 'conv_outs': keep the outputs of the blocks' 3x3
-    convolutions (groups 1; the FIR resampling convolves depthwise),
-    recompute everything else."""
+    convolutions (groups 1; the FIR resampling convolves depthwise) and, in
+    a net sharded over a model axis (parallel/sharding.py), their gathered
+    outputs, so that the recomputation gathers nothing; recompute everything
+    else."""
     if op is torch.ops.aten.convolution.default and args[8] == 1:
+        return CheckpointPolicy.MUST_SAVE
+    if op is torch.ops.use_tpu_torch.model_all_gather.default:
         return CheckpointPolicy.MUST_SAVE
     return CheckpointPolicy.PREFER_RECOMPUTE
 

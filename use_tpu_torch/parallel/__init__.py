@@ -1,2 +1,3 @@
-"""Data-parallel training over the ranks of a torchrun launch
-(``mesh.py``), the port's counterpart of use_tpu/parallel."""
+"""Data-parallel training over the ranks of a torchrun launch and the
+layout of its ranks (``mesh.py``), and tensor parallelism over the layout's
+model axis (``sharding.py``): the port's counterpart of use_tpu/parallel."""

@@ -19,6 +19,13 @@ and wraps each network in DistributedDataParallel. What carries over:
 - ``local_rows``: this rank's rows of a global draw (t, z), so that a
   W-rank step equals the one-process step over the concatenated batch, as
   use_tpu's mesh step equals its single-device step.
+- ``make_mesh``: use_tpu's ('data', 'model') mesh (mesh.py:57-75) over the
+  process group's ranks, laid out row-major as use_tpu reshapes its
+  devices: rank = d * model + m, so a model group is ``model`` consecutive
+  ranks. One ``dist.new_group`` a row (the model groups) and a column (the
+  data groups); the ``World`` it returns is the data axis that
+  ``local_rows``, ``place_batch`` and ``wrap`` take, and carries the model
+  axis that parallel/sharding.py shards the network over.
 """
 from __future__ import annotations
 
@@ -68,18 +75,29 @@ def local_device(device: torch.device) -> torch.device:
 
 @dataclass
 class World:
-    """The ranks of a data-parallel fit: ``size`` of them train, this one is
+    """The ranks of a fit: the data axis has ``size`` ranks, this one is
     ``rank`` among them (``trains`` False: it idles), ``group`` their
-    process group (None: the default group, or no group at all)."""
+    process group (None: the default group, or no group at all). The model
+    axis (``make_mesh``): ``model`` ranks hold the slices of one network
+    (parallel/sharding.py), this one is ``model_rank`` among them,
+    ``model_group`` theirs."""
 
     size: int = 1
     rank: int = 0
     trains: bool = True
     group: Optional[object] = None
+    model: int = 1
+    model_rank: int = 0
+    model_group: Optional[object] = None
 
     @property
     def distributed(self) -> bool:
         return self.size > 1 and dist.is_available() and dist.is_initialized()
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        """use_tpu's ``mesh.shape``."""
+        return {"data": self.size, "model": self.model}
 
     def all_reduce(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
         """x reduced over the training ranks, in place (x as it is on one)."""
@@ -93,14 +111,15 @@ class World:
             dist.barrier(group=self.group)
 
 
-def data_ranks(global_batch: int, world: int, on_idle: str = "warn") -> int:
-    """default_mesh's rule: the ranks that train are gcd(global batch,
-    world); fewer than half of them raise where on_idle='error', else warn."""
-    data = math.gcd(max(int(global_batch), 1), max(world, 1))
-    if data < world:
-        if on_idle == "error" and data < world / 2:
+def data_ranks(global_batch: int, world: int, on_idle: str = "warn", model: int = 1) -> int:
+    """default_mesh's rule: the data axis is gcd(global batch, world //
+    model), so data * model ranks train; fewer than half of them raise where
+    on_idle='error', else warn."""
+    data = math.gcd(max(int(global_batch), 1), max(world // model, 1))
+    if data * model < world:
+        if on_idle == "error" and data * model < world / 2:
             raise ValueError(
-                f"global batch {global_batch} maps onto only {data} "
+                f"global batch {global_batch} maps onto only {data * model} "
                 f"of {world} devices — more than half the slice would idle. "
                 "Fix one of: data.batch_size=auto (scales the batch to the "
                 "slice: micro_batch_per_device x devices), raise "
@@ -110,32 +129,75 @@ def data_ranks(global_batch: int, world: int, on_idle: str = "warn") -> int:
         log.warning(
             "mesh uses %d of %d devices (global batch %d is not divisible "
             "by more); raise data.batch_size to use the full slice",
-            data, world, global_batch,
+            data * model, world, global_batch,
         )
     return data
 
 
 def default_world(global_batch: int, world: Optional[int] = None,
-                  on_idle: str = "warn") -> World:
-    """The data-parallel world of a fit over `world` ranks (the process
-    group's size by default). Under a process group that not every rank
-    trains in, the training ranks get a group of their own
-    (``dist.new_group``, which every rank calls) and every rank passes one
-    barrier, after which the idle ones leave (``World.trains`` False)."""
+                  on_idle: str = "warn", model: int = 1) -> World:
+    """The world of a fit over `world` ranks (the process group's size by
+    default), ``model`` ranks to a network's slices. Under a process group
+    that not every rank trains in, the training ranks get groups of their
+    own (``dist.new_group``, which every rank calls) and every rank passes
+    one barrier, after which the idle ones leave (``World.trains`` False)."""
     initialized = dist.is_available() and dist.is_initialized()
     if world is None:
         world = dist.get_world_size() if initialized else 1
-    data = data_ranks(global_batch, world, on_idle)
+    data = data_ranks(global_batch, world, on_idle, model)
     if not initialized:
-        return World(size=data)
+        return World(size=data, model=model)
     rank = dist.get_rank()
-    if data == world:
+    if model > 1:
+        out = _layout(data, model, rank)
+    elif data == world:
         return World(size=world, rank=rank)
-    group = dist.new_group(list(range(data)))
-    dist.barrier()
-    if rank >= data:
-        log.warning("rank %d idles (the global batch splits over %d ranks)", rank, data)
-    return World(size=data, rank=rank, trains=rank < data, group=group)
+    else:
+        out = World(size=data, rank=rank, group=dist.new_group(list(range(data))))
+    if data * model < world:
+        dist.barrier()
+        if rank >= data * model:
+            log.warning("rank %d idles (the global batch splits over %d ranks)", rank,
+                        data * model)
+            out.trains = False
+    return out
+
+
+def make_mesh(data: Optional[int] = None, model: int = 1,
+              world: Optional[int] = None) -> World:
+    """use_tpu's make_mesh (mesh.py:57-75) over the ranks of the process
+    group, or over `world` ranks laid out without starting them (no groups):
+    data=None takes every rank that the model axis leaves. Rank d * model +
+    m is data index d and model index m."""
+    initialized = dist.is_available() and dist.is_initialized()
+    n = world if world is not None else (dist.get_world_size() if initialized else 1)
+    if data is None:
+        if n % model:
+            raise AssertionError((n, model))
+        data = n // model
+    if data * model != n:
+        raise AssertionError((data, model, n))
+    if world is not None or not initialized:
+        return World(size=data, model=model)
+    if model == 1:
+        return World(size=data, rank=dist.get_rank())
+    return _layout(data, model, dist.get_rank())
+
+
+def _layout(data: int, model: int, rank: int) -> World:
+    """The groups of a (data, model) layout of ranks [0, data * model): one
+    model group a row (consecutive ranks), one data group a column; every
+    rank of the process group makes every group, in the same order. A rank
+    outside the layout gets a World that does not train."""
+    rows = [list(range(d * model, (d + 1) * model)) for d in range(data)]
+    cols = [list(range(m, data * model, model)) for m in range(model)]
+    model_groups = [dist.new_group(r) for r in rows]
+    data_groups = [dist.new_group(c) for c in cols]
+    if rank >= data * model:
+        return World(size=data, rank=rank, trains=False, model=model)
+    d, m = divmod(rank, model)
+    return World(size=data, rank=d, group=data_groups[m], model=model, model_rank=m,
+                 model_group=model_groups[d])
 
 
 def local_rows(x: torch.Tensor, world: World) -> torch.Tensor:

@@ -1,0 +1,237 @@
+"""Tensor parallelism over the 'model' axis: use_tpu's parallel/sharding.py.
+
+use_tpu's rule (sharding.py:19-50) shards every parameter named ``kernel``
+with ndim >= 2 and at least ``min_size`` elements on its output axis, and
+keeps biases, norms and the NIN / Fourier ``W``s replicated; where the
+output axis does not divide by the model axis, it falls back to
+replication. XLA's SPMD partitioner then derives the collectives. The
+port's kernels are the ``weight``s of its convs (OIHW) and dense layers
+([out, in]), so the output axis is dim 0; the FIR convs of Upsample /
+Downsample hold ``Conv2d_0.weight``, which use_tpu names
+``Conv2d_0_weight`` (no kernel), and stay replicated.
+
+The collectives are written out here, over the model group of a
+``make_mesh`` layout (parallel/mesh.py, rank = d * model + m):
+
+- ``copy_to_model``: forward the identity; backward the all-reduce-sum of
+  the input's gradient, which each model rank holds only in part;
+- ``gather_from_model``: forward every rank's output channels gathered and
+  concatenated; backward this rank's slice of the gradient (every model
+  rank runs the same graph downstream of a gather, so its gradient is
+  already whole: a summing backward, as torch.distributed.nn's all_gather
+  has, multiplies it by the model axis);
+- ``split_to_model``: this rank's slice of a replicated tensor (a copy,
+  then the slice), so that the gradient of what it came from is whole.
+
+A sharded ``layers.Conv2d`` / ``layers.Linear`` (its ``tp`` the World of the
+layout) is column-parallel with its output gathered: the conv or matmul of
+its output channels, the gather, then the replicated bias. The BigGAN
+block's K2 runs on the shard of its output channels (models/ncsnpp/
+layers.py). The gather is one opaque op (``model_all_gather``), so that
+the ``conv_outs`` remat policy (models/ncsnpp/ncsnpp.py) keeps its output
+and the backward's recomputation gathers nothing again.
+
+In training (engine/state.py) the replicated parameters' gradients are
+averaged over the model group, so the replicas stay bit-identical, and the
+global-norm clip sees the whole gradient (``clip_grad_norm_``), as optax's
+clip over sharded arrays does. ``model_bytes`` counts the bytes gathered
+and all-reduced over the model groups.
+"""
+from __future__ import annotations
+
+from typing import Dict, Iterable, List, Optional
+
+import torch
+import torch.distributed as dist
+import torch.nn as nn
+
+from use_tpu_torch.parallel.mesh import World
+
+model_bytes = {"gathered": 0, "all_reduced": 0}
+
+
+def _all_reduce(x: torch.Tensor, world: World) -> torch.Tensor:
+    """x summed over the model group, in place."""
+    dist.all_reduce(x, group=world.model_group)
+    model_bytes["all_reduced"] += x.numel() * x.element_size()
+    return x
+
+
+@torch.library.custom_op("use_tpu_torch::model_all_gather", mutates_args=())
+def model_all_gather(x: torch.Tensor, dim: int, group_name: str, size: int) -> torch.Tensor:
+    """x of each of the `size` ranks of the process group `group_name`,
+    concatenated along `dim` in rank order."""
+    group = dist.distributed_c10d._resolve_process_group(group_name)
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(size)]
+    dist.all_gather(parts, x, group=group)
+    out = torch.cat(parts, dim)
+    model_bytes["gathered"] += out.numel() * out.element_size()
+    return out
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, world):
+        ctx.world = world
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g.contiguous().clone(), ctx.world), None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, world, dim):
+        ctx.world, ctx.dim = world, dim
+        return model_all_gather(x, dim, world.model_group.group_name, world.model)
+
+    @staticmethod
+    def backward(ctx, g):
+        world = ctx.world
+        n = g.shape[ctx.dim] // world.model
+        return g.narrow(ctx.dim, world.model_rank * n, n).contiguous(), None, None
+
+
+def copy_to_model(x: torch.Tensor, world: World) -> torch.Tensor:
+    """x, whose gradient is summed over the model group in the backward."""
+    return _CopyToModel.apply(x, world)
+
+
+def gather_from_model(x: torch.Tensor, world: World, dim: int) -> torch.Tensor:
+    """The model ranks' x concatenated along `dim`; the gradient's slice of
+    this rank flows back."""
+    return _GatherFromModel.apply(x, world, dim)
+
+
+def split_to_model(x: torch.Tensor, world: World, dim: int) -> torch.Tensor:
+    """This rank's slice along `dim` of x, which every model rank holds
+    whole; x's gradient is whole on every rank."""
+    n = x.shape[dim] // world.model
+    return copy_to_model(x, world).narrow(dim, world.model_rank * n, n)
+
+
+def param_spec(name: str, tensor: torch.Tensor, min_size: int = 1 << 16) -> Optional[int]:
+    """The axis use_tpu's rule shards the parameter `name` on (0, the
+    output axis of the port's kernels), or None: a ``weight`` of ndim >= 2
+    with at least `min_size` elements, but a FIR conv's (``Conv2d_0``)."""
+    scope, _, leaf = name.rpartition(".")
+    if leaf != "weight" or scope.rpartition(".")[2] == "Conv2d_0":
+        return None
+    return 0 if tensor.dim() >= 2 and tensor.numel() >= min_size else None
+
+
+def params_shardings(module: nn.Module, mesh: World,
+                     min_size: int = 1 << 16) -> Dict[str, Optional[int]]:
+    """Parameter name -> the axis ``shard_params`` cuts it on, or None
+    (replicated, also where the output axis does not divide by the model
+    axis). Raises, naming the parameter, where the rule shards a parameter
+    of a module other than the NCSN++ family's ``layers.Conv2d`` and
+    ``layers.Linear`` (the int8 convs included)."""
+    from use_tpu_torch.models.ncsnpp import layers
+
+    out: Dict[str, Optional[int]] = {}
+    for mname, m in module.named_modules():
+        for pname, p in m.named_parameters(recurse=False):
+            name = f"{mname}.{pname}" if mname else pname
+            axis = param_spec(name, p, min_size)
+            if axis is not None and isinstance(m, nn.Embedding):
+                axis = None  # use_tpu's ``embedding``, not a kernel
+            if axis is not None and type(m) not in (layers.Conv2d, layers.Linear):
+                raise ValueError(
+                    f"shard_params: {name} ({type(m).__name__}, {tuple(p.shape)}) is a kernel "
+                    "that use_tpu's rule shards; the port shards the NCSN++ family's "
+                    "Conv2d and Linear only")
+            if axis is not None and p.shape[axis] % mesh.model:
+                axis = None
+            out[name] = axis
+    return out
+
+
+def shard_params(module: nn.Module, mesh: World,
+                 min_size: int = 1 << 16) -> Dict[str, Optional[int]]:
+    """Cut `module`'s parameters in place, from a full state: each model
+    rank keeps its output slice of every weight ``params_shardings`` shards
+    (a new Parameter; build the optimizer and the DDP wrapper after), and
+    the layer gathers its output. -> the shardings."""
+    plan = params_shardings(module, mesh, min_size)
+    if mesh.model == 1:
+        return plan
+    if mesh.model_group is None:
+        raise ValueError("shard_params needs the model group of make_mesh under a process group")
+    for name, axis in plan.items():
+        if axis is None:
+            continue
+        owner = module.get_submodule(name.rpartition(".")[0])
+        full = owner.weight.detach()
+        owner.weight = nn.Parameter(_slice(full, axis, mesh).clone(),
+                                    requires_grad=owner.weight.requires_grad)
+        owner.tp = mesh
+    return plan
+
+
+def _slice(x: torch.Tensor, axis: int, world: World) -> torch.Tensor:
+    n = x.shape[axis] // world.model
+    return x.narrow(axis, world.model_rank * n, n)
+
+
+def shard_state_dict(state_dict: Dict[str, torch.Tensor], plan: Dict[str, Optional[int]],
+                     mesh: World) -> Dict[str, torch.Tensor]:
+    """A full state dict cut to this rank's slices (``plan``: the shardings
+    of ``shard_params``), for a sharded module's ``load_state_dict``."""
+    return {k: _slice(v, plan[k], mesh).clone() if plan.get(k) is not None else v
+            for k, v in state_dict.items()}
+
+
+def sharded_parameters(module: nn.Module) -> Dict[str, nn.Parameter]:
+    """The parameters that hold a slice: the weights of the layers
+    ``shard_params`` cut."""
+    return {f"{n}.weight" if n else "weight": m.weight for n, m in module.named_modules()
+            if getattr(m, "tp", None) is not None}
+
+
+@torch.no_grad()
+def gather_state_dict(module: nn.Module, mesh: World) -> Dict[str, torch.Tensor]:
+    """`module`'s state dict with each slice gathered over the model group:
+    the full state, as np.asarray gives a sharded jax array whole, which
+    loads into an unsharded net bit for bit."""
+    out = module.state_dict()
+    for name, p in sharded_parameters(module).items():
+        out[name] = model_all_gather(p.detach(), 0, mesh.model_group.group_name, mesh.model)
+    return out
+
+
+@torch.no_grad()
+def average_replicated_grads(module: nn.Module, world: World) -> None:
+    """The gradients of the replicated parameters averaged over the model
+    group (one all-reduce), so that the replicas stay bit-identical where
+    a backward is not deterministic."""
+    sharded = {id(p) for p in sharded_parameters(module).values()}
+    grads = [p.grad for p in module.parameters() if p.grad is not None and id(p) not in sharded]
+    if not grads:
+        return
+    flat = _all_reduce(torch.cat([g.reshape(-1).float() for g in grads]), world) / world.model
+    i = 0
+    for g in grads:
+        g.copy_(flat[i:i + g.numel()].view_as(g))
+        i += g.numel()
+
+
+@torch.no_grad()
+def clip_grad_norm_(module: nn.Module, params: Iterable[nn.Parameter], max_norm: float,
+                    world: World) -> torch.Tensor:
+    """clip_grad_norm_ over the whole gradient: the squares of the slices
+    summed over the model group, the replicated parameters' counted once.
+    -> the global norm."""
+    sharded = {id(p) for p in sharded_parameters(module).values()}
+    params: List[nn.Parameter] = [p for p in params if p.grad is not None]
+
+    def squares(ps):
+        return torch.stack([p.grad.float().pow(2).sum() for p in ps]).sum() if ps else \
+            torch.zeros((), device=params[0].grad.device)
+
+    slices = _all_reduce(squares([p for p in params if id(p) in sharded]), world)
+    norm = (slices + squares([p for p in params if id(p) not in sharded])).sqrt()
+    torch.nn.utils.clip_grads_with_norm_(params, max_norm, norm)
+    return norm
