@@ -104,12 +104,13 @@ Phases, one line each (any failure raises and exits non-zero):
  13. gan_train_step: one full-width microbatch of the LSGAN recipe (the
      `ncsnpp` generator, fp32, remat conv_outs, net input [2, 512, 480, 2];
      the 24k_MVD bank on 76 640-sample clips): its D phase and G phase on
-     the card against the CPU on the same weights, batch and crop start
-     (the losses, and every D and G gradient within TRAIN_GRAD_REL_TOL of
-     its own tensor's largest value; the same microbatch with TF32 on is a
-     control that must exceed it), then gan_train_step with both Adam
-     steps: its exact launches (GAN_TRAIN_LAUNCHES, with remat and
-     without), seconds per microbatch and peak device memory;
+     the card against the CPU on the same weights, batch and crop start,
+     the crop cut to GAN_STEP_CHECK_FRAMES (the losses, and every D and G
+     gradient within TRAIN_GRAD_REL_TOL of its own tensor's largest value;
+     the same microbatch with TF32 on is a control that must exceed it),
+     then gan_train_step with both Adam steps: its exact launches
+     (GAN_TRAIN_LAUNCHES, with remat and without), seconds per microbatch
+     and peak device memory;
  14. train_lsgan: the CLI's `train experiment=LSGAN` (micro 2, the
      accumulation cut to 4: GAN_TRAIN_ARGS) on GAN_TRAIN_CLIPS synth_speech
      clips, one optimizer step: finite losses, a checkpoint of G and D, optimized_metric.json,
@@ -260,7 +261,21 @@ Phases, one line each (any failure raises and exits non-zero):
      the model ranks (torch.distributed.nn's all_gather) must exceed the
      gradient gate. The step's seconds beside the one-process step's, the
      bytes each rank gathered and all-reduced over its model group, each
-     rank's peak memory and K2's shapes.
+     rank's peak memory and K2's shapes. Then the same ranks take one
+     gan_train_step of the LSGAN recipe (full width, fp32, remat; the 24k_MVD
+     bank; the crop cut to TP_GAN_FRAMES) and one of CSMGAN (TP_CSMGAN_S
+     clips, the same bank), G and D cut, each after its summing control,
+     against the one-process unsharded step on the card over both clips
+     with the same starts (`tp_ranks_gan`, one line a task): the one
+     process takes the ranks' branch at each leaky ReLU and PReLU and their
+     mel spectrograms, and runs its G phase against the D the ranks stepped;
+     the losses within 1e-4 (the log terms 1e-3), every gathered G and D
+     gradient within TRAIN_GRAD_REL_TOL of its largest (CSMGAN:
+     TP_CSMGAN_GRAD_REL_TOL), the weights after both Adam steps as phase
+     34's (gradients above ADAM_SURE_FLOOR), replicas and slices
+     bit-identical (digests), launches exactly GAN_TRAIN_LAUNCHES["remat"]
+     (CSMGAN none) on every rank and in the one process, the control over
+     the gate.
 Each phase prints its seconds. Then a JSON line of the kernels, the card
 line, and the last line {"ok": true, "device": {...}}.
 """
@@ -318,6 +333,12 @@ SKIP_SHAPES = [  # (B, Ci, Co, H, W)
     # channels at model 2 (Co 128) and at model 4 (Co 64: half a channel tile)
     (1, 256, 128, 256, 64),
     (1, 256, 64, 256, 64),
+    # the LSGAN generator in phase 35 at TP_GAN_FRAMES, one clip a rank
+    # (Conv_2 256 -> 256 and 512 -> 256 sharded): Co 128 at model 2, and the
+    # up path at model 4 (Co 64)
+    (1, 256, 128, 512, 128),  # full resolution
+    (1, 512, 128, 256, 64),  # up path, level 1
+    (1, 512, 64, 256, 64),
 ]
 SKIP_RAGGED = (2, 36, 40, 5, 7)  # ragged Ci, Co and positions, scalar path: checked, not timed
 QCONV_SHAPES = [  # (B, C, O, H, W): int8 predict path, 8 lanes
@@ -339,7 +360,7 @@ BF16_SEEDS = (1, 2, 3)
 # BF16_SEEDS (<= 0.013) and the broken control's (0.023) on the H100 (PERF.md)
 BF16_REL_TOL = 0.017
 INT8_SEEDS = (1, 2)
-KERNEL_REPS = 100  # single-call timings a median of K1's and K2's times takes
+KERNEL_REPS = 50  # single-call timings a median of K1's and K2's times takes
 # int8 forward with K3 against the same forward with K3's plain version, on
 # the card, relative to max|plain|: both read exactly 0 on INT8_SEEDS, as do
 # two runs with K3, in fp32 and bf16 (PERF.md). Integer sums are exact, so
@@ -383,6 +404,9 @@ TRAIN_SHAPE = (2, 512, 512, 4)  # one microbatch of net input: batch 2, 512 bins
 # 13, 20 and 26: the CPU's is most of those phases' time); the timings run
 # the recipe's TRAIN_SHAPE[0] / GAN_TRAIN_SHAPE[0] / CSMGAN's batch
 CHECK_CLIPS = 1
+# the crop of phase 10's card-vs-CPU microbatch (the recipe's 512 frames stay
+# for the timings): the CPU's full-width step sets that phase's time
+TRAIN_CHECK_FRAMES = 256
 # a gradient on the card against the CPU's: within TRAIN_GRAD_REL_TOL of its
 # own tensor's largest value, every tensor but the attention's key biases,
 # whose gradient is zero in exact arithmetic (softmax ignores a shift that
@@ -420,6 +444,10 @@ GAN_TRAIN_LAUNCHES = {
 }
 # one optimizer step of the recipe's micro 2, its accumulation cut from 16
 # to 4 (the default run outgrew 1,200 s on a slow host)
+# the card-vs-CPU microbatch of phases 13 and 26 crops the generator's
+# input to this many frames (the recipe's 480 stay for the timings): the
+# CPU's full-width step sets those phases' time
+GAN_STEP_CHECK_FRAMES = 128
 GAN_TRAIN_CLIPS = 8
 GAN_TRAIN_ARGS = ("train.accumulate_grad_batches=4",)
 # the items of train_lsgan spliced to 3.5 s (the recipe's 6 s): still longer
@@ -452,7 +480,7 @@ STREAM_WARMUP, STREAM_CHUNKS = 5, 100  # chunks before the latency count, and co
 STREAM_CPU_CHUNKS = 20  # the first chunks of a stream the CPU streams too
 # one optimizer step of the recipe's micro 4, its accumulation cut from 8 to 2
 CSMGAN_TRAIN_CLIPS = 8
-CSMGAN_TRAIN_ARGS = ("train.accumulate_grad_batches=2",)
+CSMGAN_TRAIN_ARGS = ("train.accumulate_grad_batches=2", IN_PROCESS_LOADER)
 NO_LAUNCHES = {"channel_sums": 0, "gn_apply": 0, "fused_skip_add": 0, "qconv3x3_fused": 0}
 # every kernel wrapper (use_tpu_torch.ops.KERNEL_WRAPPERS); a launch table
 # leaves out the kernels a path launches no time (``launches`` fills them in)
@@ -565,6 +593,25 @@ DDP_BACKEND = "nccl"  # torchrun's ranks on CUDA
 TP_LAYOUT = (2, 2)
 TP_FRAMES = 128
 TP_GRAD_CLIP = 100.0
+# after the SGMSE step, the same ranks take one gan_train_step of the LSGAN
+# recipe (full width, fp32, remat; the 24k_MVD bank; one clip a data rank)
+# with the generator's crop cut from GAN_TRAIN_SHAPE's 480 frames to
+# TP_GAN_FRAMES, then one of CSMGAN (one whole clip of TP_CSMGAN_S a data
+# rank, the same bank from its initial weights), both nets cut
+TP_GAN_FRAMES = 128
+TP_CSMGAN_S = 1.0
+# a first Adam step is lr g / (|g| + eps), eps 1e-8: above 100 eps it is
+# lr sign(g) to within 1 %, so there a weight after the step follows the
+# gradient's sign only; below, its value, which the gradient gate holds
+# to TRAIN_GRAD_REL_TOL of its tensor's largest only
+ADAM_SURE_FLOOR = 1e-6
+# CSMGAN's sharded gradients against the one-process step's: its
+# cumulative 1-D norms (eps 1e-8) multiply rounding by up to 1e4 at frames
+# of almost no variance (tests/test_torch_csmgan.py), and the cut sums each
+# conv's products in another order; its first card reading was 2.18e-4
+# (a TCN PReLU slope, one scalar over 3M products). The summing control
+# must still exceed it
+TP_CSMGAN_GRAD_REL_TOL = 1e-3
 
 
 def phase(phase_name, **fields):
@@ -2218,8 +2265,9 @@ def _small_grads(want, rel, share):
 
 
 def train_step_phase(torch, dev):
-    """One full-width microbatch (CHECK_CLIPS clips of the recipe's crop)
-    through train_loss and backward on the CPU (plain versions) and on the
+    """One full-width microbatch (CHECK_CLIPS clips, the crop cut to
+    TRAIN_CHECK_FRAMES) through train_loss and backward on the CPU (plain
+    versions) and on the
     card (kernels), on the same weights, batch and draws: the loss within 1e-4 relative, every
     gradient within TRAIN_GRAD_REL_TOL of its own tensor's largest value
     (the attention's key biases, zero in exact arithmetic, below
@@ -2232,11 +2280,12 @@ def train_step_phase(torch, dev):
     from use_tpu_torch import ops
     from use_tpu_torch.engine.loop import build_train_state
 
-    cpu, cfg = _train_model(torch, "cpu")
+    cpu, cfg = _train_model(torch, "cpu", num_frames=TRAIN_CHECK_FRAMES)
     batch, draws = _train_batch(torch, cpu, CHECK_CLIPS)
     loss_cpu, cpu_s = _microbatch(torch, cpu, batch, draws)
     grads_cpu = {k: p.grad for k, p in cpu.score_net.named_parameters() if p.grad is not None}
     gpu, _ = _train_model(torch, dev)
+    recipe_frames, gpu.num_frames = gpu.num_frames, TRAIN_CHECK_FRAMES
     gpu.score_net.load_state_dict(cpu.score_net.state_dict())
     del cpu
     torch.cuda.empty_cache()
@@ -2266,6 +2315,7 @@ def train_step_phase(torch, dev):
     moved = sum(int(not torch.equal(before[k], p)) for k, p in gpu.score_net.named_parameters())
     finite = all(bool(torch.isfinite(p).all()) for p in gpu.score_net.parameters())
     del before, state
+    gpu.num_frames = recipe_frames
     batch, draws = _train_batch(torch, gpu, TRAIN_SHAPE[0])
     times = []
     for _ in range(3):
@@ -2283,7 +2333,7 @@ def train_step_phase(torch, dev):
     peak_no_remat = torch.cuda.max_memory_allocated(dev)
     no_remat_s = min(no_remat_s, _microbatch(torch, gpu, batch, draws)[1])
     phase("train_step", experiment=TRAIN_EXPERIMENT, shape=list(TRAIN_SHAPE),
-          check_clips=CHECK_CLIPS, dtype="float32",
+          check_clips=CHECK_CLIPS, check_frames=TRAIN_CHECK_FRAMES, dtype="float32",
           tf32=bool(torch.backends.cudnn.allow_tf32), remat_policy=net.cfg.remat_policy,
           loss=float(loss), loss_cpu=float(loss_cpu), loss_rel_err=loss_err,
           grad_tol=TRAIN_GRAD_REL_TOL, max_grad_rel_err=rel[worst_key], worst_grad=worst_key,
@@ -2613,6 +2663,11 @@ def _gan_model(torch, device, remat=True, discriminator=None):
     return _gan_to(torch, gan, device), cfg
 
 
+def _crop(generator, frames):
+    """The NCSN++ generator's training crop set to `frames` STFT frames."""
+    generator.num_frames, generator.target_len = frames, (frames - 1) * generator.hop_length
+
+
 def _gan_to(torch, gan, device):
     gan.generator.net.to(device)
     gan.generator.device = torch.device(device)
@@ -2756,7 +2811,8 @@ def _cpu_grads(gan):
 
 
 def gan_train_step_phase(torch, dev, discriminator=None):
-    """One full-width LSGAN microbatch (phase 13; CHECK_CLIPS clips): the D
+    """One full-width LSGAN microbatch (phase 13; CHECK_CLIPS clips, the crop
+    cut to GAN_STEP_CHECK_FRAMES): the D
     phase and the G phase (against the same D) on the card (kernels) and on
     the CPU (plain versions), on the same weights, batch and crop start, the CPU on the
     card's branch of every leaky ReLU of D (lrelu_branches: a pre-activation
@@ -2778,6 +2834,8 @@ def gan_train_step_phase(torch, dev, discriminator=None):
 
     label = "gan_train_step" if discriminator is None else "gan24k_train_step"
     cpu, cfg = _gan_model(torch, "cpu", discriminator=discriminator)
+    recipe_frames = cpu.generator.num_frames
+    _crop(cpu.generator, GAN_STEP_CHECK_FRAMES)
     batch, start = _gan_batch(torch, cpu, CHECK_CLIPS)
     gan = _gan_to(torch, copy.deepcopy(cpu), dev)
     key_biases = {f"G.{name}.NIN_1.b" for name, m in gan.generator.net.named_modules()
@@ -2812,6 +2870,7 @@ def gan_train_step_phase(torch, dev, discriminator=None):
     before = {k: p.detach().clone() for k, p in gan.generator.net.named_parameters()}
     before_d = {k: p.detach().clone() for k, p in gan.discriminator.named_parameters()}
     check_samples = int(batch["clean"].shape[-1])
+    _crop(gan.generator, recipe_frames)
     batch, start = _gan_batch(torch, gan, GAN_TRAIN_SHAPE[0])
     torch.cuda.reset_peak_memory_stats(dev)
     counts, step_s = _gan_step_launches(torch, gan, state, batch, start)
@@ -2841,7 +2900,8 @@ def gan_train_step_phase(torch, dev, discriminator=None):
     n_g, n_d = len(list(net.parameters())), len(list(gan.discriminator.parameters()))
     phase(label, experiment=GAN_EXPERIMENT, shape=list(GAN_TRAIN_SHAPE),
           discriminator=cfg["model"]["discriminator"],
-          check_clips=CHECK_CLIPS, clip_samples=check_samples, crop_start=start,
+          check_clips=CHECK_CLIPS, check_frames=GAN_STEP_CHECK_FRAMES,
+          clip_samples=check_samples, crop_start=start,
           dtype="float32",
           tf32=bool(torch.backends.cudnn.allow_tf32), remat_policy=net.cfg.remat_policy,
           loss_D=float(loss_d), loss_D_cpu=float(loss_d_cpu), logs=logs, logs_cpu=logs_cpu,
@@ -4589,6 +4649,8 @@ def tp_rank_worker(tmp, device):
 
     assert init_distributed("gloo")
     dev = torch.device(device)
+    # the four ranks share the host's cores (their models are built on the CPU)
+    torch.set_num_threads(max(1, (os.cpu_count() or 4) // (TP_LAYOUT[0] * TP_LAYOUT[1])))
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
     world = make_mesh(*TP_LAYOUT)
     model, cfg = _train_model(torch, dev, num_frames=TP_FRAMES)
@@ -4655,8 +4717,169 @@ def tp_rank_worker(tmp, device):
                 res["weights"] = {k: v.to("cpu", copy=True) for k, v in weights.items()}
         out[run] = res
         del grads, seen
+    del model, net, state, ddp, init
+    torch.cuda.empty_cache()
+    out.update(_tp_gan_worker(torch, dev, world, out["rank"] == 0))
     torch.save(out, os.path.join(tmp, f"rank{out['rank']}.pt"))
     dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def _recorded_branches(torch):
+    """Each leaky ReLU of the discriminators and each PReLU, in call order:
+    their branches (x > 0), and each mel spectrogram the mel bank takes,
+    kept on the device (a copy to the host would sit inside the timed
+    step). -> {"lrelu": [...], "prelu": [...], "mel": [...]}."""
+    import torch.nn.functional as F
+
+    from use_tpu_torch.models.gan import discriminators as disc
+
+    real_lrelu, real_prelu, real_mel = disc._lrelu, F.prelu, disc.melspectrogram
+    rec = {"lrelu": [], "prelu": [], "mel": []}
+
+    def lrelu(x):
+        rec["lrelu"].append(x > 0)
+        return real_lrelu(x)
+
+    def prelu(x, weight):
+        rec["prelu"].append(x > 0)
+        return real_prelu(x, weight)
+
+    def melspectrogram(x, cfg):
+        m = real_mel(x, cfg)
+        rec["mel"].append(m.detach().clone())
+        return m
+
+    disc._lrelu, F.prelu, disc.melspectrogram = lrelu, prelu, melspectrogram
+    try:
+        yield rec
+    finally:
+        disc._lrelu, F.prelu, disc.melspectrogram = real_lrelu, real_prelu, real_mel
+
+
+def _digest(t):
+    import hashlib
+
+    return hashlib.sha256(t.detach().cpu().numpy().tobytes()).hexdigest()
+
+
+def _tp_gan_runs(torch, dev, world, gan, tc, local, start, runs, rank0):
+    """gan_train_step of `gan` (both nets cut) on this rank's rows `local`
+    through DDP over the data group, once for each of `runs` ("summing":
+    the control, "step"), each from the same weights. -> {run: the losses,
+    seconds, launches, bytes over the model group and peak memory; rank 0
+    the applied gradients gathered whole; "step": each parameter's digest,
+    model rank 0 the branches of its leaky ReLUs and PReLUs and its mel
+    spectrograms, rank 0 the weights after the steps gathered whole}."""
+    import torch.distributed as dist
+
+    from use_tpu_torch import ops
+    from use_tpu_torch.engine.loop import build_gan_train_state, distribute
+    from use_tpu_torch.engine.train import gan_train_step
+    from use_tpu_torch.parallel import sharding
+
+    nets = {"G": gan.generator.net, "D": gan.discriminator}
+    init = {k: {n: v.clone() for n, v in net.state_dict().items()} for k, net in nets.items()}
+    sliced = {k: set(sharding.sharded_parameters(net)) for k, net in nets.items()}
+    group = world.model_group.group_name
+    out, ddps = {"sharded": {k: sorted(v) for k, v in sliced.items()}}, None
+    for run in runs:
+        for k, net in nets.items():
+            net.load_state_dict(init[k])
+        state = build_gan_train_state(gan, tc["g_lr"], tc["d_lr"], tc["weight_decay"])
+        states = {"G": state.g, "D": state.d}
+        if ddps is None:
+            distribute(state.g, world, dev,
+                       getattr(gan.generator, "ddp_find_unused_parameters", False))
+            distribute(state.d, world, dev)
+            ddps = {k: st.ddp for k, st in states.items()}
+        for k, st in states.items():
+            st.world, st.ddp = world, ddps[k]
+        seen = {}
+        for k, st in states.items():
+            real = st.optimizer.step
+
+            def step(*a, k=k, st=st, real=real, **kw):
+                seen[k] = {n: p.grad.detach().clone() for n, p in st.model.named_parameters()
+                           if p.grad is not None}
+                return real(*a, **kw)
+
+            st.optimizer.step = step
+        ops.reset_launch_counts()
+        for k in sharding.model_bytes:
+            sharding.model_bytes[k] = 0
+        torch.cuda.reset_peak_memory_stats(dev)
+        dist.barrier()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        with summing_gather_backward() if run == "summing" else contextlib.nullcontext(), \
+                _recorded_branches(torch) as branches:
+            metrics = gan_train_step(gan, state, [local], starts=[start])
+        torch.cuda.synchronize(dev)
+        res = {"step_s": time.perf_counter() - t0,
+               "metrics": {k: float(v) for k, v in metrics.items()},
+               "launches": ops.launch_counts(), "bytes": dict(sharding.model_bytes),
+               "peak_bytes": torch.cuda.max_memory_allocated(dev)}
+        grads = {k: {n: sharding.model_all_gather(g, 0, group, world.model) if n in sliced[k]
+                     else g for n, g in seen[k].items()} for k in nets}
+        if run == "step":
+            res["digests"] = {k: {n: _digest(p) for n, p in net.named_parameters()}
+                              for k, net in nets.items()}
+            weights = {k: sharding.gather_state_dict(net, world) for k, net in nets.items()}
+            if world.model_rank == 0:
+                res["branches"] = {k: [m.cpu() for m in v] for k, v in branches.items()}
+            if rank0:
+                res["weights"] = {k: {n: v.to("cpu", copy=True) for n, v in w.items()}
+                                  for k, w in weights.items()}
+        if rank0:
+            res["grads"] = {k: {n: g.cpu() for n, g in v.items()} for k, v in grads.items()}
+        out[run] = res
+        del grads, seen, branches
+    for k, net in nets.items():
+        net.load_state_dict(init[k])
+    return out
+
+
+def _tp_csmgan(torch, dev, discriminator):
+    """The CSMGAN recipe on the card with `discriminator` (the LSGAN
+    recipe's bank, so that one bank serves both tasks in phase 35)."""
+    from use_tpu_torch.cli.main import _build_model
+    from use_tpu_torch.config.config import load_config
+
+    cfg = load_config(CSMGAN_EXPERIMENT)
+    gan = _build_model(cfg, str(dev))
+    gan.discriminator = discriminator
+    return gan, cfg
+
+
+def _tp_gan_worker(torch, dev, world, rank0):
+    """tp_rank_worker's GAN tasks, each the summing control (the warm-up)
+    then the step: the LSGAN recipe at TP_GAN_FRAMES and CSMGAN on
+    TP_CSMGAN_S clips, G and D cut (shard_params), this rank's data
+    index's clip."""
+    from use_tpu_torch.parallel import sharding
+    from use_tpu_torch.parallel.mesh import local_rows
+
+    gan, cfg = _gan_model(torch, dev)
+    gen = gan.generator
+    _crop(gen, TP_GAN_FRAMES)
+    for net in (gen.net, gan.discriminator):
+        sharding.shard_params(net, world)
+    batch, start = _gan_batch(torch, gan, TP_LAYOUT[0])
+    local = {k: local_rows(v, world).to(dev) for k, v in batch.items()}
+    out = {"lsgan": _tp_gan_runs(torch, dev, world, gan, cfg["train"], local, start,
+                                 ("summing", "step"), rank0)}
+    d = gan.discriminator
+    del gan, gen
+    torch.cuda.empty_cache()
+    csm, ccfg = _tp_csmgan(torch, dev, d)
+    sharding.shard_params(csm.generator.net, world)
+    clean, noisy = _csmgan_pairs(TP_LAYOUT[0], TP_CSMGAN_S)
+    local = {k: local_rows(torch.from_numpy(v), world).to(dev)
+             for k, v in (("clean", clean), ("perturbed", noisy))}
+    out["csmgan"] = _tp_gan_runs(torch, dev, world, csm, ccfg["train"], local, 0,
+                                 ("summing", "step"), rank0)
+    return out
 
 
 def tp_ranks_phase(torch, dev):
@@ -4671,6 +4894,7 @@ def tp_ranks_phase(torch, dev):
     from use_tpu_torch.engine.train import sgmse_train_step
 
     n = TP_LAYOUT[0] * TP_LAYOUT[1]
+    t_ranks = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as tmp:
         port = _free_port()
         procs = []
@@ -4687,6 +4911,7 @@ def tp_ranks_phase(torch, dev):
                 log[-4000:] for log in logs))
         ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
                  for r in range(n)]
+    ranks_s = time.perf_counter() - t_ranks
     model, cfg = _train_model(torch, dev, num_frames=TP_FRAMES)
     batch, draws = _train_batch(torch, model, TP_LAYOUT[0])
     batch = {k: v.to(dev) for k, v in batch.items()}
@@ -4768,6 +4993,7 @@ def tp_ranks_phase(torch, dev):
           step_seconds=[s["step_s"] for s in steps],
           first_step_seconds=[r["summing"]["step_s"] for r in ranks],
           one_process_step_seconds=one_s[1], one_process_first_step_seconds=one_s[0],
+          ranks_wall_seconds=ranks_s,
           model_group_bytes=[s["bytes"] for s in steps],
           peak_memory_bytes=[s["peak_bytes"] for s in steps], k2_shapes=ranks[0]["k2_shapes"])
     if not (replicas_equal and slices_equal):
@@ -4784,9 +5010,217 @@ def tp_ranks_phase(torch, dev):
                              f"{step_off} lr (any)")
     if report["summing"]["max_grad_rel_err"] <= TRAIN_GRAD_REL_TOL:
         raise AssertionError(f"tp_ranks: the summing-backward control passed: {report}")
-    del model, state, seen, ranks, steps
+    del model, state, seen, steps
     torch.cuda.empty_cache()
+    _tp_gan_check(torch, dev, ranks, smi)
     return launches[0]
+
+
+def _tp_gan_reference(torch, dev, gan, tc, batch, start, ranks, task):
+    """The one-process unsharded gan_train_step of `task` on the card over
+    both data ranks' clips, twice from the same weights: "warm" (timed),
+    then "check": each leaky ReLU and PReLU on the branch the ranks took
+    and each mel spectrogram of the mel bank at the ranks' values (the
+    model rank 0 of each data index recorded its clip's: a pre-activation
+    within rounding of 0, or a near-null mel bin under log(mel + 1e-5),
+    reads the rounding of the convs that the cut splits otherwise), and
+    the G phase against the D the ranks stepped (their gathered weights
+    loaded after this process's own D step, which is kept for the weight
+    gate).
+    -> the losses, applied gradients (D. / G.), weights after the steps,
+    own D step, launches, seconds and the replays' flips."""
+    from use_tpu_torch import ops
+    from use_tpu_torch.engine.loop import build_gan_train_state
+    from use_tpu_torch.engine.train import gan_train_step
+
+    nets = {"G": gan.generator.net, "D": gan.discriminator}
+    init = {k: {n: v.clone() for n, v in net.state_dict().items()} for k, net in nets.items()}
+    heads = [ranks[d * TP_LAYOUT[1]][task]["step"]["branches"] for d in range(TP_LAYOUT[0])]
+    replay = {k: [torch.cat(ms) for ms in zip(*(h[k] for h in heads))] for k in heads[0]}
+    ranks_d = ranks[0][task]["step"]["weights"]["D"]
+    mb = {k: v.to(dev) for k, v in batch.items()}
+    out = {"seconds": {}}
+    for run in ("warm", "check"):
+        for k, net in nets.items():
+            net.load_state_dict(init[k])
+        state = build_gan_train_state(gan, tc["g_lr"], tc["d_lr"], tc["weight_decay"])
+        seen, own_d = {}, {}
+        for k, st in (("G", state.g), ("D", state.d)):
+            real = st.optimizer.step
+
+            def step(*a, k=k, st=st, real=real, **kw):
+                seen.update({f"{k}.{n}": p.grad.detach().cpu().clone()
+                             for n, p in st.model.named_parameters() if p.grad is not None})
+                return real(*a, **kw)
+
+            st.optimizer.step = step
+        real_apply = state.d.apply_gradients
+
+        def apply_d(run=run, real_apply=real_apply):
+            real_apply()
+            own_d.update({n: p.detach().cpu().clone()
+                          for n, p in gan.discriminator.named_parameters()})
+            if run == "check":
+                with torch.no_grad():
+                    for n, p in gan.discriminator.named_parameters():
+                        p.copy_(ranks_d[n].to(dev))
+
+        state.d.apply_gradients = apply_d
+        ops.reset_launch_counts()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        with contextlib.ExitStack() as replays:
+            if run == "check":
+                lrelus = replays.enter_context(lrelu_branches(torch, replay["lrelu"]))
+                prelus = replays.enter_context(prelu_branches(torch, replay["prelu"]))
+                replays.enter_context(mel_inputs(torch, replay["mel"]))
+            metrics = gan_train_step(gan, state, [mb], starts=[start])
+        torch.cuda.synchronize(dev)
+        out["seconds"][run] = time.perf_counter() - t0
+    out.update(metrics={k: float(v) for k, v in metrics.items()}, grads=seen, own_d=own_d,
+               weights={k: {n: p.detach().cpu().clone() for n, p in net.named_parameters()}
+                        for k, net in nets.items()},
+               launches=ops.launch_counts(),
+               flips={"lrelu": [lrelus["flips"], lrelus["elements"]],
+                      "prelu": [prelus["flips"], prelus["elements"]]})
+    for k, net in nets.items():
+        net.load_state_dict(init[k])
+    return out
+
+
+def _weights_off(got, want, grads, lr, prefix, skip=()):
+    """(the largest |difference| where the gradient is sure, less 1e-5 of
+    the weight; the largest in lr; the names of both) of the weights `got`
+    against `want`, as phase 34's gate reads them, a gradient being sure
+    where it is also above ADAM_SURE_FLOOR; the gradients named in `skip`
+    (the attention's key biases, 0 up to rounding) are never sure."""
+    sure_off = step_off = 0.0
+    worst = [None, None]
+    for n, w in want.items():
+        diff = (got[n] - w).abs()
+        if float(diff.max()) / lr > step_off:
+            step_off, worst[1] = float(diff.max()) / lr, n
+        g = grads.get(f"{prefix}.{n}")
+        if g is None or f"{prefix}.{n}" in skip:
+            continue
+        sure = (g.abs() > 2 * TRAIN_GRAD_REL_TOL * float(g.abs().max())) & \
+            (g.abs() > ADAM_SURE_FLOOR)
+        if bool(sure.any()):
+            off = float((diff[sure] - 1e-5 * w.abs()[sure]).max())
+            if off > sure_off:
+                sure_off, worst[0] = off, n
+    return sure_off, step_off, worst
+
+
+def _tp_gan_task(torch, dev, ranks, task, gan, tc, batch, start, key_biases, want_launches, smi):
+    """Phase 35's gates on one GAN task: the ranks' step against the
+    one-process reference (_tp_gan_reference); prints the task's line.
+    -> the failures."""
+    t0 = time.perf_counter()
+    ref = _tp_gan_reference(torch, dev, gan, tc, batch, start, ranks, task)
+    ref_s = time.perf_counter() - t0
+    res = [r[task] for r in ranks]
+    step = res[0]["step"]
+    got = {f"{k}.{n}": g for k, v in step["grads"].items() for n, g in v.items()}
+    rel, key_bias = _gan_grad_errors(got, ref["grads"], key_biases)
+    worst = max(rel, key=rel.get)
+    failed = []
+    loss_errs = {k: abs(v - ref["metrics"][k]) / max(abs(ref["metrics"][k]), 1e-30)
+                 for k, v in step["metrics"].items()}
+    for k, e in loss_errs.items():
+        tol = 1e-3 if k in ("loss_G", "loss_G_mag_log", "loss_G_mel_log") else 1e-4
+        if not e <= tol:
+            failed.append(f"{k} off by {e} (tol {tol})")
+    if any(r["step"]["metrics"] != step["metrics"] for r in res):
+        failed.append("the ranks report different losses")
+    tol = TRAIN_GRAD_REL_TOL if task == "lsgan" else TP_CSMGAN_GRAD_REL_TOL
+    if not rel[worst] <= tol:
+        failed.append(f"gradient {worst} off by {rel[worst]} (tol {tol})")
+    if key_bias and not max(max(v) for v in key_bias.values()) <= KEY_BIAS_GRAD_FLOOR:
+        failed.append(f"attention key-bias gradients {key_bias}")
+    t = {"G": tc["g_lr"], "D": tc["d_lr"]}
+    off = {"D": _weights_off(step["weights"]["D"], ref["own_d"], ref["grads"], t["D"], "D"),
+           "G": _weights_off(step["weights"]["G"], ref["weights"]["G"], ref["grads"], t["G"], "G",
+                             key_biases)}
+    for k, (sure_off, step_off, _) in off.items():
+        if not (sure_off <= 1e-7 and step_off <= 2 * (1 + 1e-5)):
+            failed.append(f"{k} weights off by {sure_off} (sure gradients), {step_off} lr (any)")
+    # replicas within each model group, everything within each data group
+    n, m = len(ranks), TP_LAYOUT[1]
+    digests = [r["step"]["digests"] for r in res]
+    replicas_equal = slices_equal = True
+    for k in ("G", "D"):
+        cut = set(res[0]["sharded"][k])
+        for d in range(TP_LAYOUT[0]):
+            for r in range(d * m + 1, (d + 1) * m):
+                replicas_equal &= all(digests[r][k][p] == digests[d * m][k][p]
+                                      for p in digests[0][k] if p not in cut)
+        for j in range(m):
+            slices_equal &= all(digests[r][k] == digests[j][k] for r in range(j, n, m))
+    if not (replicas_equal and slices_equal):
+        failed.append(f"replicas equal {replicas_equal}, slices equal {slices_equal}")
+    want = all_kernels(want_launches)
+    launches = [all_kernels(r["step"]["launches"]) for r in res]
+    if any(lc != want for lc in launches) or all_kernels(ref["launches"]) != want:
+        failed.append(f"launches {launches} (one process {ref['launches']}), want {want}")
+    control = None
+    if "summing" in res[0]:
+        got = {f"{k}.{n}": g for k, v in res[0]["summing"]["grads"].items()
+               for n, g in v.items()}
+        crel, _ = _gan_grad_errors(got, ref["grads"], key_biases)
+        cworst = max(crel, key=crel.get)
+        control = {"max_grad_rel_err": crel[cworst], "worst_grad": cworst}
+        if crel[cworst] <= tol:
+            failed.append(f"the summing-backward control passed: {control}")
+    phase("tp_ranks_gan", task=task, layout={"data": TP_LAYOUT[0], "model": TP_LAYOUT[1]},
+          backend="gloo", nvidia_smi=smi, clips_a_data_rank=1,
+          samples=int(batch["clean"].shape[-1]), crop_start=start,
+          frames=TP_GAN_FRAMES if task == "lsgan" else None,
+          sharded_weights={k: len(v) for k, v in res[0]["sharded"].items()},
+          losses=step["metrics"], losses_one_process=ref["metrics"], loss_rel_errs=loss_errs,
+          grad_tol=tol, max_grad_rel_err=rel[worst], worst_grad=worst,
+          median_grad_rel_err=float(np.median(list(rel.values()))), grads_checked=len(rel),
+          worst_grads=dict(sorted(rel.items(), key=lambda kv: -kv[1])[:6]),
+          key_bias_grads_over_top=key_bias, summing_control=control,
+          weights_off={k: {"sure": v[0], "step_over_lr": v[1], "worst": v[2]}
+                       for k, v in off.items()},
+          replay_flips=ref["flips"], replicas_bit_identical=replicas_equal,
+          slices_bit_identical=slices_equal, launches=launches,
+          one_process_launches=all_kernels(ref["launches"]),
+          step_seconds=[r["step"]["step_s"] for r in res],
+          first_step_seconds=[r["summing"]["step_s"] for r in res] if control else None,
+          one_process_step_seconds=ref["seconds"]["warm"],
+          one_process_replayed_step_seconds=ref["seconds"]["check"], reference_seconds=ref_s,
+          model_group_bytes=[r["step"]["bytes"] for r in res],
+          peak_memory_bytes=[r["step"]["peak_bytes"] for r in res])
+    return [f"tp_ranks {task}: {f}" for f in failed]
+
+
+def _tp_gan_check(torch, dev, ranks, smi):
+    """Phase 35's GAN tasks against the one-process unsharded steps on the
+    card: the LSGAN recipe at TP_GAN_FRAMES, then CSMGAN on the same bank
+    from its initial weights (its gradients held to
+    TP_CSMGAN_GRAD_REL_TOL)."""
+    gan, cfg = _gan_model(torch, dev)
+    gen = gan.generator
+    _crop(gen, TP_GAN_FRAMES)
+    batch, start = _gan_batch(torch, gan, TP_LAYOUT[0])
+    key_biases = {f"G.{name}.NIN_1.b" for name, m in gen.net.named_modules()
+                  if type(m).__name__ == "AttnBlockpp"}
+    failed = _tp_gan_task(torch, dev, ranks, "lsgan", gan, cfg["train"], batch, start,
+                          key_biases, GAN_TRAIN_LAUNCHES["remat"], smi)
+    d = gan.discriminator
+    del gan, gen
+    torch.cuda.empty_cache()
+    csm, ccfg = _tp_csmgan(torch, dev, d)
+    clean, noisy = _csmgan_pairs(TP_LAYOUT[0], TP_CSMGAN_S)
+    batch = {"clean": torch.from_numpy(clean), "perturbed": torch.from_numpy(noisy)}
+    failed += _tp_gan_task(torch, dev, ranks, "csmgan", csm, ccfg["train"], batch, 0, set(),
+                           NO_LAUNCHES, smi)
+    del csm, d, ranks
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError("; ".join(failed))
 
 
 if __name__ == "__main__":

@@ -15,6 +15,22 @@ gathered state before the step (the round trip), the gradient the
 optimizer applied (after the clip) and the parameters after the step,
 both gathered whole, the reported loss, and this rank's own parameters
 (the replicas' and slices' bit-equality across ranks).
+
+tests/test_torch_sharding_gan.py's spec gives each case a ``kind``:
+
+- ``gan``: LSGAN with the NCSN++ generator and the period + mel bank of
+  tests/test_torch_gan_train.py, both nets cut, use_tpu's G and D params
+  loaded (``ncsnpp_params_to_shards``, ``discriminator_params_to_shards``),
+  one gan_train_step on the given crop start (optionally with a grad clip
+  on both optimizers): the losses, each network's applied gradient and its
+  parameters after the step gathered whole, the gathered state before the
+  step, this rank's own parameters;
+- ``csmgan``: the same with a tiny CSMGAN generator
+  (``csmgan_params_to_shards``) and the period bank alone;
+- ``wave``: use_tpu's 24 kHz WaveDiscriminator cut, its logits, feature
+  maps and the input's gradient of their sum;
+- ``grouped``: a grouped Conv1d whose group count the model axis does not
+  divide, cut: its output and the input's and weight's gradients.
 """
 import contextlib
 import sys
@@ -72,6 +88,127 @@ def step_case(spec, case, world):
     return out
 
 
+class PeriodBank(torch.nn.Module):
+    """The period discriminators at 2 and 3 (the D of
+    tests/test_torch_csmgan.py)."""
+
+    def __init__(self):
+        super().__init__()
+        from use_tpu_torch.models.gan import discriminators as tdisc
+
+        period = dict(channels=8, max_downsample_channels=32)
+        self.period2 = tdisc.PeriodDiscriminator(period=2, **period)
+        self.period3 = tdisc.PeriodDiscriminator(period=3, **period)
+
+    def forward(self, x):
+        per = [self.period2(x), self.period3(x)]
+        return [[o[0] for o in per]], [[o[1] for o in per]]
+
+
+def _t(batch):
+    import numpy as np
+
+    return {k: torch.from_numpy(np.asarray(v)) for k, v in batch.items()}
+
+
+def gan_case(spec, case, world):
+    """One sharded gan_train_step of LSGAN (``gan``) or CSMGAN (``csmgan``)."""
+    from use_tpu_torch.engine import convert_jax
+    from use_tpu_torch.engine.loop import build_gan_train_state, distribute
+    from use_tpu_torch.engine.train import gan_train_step
+    from use_tpu_torch.models.gan.lsgan import LSGAN
+    from use_tpu_torch.parallel import sharding
+    from use_tpu_torch.parallel.mesh import local_rows
+
+    spec = {**spec, **case}
+    if case["kind"] == "gan":
+        from tests.helpers.torch_ddp_worker import TinyD
+        from use_tpu_torch.models.gan.generator import NCSNPPWrapper
+
+        gen, d = NCSNPPWrapper(**spec["generator"], device="cpu"), TinyD()
+        to_shards = convert_jax.ncsnpp_params_to_shards
+    else:
+        from use_tpu_torch.models.gan.csmgan import CSMGANWrapper
+
+        gen, d = CSMGANWrapper(**spec["generator"], device="cpu"), PeriodBank()
+        to_shards = convert_jax.csmgan_params_to_shards
+    nets = {"g": gen.net, "d": d}
+    plans = {k: sharding.shard_params(net, world, spec["min_size"]) for k, net in nets.items()}
+    gen.net.load_state_dict(to_shards(spec["g_params"], plans["g"], world))
+    d.load_state_dict(convert_jax.discriminator_params_to_shards(spec["d_params"], plans["d"],
+                                                                 world))
+    out = {"plans": plans, "sharded": {k: sorted(sharding.sharded_parameters(net))
+                                       for k, net in nets.items()},
+           "gathered_before": {k: {n: v.clone() for n, v in
+                                   sharding.gather_state_dict(net, world).items()}
+                               for k, net in nets.items()}}
+    gan = LSGAN(generator=gen, discriminator=d, g_loss_cfg=dict(spec["g_loss"]))
+    state = build_gan_train_state(gan, spec["g_lr"], spec["d_lr"], spec["weight_decay"])
+    distribute(state.g, world, torch.device("cpu"),
+               getattr(gen, "ddp_find_unused_parameters", False))
+    distribute(state.d, world, torch.device("cpu"))
+    grads = {}
+    for name in ("g", "d"):
+        st = getattr(state, name)
+        st.grad_clip = case.get("grad_clip")
+        real = st.optimizer.step
+
+        def step(*a, name=name, st=st, real=real, **kw):
+            grads[name] = _gathered(st.model, {k: p.grad.clone() for k, p in
+                                               st.model.named_parameters()
+                                               if p.grad is not None}, world)
+            return real(*a, **kw)
+
+        st.optimizer.step = step
+    rows = {k: local_rows(v, world) for k, v in _t(spec["batch"]).items()}
+    metrics = gan_train_step(gan, state, [rows], starts=spec.get("starts"))
+    out.update(metrics={k: float(v) for k, v in metrics.items()}, grads=grads,
+               params={k: sharding.gather_state_dict(net, world) for k, net in nets.items()},
+               local={k: {n: p.detach().clone() for n, p in net.named_parameters()}
+                      for k, net in nets.items()})
+    return out
+
+
+class _Owner(torch.nn.Module):
+    """One conv in a net whose plain convs may be cut."""
+
+    shards_plain_convs = True
+
+    def __init__(self, conv):
+        super().__init__()
+        self.conv = conv
+
+    def forward(self, x):
+        return self.conv(x)
+
+
+def wave_case(spec, case, world):
+    """use_tpu's WaveDiscriminator (or a grouped conv) cut, forward and the
+    input's gradient of the sum of every output."""
+    from use_tpu_torch.engine.convert_jax import discriminator_params_to_shards
+    from use_tpu_torch.models.gan import discriminators as tdisc
+    from use_tpu_torch.parallel import sharding
+
+    if case["kind"] == "wave":
+        net = tdisc.WaveDiscriminator(sample_rate=24000)
+    else:
+        net = _Owner(torch.nn.Conv1d(*case["conv"], groups=case["groups"]))
+    plan = sharding.shard_params(net, world, case["min_size"])
+    net.load_state_dict(discriminator_params_to_shards(case["params"], plan, world))
+    x = torch.from_numpy(case["x"]).requires_grad_(True)
+    y = net(x)
+    flat = [y] if torch.is_tensor(y) else [y[0]] + list(y[1])
+    sum(v.sum() for v in flat).backward()
+    grads = {k: p.grad.clone() for k, p in net.named_parameters()}
+    return {"outputs": [v.detach() for v in flat], "x_grad": x.grad.clone(),
+            "grads": _gathered(net, grads, world), "sharded": sorted(
+                sharding.sharded_parameters(net)),
+            "classes": sorted({type(m).__name__ for m in net.modules()})}
+
+
+KINDS = {"gan": gan_case, "csmgan": gan_case, "wave": wave_case, "grouped": wave_case}
+
+
 def main(spec_path, out_path):
     torch.set_num_threads(1)
     from use_tpu_torch.parallel.mesh import init_distributed, make_mesh
@@ -82,7 +219,8 @@ def main(spec_path, out_path):
     out = {"rank": torch.distributed.get_rank(), "data_rank": world.rank,
            "model_rank": world.model_rank, "shape": world.shape}
     for case in spec["cases"]:
-        out[case["name"]] = step_case(spec, case, world)
+        run = KINDS.get(case.get("kind"), step_case)
+        out[case["name"]] = run(spec, case, world)
     torch.save(out, out_path)
     torch.distributed.destroy_process_group()
 

@@ -22,8 +22,8 @@ parallel/sharding.py and mesh, on the CPU.
   as torch.distributed.nn's all_gather does, fails these gates; shard
   then gather is bit-equal, and the gathered state serves from an
   unsharded net.
-- Refusals: shard_params raises, naming the parameter, on a discriminator
-  and on the int8 nets.
+- Refusals: shard_params raises, naming the parameter, on HiFi-GAN's
+  generator, ConvTasNet, a transposed conv and the int8 nets.
 """
 import os
 import socket
@@ -49,7 +49,6 @@ from use_tpu.models.sgmse.score_model import ScoreModel as JScoreModel
 from use_tpu.parallel import mesh as jmesh
 from use_tpu.parallel import sharding as jsharding
 from use_tpu_torch.engine.convert_jax import ncsnpp_params_to_state_dict
-from use_tpu_torch.models.gan import discriminators as tdisc
 from use_tpu_torch.models.ncsnpp import layers as tlayers
 from use_tpu_torch.models.registry import BackboneRegistry
 from use_tpu_torch.models.sgmse.score_model import ScoreModel as TScoreModel
@@ -353,17 +352,37 @@ def test_shard_then_gather_round_trips_and_serves(tp_run):
         assert torch.equal(nets[0](x, t), nets[1](x, t))
 
 
-@pytest.mark.parametrize("build", ["discriminator", "int8", "int8_pallas"])
+class _TransposedOwner(torch.nn.Module):
+    """A transposed conv in a net whose plain convs may be cut."""
+
+    shards_plain_convs = True
+
+    def __init__(self):
+        super().__init__()
+        self.up = torch.nn.ConvTranspose1d(64, 64, 16, stride=8)
+
+
+@pytest.mark.parametrize("build", ["hifigan_generator", "conv_transpose", "convtasnet", "int8",
+                                   "int8_pallas"])
 def test_shard_params_refuses_what_the_port_cannot_shard(build):
     """The rule shards a kernel of these nets; the port raises, naming it,
-    and never replicates quietly."""
+    and never replicates quietly: HiFi-GAN's generator and ConvTasNet (not
+    nets whose plain convs it cuts), a transposed conv (its output axis is
+    dim 1) even in such a net, and the int8 nets."""
     mesh = tmesh.make_mesh(model=2, world=4)
-    if build == "discriminator":
-        net = tdisc.MelspecDiscriminator(n_fft=256, win_length=240, hop_length=60, n_mels=64)
-        min_size = 1 << 8
+    kind = r"\S+"
+    if build in ("hifigan_generator", "convtasnet"):
+        from use_tpu_torch.models.convtasnet import ConvTasNet
+        from use_tpu_torch.models.gan.hifigan_vocoder import HifiganGenerator
+
+        with torch.device("meta"):
+            net = HifiganGenerator() if build == "hifigan_generator" else ConvTasNet()
+        min_size = 1 << 16
+    elif build == "conv_transpose":
+        net, min_size, kind = _TransposedOwner(), 1 << 10, r"ConvTranspose1d"
     else:
         net = BackboneRegistry.get_by_name("ncsnpp")(nf=16, ch_mult=(1, 2), quant=build,
                                                      quant_min_channels=16)
         min_size = 1 << 10
-    with pytest.raises(ValueError, match=r"shard_params: \S+\.weight"):
+    with pytest.raises(ValueError, match=rf"shard_params: \S+\.weight \({kind}, "):
         tsharding.shard_params(net, mesh, min_size)

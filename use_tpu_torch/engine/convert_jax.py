@@ -16,7 +16,10 @@ flax->torch transpositions:
                                    are Conv_0 like any other)
 
 A net sharded over a model axis loads ``ncsnpp_params_to_shards``: the
-state_dict cut to the rank's output slices (parallel/sharding.py).
+state_dict cut to the rank's output slices (parallel/sharding.py); the
+discriminator banks ``discriminator_params_to_shards`` and CSMGAN
+``csmgan_params_to_shards`` (cut in the port's own channel order:
+models/gan/csmgan.py).
 
 The LSGAN generator's backbone is the same NCSN++ in discriminative mode:
 ``lsgan_params_to_state_dict`` maps use_tpu's generator params onto
@@ -139,15 +142,21 @@ def ncsnpp_params_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Te
     return out
 
 
+def _shards(state_dict: Dict[str, torch.Tensor], plan: Mapping[str, Any],
+            world) -> Dict[str, torch.Tensor]:
+    from use_tpu_torch.parallel.sharding import shard_state_dict
+
+    return shard_state_dict(state_dict, dict(plan), world)
+
+
 def ncsnpp_params_to_shards(params: Mapping[str, Any], plan: Mapping[str, Any],
                             world) -> Dict[str, torch.Tensor]:
     """Flax NCSNpp params -> this model rank's state_dict of a net that
     ``parallel/sharding.shard_params`` cut (`plan`, its shardings, over
     `world`'s model axis): each sharded weight's output slice, as use_tpu's
-    ``shard_params`` places the same params on a ('data', 'model') mesh."""
-    from use_tpu_torch.parallel.sharding import shard_state_dict
-
-    return shard_state_dict(ncsnpp_params_to_state_dict(params), dict(plan), world)
+    ``shard_params`` places the same params on a ('data', 'model') mesh.
+    The LSGAN generator's backbone loads it too."""
+    return _shards(ncsnpp_params_to_state_dict(params), plan, world)
 
 
 def lsgan_params_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
@@ -193,6 +202,13 @@ def discriminator_params_to_state_dict(params: Mapping[str, Any]) -> Dict[str, t
     the 24k_MVD and 24k banks', the multi-scale and spectrogram
     discriminators') -> the port's D state_dict."""
     return flax_params_to_state_dict(params)
+
+
+def discriminator_params_to_shards(params: Mapping[str, Any], plan: Mapping[str, Any],
+                                   world) -> Dict[str, torch.Tensor]:
+    """use_tpu discriminator params -> this model rank's state_dict of a
+    bank that ``shard_params`` cut (as ``ncsnpp_params_to_shards``)."""
+    return _shards(discriminator_params_to_state_dict(params), plan, world)
 
 
 def hifigan_generator_params_to_state_dict(params: Mapping[str, Any]
@@ -283,3 +299,11 @@ def csmgan_params_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Te
                               else (1, -1, 1, 1))
         out[_csmgan_key(scope) + leaf] = torch.from_numpy(np.ascontiguousarray(arr).copy())
     return out
+
+
+def csmgan_params_to_shards(params: Mapping[str, Any], plan: Mapping[str, Any],
+                            world) -> Dict[str, torch.Tensor]:
+    """use_tpu CSMGAN params -> this model rank's state_dict of a CSMGAN that
+    ``shard_params`` cut: the output slices of the port's channel order (a
+    PixelShuffle conv's slice holds other channels than use_tpu's rank's)."""
+    return _shards(csmgan_params_to_state_dict(params), plan, world)

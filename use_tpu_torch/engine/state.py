@@ -14,7 +14,10 @@ parameters, which the wrapper shares; every rank applies the same
 all-reduced gradients, so the ranks' parameters stay bit-identical.
 Sharded over a model axis as well (``world.model`` > 1,
 parallel/sharding.py): the replicated parameters' gradients are averaged
-over the model group and the clip's norm is the whole gradient's.
+over the model group and the clip's norm is the whole gradient's; each of
+``GANTrainState``'s two states does so for its own network. A parameter
+that takes no gradient (CSMGAN's last TCN block's res_out) has none on any
+rank, so it is left out of both alike.
 """
 from __future__ import annotations
 

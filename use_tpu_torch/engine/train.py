@@ -25,8 +25,11 @@ batch's (start, t, z) from the shared generator and takes its rows, so a
 W-rank step is the one-process step over the ranks' batches in rank order.
 The reported losses are means over the ranks. Sharded over a model axis
 (parallel/sharding.py), DDP runs over the data group, the model ranks of
-one data index take the same rows of the same global draws, and the loss is
-the mean over the data ranks.
+one data index take the same rows of the same global draws (LSGAN: the
+same crop starts), and the loss is the mean over the data ranks. LSGAN's
+G phase runs through the cut D with D's parameters frozen: the gradient
+into the fake still comes back whole, through copy_to_model's all-reduce
+at each cut conv's input.
 """
 from __future__ import annotations
 

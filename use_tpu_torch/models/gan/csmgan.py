@@ -16,6 +16,15 @@ are the reference's module paths (``in_proj.conv``,
 convert_csmgan_state_dict reads. The PixelShuffle splits channels
 scale-minor, as torch does (channel nc * 2 + s goes to frequency s * F + f).
 
+Tensor parallelism (parallel/sharding.py): ``shard_params`` cuts the plain
+convs (the in / out projections, the GLFBs' 1x1 and squeeze-excitation
+convs, ``DownBlock.conv``, the PixelShuffle convs, the TCN's 1x1 convs) on
+their output channels in the port's own channel order; the causal state
+is untouched (each cut conv gathers its whole output). The PixelShuffle
+conv's output channels are scale-minor here and scale-major in use_tpu
+(engine/convert_jax.py), so a rank's slice of that conv holds other
+channels on the two sides: only the gathered state equals use_tpu's.
+
 Streaming: every causal module (``_Causal``) keeps, while a ``CSMGANStream``
 step runs, its left time context or its cumulative (sum, pow, count) in a
 dict of the session's (``streaming`` binds them), as tensors on the
@@ -360,6 +369,8 @@ class CSMGAN(nn.Module):
     exactly 0 through every conv, where the cumulative norms' variance is
     0 and rsqrt(var + eps) multiplies the backward by 1e3 / 1e4 a norm, and
     through the TCN's 25 the gradient overflows (use_tpu's init does)."""
+
+    shards_plain_convs = True  # parallel/sharding.py may cut its convs on the 'model' axis
 
     def __init__(self, in_proj_channels: int = 8,
                  encoder_channels: Sequence[int] = (8, 8, 16, 16, 24),

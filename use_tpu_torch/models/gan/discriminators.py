@@ -67,6 +67,8 @@ class PeriodDiscriminator(nn.Module):
     """hifigan.py:200-267: the waveform reflect-padded to a multiple of the
     period, folded to [B, 1, T/p, p], convolved over time only."""
 
+    shards_plain_convs = True  # parallel/sharding.py may cut its convs on the 'model' axis
+
     def __init__(self, period: int = 3, kernel_sizes: Tuple[int, int] = (5, 3),
                  channels: int = 32, downsample_scales: Sequence[int] = (3, 3, 3, 3, 1),
                  max_downsample_channels: int = 1024):
@@ -115,6 +117,8 @@ class MultiPeriodDiscriminator(nn.Module):
 
 class WaveDiscriminator(nn.Module):
     """Grouped 1-D conv stack at a target sample rate (open_models.py:282-331)."""
+
+    shards_plain_convs = True  # parallel/sharding.py may cut its convs on the 'model' axis
 
     KERNEL_SIZES = (15, 41, 41, 41, 41, 5, 3)
     STRIDES = (1, 4, 4, 4, 4, 1, 1)
@@ -179,6 +183,8 @@ def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 class MelspecDiscriminator(nn.Module):
     """2-D convs, InstanceNorm and GLU over the log-mel spectrogram
     (hifigan_dicriminator.py:11-70); the map is [B, C, mels, frames]."""
+
+    shards_plain_convs = True  # parallel/sharding.py may cut its convs on the 'model' axis
 
     KERNEL_SIZES = ((7, 7), (4, 4), (4, 4), (4, 4))
 

@@ -23,17 +23,39 @@ from use_tpu_torch.models.registry import DiscriminatorRegistry
 Batch = Dict[str, Any]
 
 
+class _BuiltOnUse:
+    """A field that holds a module or a DiscriminatorRegistry name, built
+    (with the owner's ``seed``, on its ``device``) at the first read: serving
+    never reads the discriminator, so it never builds the bank."""
+
+    def __set_name__(self, owner, name):
+        self.key = "_" + name
+
+    def __get__(self, obj, owner=None):
+        if obj is None:
+            return None  # the dataclass field's default
+        value = obj.__dict__[self.key]
+        if isinstance(value, str):
+            value = DiscriminatorRegistry.get_by_name(value)(seed=obj.seed).to(obj.device)
+            obj.__dict__[self.key] = value
+        return value
+
+    def __set__(self, obj, value):
+        obj.__dict__[self.key] = value
+
+
 @dataclass
 class LSGAN:
     """The shipping LSGAN configuration (configs/model/LSGAN.yaml).
 
     discriminator: a module, or a DiscriminatorRegistry name built with
-        ``seed`` on the generator's device.
+        ``seed`` on the generator's device when it is first used (training,
+        eval, loading D's weights; predict never builds it).
     g_loss_cfg: a HifiganGLossConfig, or the config's g_loss mapping.
     """
 
     generator: Generator = None
-    discriminator: Union[str, torch.nn.Module, None] = None
+    discriminator: Union[str, torch.nn.Module, None] = _BuiltOnUse()
     g_loss_cfg: Union[losses.HifiganGLossConfig, Dict[str, Any], None] = None
     enhanced_key: str = "fake"
     seed: int = 0
@@ -41,12 +63,11 @@ class LSGAN:
     def __post_init__(self):
         if self.generator is None:
             self.generator = NCSNPPWrapper()
-        if self.discriminator is None:
+        d = vars(self)["_discriminator"]  # as given, unbuilt
+        if d is None:
             self.discriminator = "hifigan_vocoder_discriminator_24k_MVD"
-        if isinstance(self.discriminator, str):
-            self.discriminator = DiscriminatorRegistry.get_by_name(self.discriminator)(
-                seed=self.seed)
-        self.discriminator.to(self.device)
+        elif not isinstance(d, str):
+            d.to(self.device)
         if self.g_loss_cfg is None:
             self.g_loss_cfg = dict(sampling_rate=24000, alpha_wav_l1=0.1, alpha_mag_l2=1.0,
                                    alpha_mag_log=1.0, alpha_mag_norm_l2=0.5, alpha_mel_log=0.5,

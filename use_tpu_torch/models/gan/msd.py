@@ -46,6 +46,8 @@ class ScaleDiscriminator(nn.Module):
     [B, 1, T] -> (logits [B, T'], feature maps). Spectral norm on scale 0 in
     the reference is a training regularizer; plain kernels, as use_tpu's."""
 
+    shards_plain_convs = True  # parallel/sharding.py may cut its convs on the 'model' axis
+
     def __init__(self, kernel_sizes: Tuple[int, ...] = (15, 41, 5, 3),
                  channels: int = 128, max_downsample_channels: int = 1024,
                  max_groups: int = 16, downsample_scales: Sequence[int] = (2, 2, 4, 4, 1)):
@@ -81,6 +83,8 @@ class ScaleDiscriminator(nn.Module):
 class MultiScaleDiscriminator(nn.Module):
     """Three scales, each after a db3 DWT and the aux fuse conv
     (hifigan.py:408-477): [B, T] -> ([logits], [feature maps])."""
+
+    shards_plain_convs = True  # parallel/sharding.py may cut its convs on the 'model' axis
 
     def __init__(self, scales: int = 3):
         super().__init__()

@@ -24,6 +24,8 @@ from use_tpu_torch.ops.stft import STFTConfig, stft
 class SpecDiscriminator(nn.Module):
     """[B, T] -> (logits [B, frames', width'], feature maps [B, C, frames', width'])."""
 
+    shards_plain_convs = True  # parallel/sharding.py may cut its convs on the 'model' axis
+
     def __init__(self, channels: int = 32, init_kernel: int = 15, kernel_size: int = 11,
                  stride: int = 2, fft_size: int = 1024, shift_size: int = 120,
                  win_length: int = 600, blocks: int = 3):

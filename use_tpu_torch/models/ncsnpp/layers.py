@@ -49,7 +49,12 @@ from use_tpu_torch.ops.upfirdn2d import (
     upsample_2d,
     upsample_conv_2d,
 )
-from use_tpu_torch.parallel.sharding import copy_to_model, gather_from_model, split_to_model
+from use_tpu_torch.parallel.sharding import (
+    column_parallel,
+    copy_to_model,
+    gather_from_model,
+    split_to_model,
+)
 
 _SKIP_SCALE = float(1.0 / np.sqrt(2.0))
 
@@ -109,8 +114,7 @@ class Conv2d(nn.Module):
         b = None if self.bias is None else self.bias.to(dtype)
         if self.tp is None:
             return conv(x.to(dtype), w, b)
-        y = gather_from_model(conv(copy_to_model(x, self.tp).to(dtype), w, None), self.tp, 1)
-        return y if b is None else y + b[None, :, None, None]
+        return column_parallel(x, self.tp, lambda x: conv(x.to(dtype), w, None), b)
 
     def local(self, x: torch.Tensor) -> torch.Tensor:
         """This model rank's output channels of forward(x), with their
@@ -234,8 +238,7 @@ class Linear(nn.Module):
         w, b = self.weight.to(self.dtype), self.bias.to(self.dtype)
         if self.tp is None:
             return F.linear(x.to(self.dtype), w, b)
-        return gather_from_model(F.linear(copy_to_model(x, self.tp).to(self.dtype), w),
-                                 self.tp, -1) + b
+        return column_parallel(x, self.tp, lambda x: F.linear(x.to(self.dtype), w), b)
 
 
 class GroupNormAct(nn.Module):

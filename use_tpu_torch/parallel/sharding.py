@@ -23,13 +23,23 @@ The collectives are written out here, over the model group of a
 - ``split_to_model``: this rank's slice of a replicated tensor (a copy,
   then the slice), so that the gradient of what it came from is whole.
 
-A sharded ``layers.Conv2d`` / ``layers.Linear`` (its ``tp`` the World of the
-layout) is column-parallel with its output gathered: the conv or matmul of
-its output channels, the gather, then the replicated bias. The BigGAN
-block's K2 runs on the shard of its output channels (models/ncsnpp/
-layers.py). The gather is one opaque op (``model_all_gather``), so that
-the ``conv_outs`` remat policy (models/ncsnpp/ncsnpp.py) keeps its output
-and the backward's recomputation gathers nothing again.
+A sharded layer (its ``tp`` the World of the layout) is column-parallel
+with its output gathered (``column_parallel``): the conv or matmul of its
+output channels, the gather, then the replicated bias. The NCSN++ family's
+``layers.Conv2d`` / ``layers.Linear`` carry that forward themselves, and
+the BigGAN block's K2 runs on the shard of its output channels (models/
+ncsnpp/layers.py). A plain ``nn.Conv1d`` / ``nn.Conv2d`` is cut where it
+lies under a module whose class sets ``shards_plain_convs`` (the
+discriminator banks, CSMGAN): ``shard_params`` turns the instance itself
+into a ``ColumnParallelConv1d`` / ``ColumnParallelConv2d`` (its class, not
+its place in the parent: a net that calls its convs from a plain list keeps
+calling the cut one, and the state-dict keys stay). A grouped conv's slice
+covers a run of its groups: the rank convolves those groups' input
+channels only, the slice padded with zero rows to whole groups where the
+model axis does not divide the group count. The gather is one opaque op
+(``model_all_gather``), so that the ``conv_outs`` remat policy
+(models/ncsnpp/ncsnpp.py) keeps its output and the backward's
+recomputation gathers nothing again.
 
 In training (engine/state.py) the replicated parameters' gradients are
 averaged over the model group, so the replicas stay bit-identical, and the
@@ -39,11 +49,12 @@ and all-reduced over the model groups.
 """
 from __future__ import annotations
 
-from typing import Dict, Iterable, List, Optional
+from typing import Callable, Dict, Iterable, List, Optional
 
 import torch
 import torch.distributed as dist
 import torch.nn as nn
+import torch.nn.functional as F
 
 from use_tpu_torch.parallel.mesh import World
 
@@ -112,6 +123,58 @@ def split_to_model(x: torch.Tensor, world: World, dim: int) -> torch.Tensor:
     return copy_to_model(x, world).narrow(dim, world.model_rank * n, n)
 
 
+def column_parallel(x: torch.Tensor, world: World, local: Callable[[torch.Tensor], torch.Tensor],
+                    bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """A column-parallel layer: ``local`` (this rank's output channels, on
+    dim 1) of x, gathered over the model group, then the replicated bias."""
+    y = gather_from_model(local(copy_to_model(x, world)), world, 1)
+    return y if bias is None else y + bias.view((1, -1) + (1,) * (y.dim() - 2))
+
+
+class ColumnParallelConv:
+    """The forward of a plain torch conv that ``shard_params`` cut: its
+    ``weight`` holds this model rank's output channels (``tp`` the World).
+    The slice [a, a + n) of the O output channels covers groups g0 .. g1 - 1
+    (O / groups channels each); the rank convolves their input channels
+    with g1 - g0 groups, its slice padded with zero rows to whole groups
+    where it starts or ends inside one (the gradient of x then comes back
+    whole through copy_to_model's all-reduce, zero outside each rank's
+    groups)."""
+
+    tp: Optional[World] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return column_parallel(x, self.tp, self._local, self.bias)
+
+    def _local(self, x: torch.Tensor) -> torch.Tensor:
+        w, tp = self.weight, self.tp
+        n = w.shape[0]
+        per_group = n * tp.model // self.groups
+        a = tp.model_rank * n
+        g0, g1 = a // per_group, -(-(a + n) // per_group)
+        lead, trail = a - g0 * per_group, g1 * per_group - a - n
+        if self.groups > 1:
+            x = x.narrow(1, g0 * w.shape[1], (g1 - g0) * w.shape[1])
+        padded = g1 - g0 > 1 and (lead or trail)
+        if padded:
+            w = torch.cat([w.new_zeros((lead,) + w.shape[1:]), w,
+                           w.new_zeros((trail,) + w.shape[1:])])
+        conv = F.conv1d if w.dim() == 3 else F.conv2d
+        y = conv(x, w, None, self.stride, self.padding, self.dilation, g1 - g0)
+        return y.narrow(1, lead, n) if padded else y
+
+
+class ColumnParallelConv1d(ColumnParallelConv, nn.Conv1d):
+    pass
+
+
+class ColumnParallelConv2d(ColumnParallelConv, nn.Conv2d):
+    pass
+
+
+_COLUMN_PARALLEL = {nn.Conv1d: ColumnParallelConv1d, nn.Conv2d: ColumnParallelConv2d}
+
+
 def param_spec(name: str, tensor: torch.Tensor, min_size: int = 1 << 16) -> Optional[int]:
     """The axis use_tpu's rule shards the parameter `name` on (0, the
     output axis of the port's kernels), or None: a ``weight`` of ndim >= 2
@@ -122,15 +185,29 @@ def param_spec(name: str, tensor: torch.Tensor, min_size: int = 1 << 16) -> Opti
     return 0 if tensor.dim() >= 2 and tensor.numel() >= min_size else None
 
 
+def _plain_conv_owners(module: nn.Module) -> List[str]:
+    """The names of the modules under `module` (itself included) whose
+    class sets ``shards_plain_convs``: their plain torch convs can be cut."""
+    return [n for n, m in module.named_modules() if getattr(type(m), "shards_plain_convs", False)]
+
+
+def _under(name: str, owners: List[str]) -> bool:
+    return any(o == "" or name == o or name.startswith(o + ".") for o in owners)
+
+
 def params_shardings(module: nn.Module, mesh: World,
                      min_size: int = 1 << 16) -> Dict[str, Optional[int]]:
     """Parameter name -> the axis ``shard_params`` cuts it on, or None
     (replicated, also where the output axis does not divide by the model
     axis). Raises, naming the parameter, where the rule shards a parameter
-    of a module other than the NCSN++ family's ``layers.Conv2d`` and
-    ``layers.Linear`` (the int8 convs included)."""
+    of a module the port cannot cut: one other than the NCSN++ family's
+    ``Conv2d`` and ``Linear`` and the plain ``nn.Conv1d`` / ``nn.Conv2d``
+    (zero padding) of a net that sets ``shards_plain_convs`` (transposed
+    convs, the int8 convs, GaGNet's, ConvTasNet's and the NCSNv1 layers
+    among them)."""
     from use_tpu_torch.models.ncsnpp import layers
 
+    owners = _plain_conv_owners(module)
     out: Dict[str, Optional[int]] = {}
     for mname, m in module.named_modules():
         for pname, p in m.named_parameters(recurse=False):
@@ -138,11 +215,14 @@ def params_shardings(module: nn.Module, mesh: World,
             axis = param_spec(name, p, min_size)
             if axis is not None and isinstance(m, nn.Embedding):
                 axis = None  # use_tpu's ``embedding``, not a kernel
-            if axis is not None and type(m) not in (layers.Conv2d, layers.Linear):
+            plain = (type(m) in _COLUMN_PARALLEL and m.padding_mode == "zeros"
+                     and _under(mname, owners))
+            if axis is not None and not plain and type(m) not in (layers.Conv2d, layers.Linear):
                 raise ValueError(
                     f"shard_params: {name} ({type(m).__name__}, {tuple(p.shape)}) is a kernel "
-                    "that use_tpu's rule shards; the port shards the NCSN++ family's "
-                    "Conv2d and Linear only")
+                    "that use_tpu's rule shards; the port shards the NCSN++ family's Conv2d "
+                    "and Linear and the plain Conv1d / Conv2d of the discriminator banks "
+                    "and CSMGAN only")
             if axis is not None and p.shape[axis] % mesh.model:
                 axis = None
             out[name] = axis
@@ -168,6 +248,8 @@ def shard_params(module: nn.Module, mesh: World,
         owner.weight = nn.Parameter(_slice(full, axis, mesh).clone(),
                                     requires_grad=owner.weight.requires_grad)
         owner.tp = mesh
+        if type(owner) in _COLUMN_PARALLEL:
+            owner.__class__ = _COLUMN_PARALLEL[type(owner)]
     return plan
 
 
