@@ -275,7 +275,21 @@ Phases, one line each (any failure raises and exits non-zero):
      34's (gradients above ADAM_SURE_FLOOR), replicas and slices
      bit-identical (digests), launches exactly GAN_TRAIN_LAUNCHES["remat"]
      (CSMGAN none) on every rank and in the one process, the control over
-     the gate.
+     the gate. Then the same ranks serve int8 cut over the model axis
+     (`tp_ranks_int8`): the full-width bf16 ncsnpplarge under
+     quant='int8_pallas' (K3) and quant='int8' (the s8 conv), each rank's
+     int8 convs run on its output channels with its slice of the bias in
+     the kernel's epilogue, on one lane of TP_INT8_SHAPE a data rank: each
+     cut int8 conv's gathered output bit-equal to the uncut conv's on the
+     same arguments, and the control (the bias added after the gather in
+     bf16) not, on K3's convs (the s8 conv's epilogue adds the bias in bf16
+     after its rounding, so there the two agree); the forward within
+     BF16_REL_TOL of the uncut forward's largest |value|; the launches of
+     the cut and the uncut forward PER_FORWARD's int8 ones on every rank;
+     HiFi-GAN's generator (fp32, its transposed convs cut on their output
+     axis) within ZOO_REL_TOL of its uncut forward. The kernel phases time
+     K3 and the s8 conv at a rank's shapes (TP_QCONV_SHAPES, rows tagged
+     tp-int8).
 Each phase prints its seconds. Then a JSON line of the kernels, the card
 line, and the last line {"ok": true, "device": {...}}.
 """
@@ -350,6 +364,10 @@ QCONV_SHAPES = [  # (B, C, O, H, W): int8 predict path, 8 lanes
     (8, 256, 256, 64, 24),  # Conv_0 / Conv_1 at 64 x 24
 ]
 QCONV_RAGGED = (2, 36, 40, 5, 7)  # ragged channel chunk, O and pixel edges: checked, not timed
+# int8 serving cut over the model axis (phase 35), one lane a rank at
+# TP_INT8_FRAMES: a rank's output channels at model 2, O 64 of 128 at full
+# resolution and O 128 of 256 at 128 x 16 (rows tagged tp-int8)
+TP_QCONV_SHAPES = [(1, 128, 64, 512, 64), (1, 256, 128, 128, 16)]
 FORWARD_BACKBONE, FORWARD_SHAPE = "ncsnpplarge", (8, 512, 192, 4)  # the 8 lanes of a 6 s clip
 # the lanes of that forward the CPU computes too, the first and the last t
 # (the net takes each lane alone; the CPU's forward of all 8 was most of
@@ -612,6 +630,21 @@ ADAM_SURE_FLOOR = 1e-6
 # (a TCN PReLU slope, one scalar over 3M products). The summing control
 # must still exceed it
 TP_CSMGAN_GRAD_REL_TOL = 1e-3
+# int8 serving cut over the model axis (phase 35, after the GAN steps): the
+# same four ranks run the full-width ncsnpplarge forward in bf16 under
+# quant='int8_pallas' (K3) and quant='int8' (the s8 conv), cut by the
+# rule's default min_size, on one lane a data rank of TP_INT8_SHAPE (both
+# lanes: [2, 512, TP_INT8_FRAMES, 4]); each cut int8 conv's gathered output
+# must be bit-equal to the uncut conv's on the same arguments, the forward
+# within BF16_REL_TOL of the uncut forward's largest |value|, the launches
+# the one-process forward's (PER_FORWARD); then HiFi-GAN's generator (full
+# width, fp32, transposed convs cut) on TP_HIFIGAN_FRAMES mel frames,
+# against its uncut forward within ZOO_REL_TOL
+TP_INT8_FRAMES = 64
+TP_INT8_SHAPE = (2, 512, TP_INT8_FRAMES, 4)
+TP_INT8_SEED = 3
+TP_INT8_RUNS = {"int8_pallas": "int8_bfloat16", "int8": "int8conv_bfloat16"}
+TP_HIFIGAN_FRAMES = 100
 
 
 def phase(phase_name, **fields):
@@ -648,7 +681,8 @@ def main():
                     help="build, kernels, then only bf16 and data-parallel training "
                          "(phases 32-34)")
     ap.add_argument("--tp", action="store_true",
-                    help="build, kernels, then only tensor-parallel training (phase 35)")
+                    help="build, kernels, then only tensor parallelism (phase 35: training, "
+                         "int8 serving)")
     ap.add_argument("--ddp-rank-worker", nargs=2, metavar=("DIR", "DEVICE"),
                     help=argparse.SUPPRESS)
     ap.add_argument("--tp-rank-worker", nargs=2, metavar=("DIR", "DEVICE"),
@@ -706,7 +740,7 @@ def main():
     elif args.dist:
         runs.update(dist_phases(torch, dev))
     elif args.tp:
-        runs["tp_ranks"] = timed("tp_ranks", tp_ranks_phase, torch, dev)
+        runs.update(timed("tp_ranks", tp_ranks_phase, torch, dev))
     elif not args.kernels:
         timed("forward", forward_phase, torch, dev)
         timed("int8_forward", int8_forward_phase, torch, dev)
@@ -740,7 +774,7 @@ def main():
         runs.update(zoo_phases(torch, dev))
         runs.update(models_phases(torch, dev))
         runs.update(dist_phases(torch, dev))
-        runs["tp_ranks"] = timed("tp_ranks", tp_ranks_phase, torch, dev)
+        runs.update(timed("tp_ranks", tp_ranks_phase, torch, dev))
         if args.profile:
             timed("profile", profile_phase, torch, dev)
             timed("profile_train", profile_train_phase, torch, dev)
@@ -1024,7 +1058,8 @@ def kernel_phases(torch, dev):
 
 
 def qconv_phase(torch, dev, gen):
-    """K3 against its plain version at the int8 predict path's shapes, fp32
+    """K3 against its plain version at the int8 predict path's shapes (and
+    a rank's shapes of phase 35's cut forward, TP_QCONV_SHAPES), fp32
     and bf16 input (output in the same dtype), with GroupNorm affine, SiLU
     and bias, in each of the kernel's tiles; and a control broken on
     purpose (x zero-padded before the affine, so act(off) leaks into the
@@ -1054,7 +1089,7 @@ def qconv_phase(torch, dev, gen):
     cases = []
     for dtype_name in ("float32", "bfloat16"):
         dt = getattr(torch, dtype_name)
-        for shape in (*QCONV_SHAPES, QCONV_RAGGED):
+        for shape in (*QCONV_SHAPES, *TP_QCONV_SHAPES, QCONV_RAGGED):
             b, c, o, hh, ww = shape
             x = (torch.randn((b, c, hh, ww), generator=gen, device=dev) + 0.5).to(dt)
             w = (torch.randn((o, c, 3, 3), generator=gen, device=dev) / math.sqrt(9 * c)).to(dt)
@@ -1098,6 +1133,8 @@ def qconv_phase(torch, dev, gen):
                            tile_max_abs_err={t: v[0] for t, v in tile_errs.items()},
                            tile_flips={t: v[1] for t, v in tile_errs.items()},
                            control_max_abs_err=ctrl_err, control_share=ctrl_share)
+            if shape in TP_QCONV_SHAPES:
+                checked["variant"] = "tp-int8"
             if shape == QCONV_RAGGED:
                 phase("kernel_check", name="qconv3x3_fused", **checked)
                 del x, out, out_tiles, out_public, ref, ctrl
@@ -1227,7 +1264,8 @@ def gn_int8_phase(torch, dev, gen):
 def s8_phase(torch, dev, gen):
     """The s8 conv (qconv3x3_s8) against its plain version (the int8
     values convolved in float64, exact) at the int8 path's shapes
-    (QCONV_SHAPES, and QCONV_RAGGED checked, not timed), fp32 and bf16
+    (QCONV_SHAPES, a rank's of phase 35, TP_QCONV_SHAPES, and QCONV_RAGGED
+    checked, not timed), fp32 and bf16
     output, on C32 operands that K1's int8 apply made, with the producer's
     u folded into the weight: bit-equal (atol 0) in each of the kernel's
     tiles, and with a per-sample post-scale (the dynamic path's). Its
@@ -1242,7 +1280,7 @@ def s8_phase(torch, dev, gen):
     cases = []
     for dtype_name in ("float32", "bfloat16"):
         dt = getattr(torch, dtype_name)
-        for shape in (*QCONV_SHAPES, QCONV_RAGGED):
+        for shape in (*QCONV_SHAPES, *TP_QCONV_SHAPES, QCONV_RAGGED):
             b, c, o, hh, ww = shape
             x, a, off, u = _int8_operand(torch, gen, dev, b, c, hh, ww, dt)
             qx = g.gn_apply_int8(x.reshape(b, c, -1), a, off, u, "swish", dt, c32=True)
@@ -1266,6 +1304,8 @@ def s8_phase(torch, dev, gen):
                                      f"{errs}, with a post-scale {post_err}; bit-equal expected")
             checked = dict(shape=list(shape), dtype=dtype_name, tile=tile, max_abs_err=err,
                            tol=0.0, tile_max_abs_err=errs, post_scale_max_abs_err=post_err)
+            if shape in TP_QCONV_SHAPES:
+                checked["variant"] = "tp-int8"
             if shape == QCONV_RAGGED:
                 phase("kernel_check", name="qconv3x3_s8", **checked)
                 continue
@@ -4625,6 +4665,79 @@ def summing_gather_backward():
         sharding._GatherFromModel.backward = staticmethod(real)
 
 
+@contextlib.contextmanager
+def cut_int8_calls(calls):
+    """Each call of a cut int8 conv that quantizes (``FusedQConv3x3.local``,
+    ``QConv.local``: the forward's and the BigGAN block's ahead of its
+    sharded K2) appended to `calls` as (the conv, its arguments, its output
+    on this rank's channels)."""
+    from use_tpu_torch.models.ncsnpp import layers
+
+    reals = {cls: cls.local for cls in (layers.FusedQConv3x3, layers.QConv)}
+
+    def recording(real):
+        def local(self, *args):
+            out = real(self, *args)
+            quantized = not isinstance(self, layers.QConv) or len(args) > 1 or self.quantizes()
+            if self.tp is not None and quantized:
+                calls.append((self, args, out))
+            return out
+        return local
+
+    for cls, real in reals.items():
+        cls.local = recording(real)
+    try:
+        yield calls
+    finally:
+        for cls, real in reals.items():
+            cls.local = real
+
+
+def check_cut_int8_calls(torch, calls, uncut, names, world):
+    """Each recorded call of a cut int8 conv: its output gathered against
+    the uncut net's same conv on the same arguments (bit for bit), and the
+    control (``bias_after_gather``) against it. -> a summary by kind."""
+    from use_tpu_torch.parallel import sharding
+
+    out = {}
+    for conv, args, local in calls:
+        got = sharding.model_all_gather(local, 1, world.model_group.group_name, world.model)
+        want = uncut.get_submodule(names[id(conv)])(*args)
+        control = bias_after_gather(conv, args, world)
+        kind = out.setdefault(type(conv).__name__, {
+            "calls": 0, "bit_equal": 0, "max_abs_err": 0.0, "control_bit_equal": 0,
+            "control_max_abs_err": 0.0, "out_channels": {}})
+        kind["calls"] += 1
+        kind["bit_equal"] += int(torch.equal(got, want))
+        kind["max_abs_err"] = max(kind["max_abs_err"], float((got - want).abs().max()))
+        kind["control_bit_equal"] += int(torch.equal(control, want))
+        kind["control_max_abs_err"] = max(kind["control_max_abs_err"],
+                                          float((control - want).float().abs().max()))
+        key = f"{local.shape[1]} of {want.shape[1]}"
+        kind["out_channels"][key] = kind["out_channels"].get(key, 0) + 1
+    return out
+
+
+def bias_after_gather(conv, args, world):
+    """A cut int8 conv's call broken on purpose, for phase 35's bit-equality
+    gate to reject: the kernel on this rank's output channels without the
+    bias, gathered, then the whole bias added in the compute dtype (as
+    column_parallel adds a bias after its gather) instead of the rank's
+    slice in the kernel's epilogue. -> the gathered output."""
+    from use_tpu_torch.parallel import sharding
+
+    bias = conv.bias
+    conv._parameters["bias"] = None
+    conv._prepared = None
+    try:
+        y = conv.local(*args)
+    finally:
+        conv._parameters["bias"] = bias
+        conv._prepared = None
+    y = sharding.model_all_gather(y, 1, world.model_group.group_name, world.model)
+    return y + bias.to(conv.dtype)[None, :, None, None]
+
+
 def tp_rank_worker(tmp, device):
     """One of tp_ranks' four processes (torchrun's environment set by the
     phase): joins the gloo group, lays the ranks out as make_mesh(*TP_LAYOUT),
@@ -4705,9 +4818,7 @@ def tp_rank_worker(tmp, device):
                "launches": ops.launch_counts(), "bytes": dict(sharding.model_bytes),
                "peak_bytes": torch.cuda.max_memory_allocated(dev)}
         layers.fused_skip_add = k2
-        group = world.model_group.group_name
-        grads = {k: sharding.model_all_gather(g, 0, group, world.model) if k in names else g
-                 for k, g in seen.items()}
+        grads = sharding.gather_slices(net, seen, world)
         if run == "step":
             weights = sharding.gather_state_dict(net, world)
             res["local"] = {k: p.detach().to("cpu", copy=True) for k, p in net.named_parameters()}
@@ -4720,6 +4831,7 @@ def tp_rank_worker(tmp, device):
     del model, net, state, ddp, init
     torch.cuda.empty_cache()
     out.update(_tp_gan_worker(torch, dev, world, out["rank"] == 0))
+    out.update(_tp_int8_worker(torch, dev, world))
     torch.save(out, os.path.join(tmp, f"rank{out['rank']}.pt"))
     dist.destroy_process_group()
 
@@ -4780,9 +4892,8 @@ def _tp_gan_runs(torch, dev, world, gan, tc, local, start, runs, rank0):
 
     nets = {"G": gan.generator.net, "D": gan.discriminator}
     init = {k: {n: v.clone() for n, v in net.state_dict().items()} for k, net in nets.items()}
-    sliced = {k: set(sharding.sharded_parameters(net)) for k, net in nets.items()}
-    group = world.model_group.group_name
-    out, ddps = {"sharded": {k: sorted(v) for k, v in sliced.items()}}, None
+    out = {"sharded": {k: sorted(sharding.sharded_parameters(net)) for k, net in nets.items()}}
+    ddps = None
     for run in runs:
         for k, net in nets.items():
             net.load_state_dict(init[k])
@@ -4820,8 +4931,7 @@ def _tp_gan_runs(torch, dev, world, gan, tc, local, start, runs, rank0):
                "metrics": {k: float(v) for k, v in metrics.items()},
                "launches": ops.launch_counts(), "bytes": dict(sharding.model_bytes),
                "peak_bytes": torch.cuda.max_memory_allocated(dev)}
-        grads = {k: {n: sharding.model_all_gather(g, 0, group, world.model) if n in sliced[k]
-                     else g for n, g in seen[k].items()} for k in nets}
+        grads = {k: sharding.gather_slices(net, seen[k], world) for k, net in nets.items()}
         if run == "step":
             res["digests"] = {k: {n: _digest(p) for n, p in net.named_parameters()}
                               for k, net in nets.items()}
@@ -4880,6 +4990,128 @@ def _tp_gan_worker(torch, dev, world, rank0):
     out["csmgan"] = _tp_gan_runs(torch, dev, world, csm, ccfg["train"], local, 0,
                                  ("summing", "step"), rank0)
     return out
+
+
+def _tp_int8_worker(torch, dev, world):
+    """tp_rank_worker's int8 serving: for each quant of TP_INT8_RUNS, the
+    full-width bf16 ncsnpplarge uncut and cut (shard_params, the rule's
+    default min_size) from one seeded state, each forward on this data
+    rank's lane under inference mode; the cut forward's launches, every
+    cut int8 conv's call against the uncut conv's (check_cut_int8_calls),
+    the forwards' largest difference. Then HiFi-GAN's generator (full
+    width, fp32) uncut and with its convs, transposed ones included, cut.
+    Every rank returns its own readings."""
+    from use_tpu_torch import ops
+    from use_tpu_torch.models import BackboneRegistry
+    from use_tpu_torch.models.gan.hifigan_vocoder import HifiganGenerator
+    from use_tpu_torch.models.ncsnpp.ncsnpp import cast_backbone_for_inference
+    from use_tpu_torch.parallel import sharding
+    from use_tpu_torch.parallel.mesh import local_rows
+
+    t_worker = time.perf_counter()
+    gen = torch.Generator().manual_seed(TP_INT8_SEED)
+    x = local_rows(0.5 * torch.randn(TP_INT8_SHAPE, generator=gen), world).to(dev)
+    t = local_rows(torch.linspace(0.2, 0.8, TP_INT8_SHAPE[0]), world).to(dev)
+    state = None
+    out = {}
+    for quant in TP_INT8_RUNS:
+        nets = []
+        for _ in range(2):  # uncut, cut: built outside inference mode, as the CLI builds them
+            net = BackboneRegistry.get_by_name(FORWARD_BACKBONE)(
+                input_channels=4, dtype="bfloat16", quant=quant)
+            if state is None:
+                _randomize(torch, net, seed=TP_INT8_SEED)
+                state = {k: v.clone() for k, v in net.state_dict().items()}
+            net.load_state_dict(state)
+            nets.append(net.to(dev))
+        uncut, cut = nets
+        sharded = sharding.shard_params(cut, world)
+        for net in nets:
+            cast_backbone_for_inference(net)
+        names = {id(m): n for n, m in cut.named_modules()}
+        calls = []
+        with torch.inference_mode():
+            ops.reset_launch_counts()
+            y_uncut = uncut(x, t)
+            uncut_launches = ops.launch_counts()
+            ops.reset_launch_counts()
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            with cut_int8_calls(calls):
+                y = cut(x, t)
+            torch.cuda.synchronize(dev)
+            first_s = time.perf_counter() - t0
+            launches = ops.launch_counts()
+            t0 = time.perf_counter()
+            cut(x, t)
+            torch.cuda.synchronize(dev)
+            warm_s = time.perf_counter() - t0
+            checked = check_cut_int8_calls(torch, calls, uncut, names, world)
+            top = float(y_uncut.float().abs().max())
+            out[quant] = {
+                "launches": launches, "one_process_launches": uncut_launches,
+                "calls": checked, "finite": bool(torch.isfinite(y).all()),
+                "max_rel_err": float((y.float() - y_uncut.float()).abs().max()) / top,
+                "sharded_weights": sum(a is not None for a in sharded.values()),
+                "first_forward_s": first_s, "forward_s": warm_s}
+        del nets, uncut, cut, calls, y, y_uncut
+        torch.cuda.empty_cache()
+    frames = torch.randn((1, 80, TP_HIFIGAN_FRAMES), generator=gen).to(dev)
+    hifigan = [HifiganGenerator(seed=TP_INT8_SEED).to(dev) for _ in range(2)]
+    plan = sharding.shard_params(hifigan[1], world)
+    with torch.inference_mode():
+        wav_uncut, wav = (net(frames) for net in hifigan)
+    transposed = [k for k, axis in plan.items() if axis == 1]
+    out["hifigan"] = {
+        "shape": list(frames.shape), "sharded_weights": sum(a is not None for a in plan.values()),
+        "transposed_cut": len(transposed), "samples": wav.shape[-1],
+        "finite": bool(torch.isfinite(wav).all()),
+        "max_rel_err": float((wav - wav_uncut).abs().max()) / float(wav_uncut.abs().max())}
+    del hifigan
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_worker
+    return {"int8": out}
+
+
+def _tp_int8_check(ranks, smi):
+    """Phase 35's int8 serving and HiFi-GAN gates on every rank's readings
+    (_tp_int8_worker); prints their line. -> the launches of rank 0's cut
+    forwards, by run label."""
+    failed = []
+    for r in ranks:
+        for quant, label in TP_INT8_RUNS.items():
+            got = r["int8"][quant]
+            want = all_kernels(PER_FORWARD[label])
+            if all_kernels(got["launches"]) != want or \
+                    all_kernels(got["one_process_launches"]) != want:
+                failed.append(f"rank {r['rank']} {quant}: launches {got['launches']}, "
+                              f"one process {got['one_process_launches']}, want {want}")
+            calls = got["calls"]
+            if any(k["bit_equal"] != k["calls"] for k in calls.values()) or not calls:
+                failed.append(f"rank {r['rank']} {quant}: gathered outputs not bit-equal {calls}")
+            fused = calls.get("FusedQConv3x3")
+            if fused and fused["control_bit_equal"] == fused["calls"]:
+                failed.append(f"rank {r['rank']} {quant}: the bias-after-gather control passed")
+            if not (got["finite"] and got["max_rel_err"] <= BF16_REL_TOL):
+                failed.append(f"rank {r['rank']} {quant}: forward off by {got['max_rel_err']}")
+        hifigan = r["int8"]["hifigan"]
+        if not (hifigan["finite"] and hifigan["transposed_cut"]
+                and hifigan["max_rel_err"] <= ZOO_REL_TOL):
+            failed.append(f"rank {r['rank']} hifigan: {hifigan}")
+    phase("tp_ranks_int8", backbone=FORWARD_BACKBONE, dtype="bfloat16",
+          layout={"data": TP_LAYOUT[0], "model": TP_LAYOUT[1]}, backend="gloo",
+          shape=list(TP_INT8_SHAPE), lanes_a_data_rank=1, tol=BF16_REL_TOL,
+          control="bias added after the gather in bf16", nvidia_smi=smi,
+          ranks={str(r["rank"]): {q: {k: v for k, v in r["int8"][q].items()
+                                      if k != "one_process_launches"} for q in TP_INT8_RUNS}
+                 for r in ranks},
+          hifigan={str(r["rank"]): r["int8"]["hifigan"] for r in ranks},
+          hifigan_tol=ZOO_REL_TOL, worker_seconds=[r["int8"]["seconds"] for r in ranks],
+          failed=failed)
+    if failed:
+        raise AssertionError("tp_ranks_int8: " + "; ".join(failed))
+    return {f"tp_{label}": all_kernels(ranks[0]["int8"][quant]["launches"])
+            for quant, label in TP_INT8_RUNS.items()}
 
 
 def tp_ranks_phase(torch, dev):
@@ -5013,7 +5245,7 @@ def tp_ranks_phase(torch, dev):
     del model, state, seen, steps
     torch.cuda.empty_cache()
     _tp_gan_check(torch, dev, ranks, smi)
-    return launches[0]
+    return {"tp_ranks": launches[0], **_tp_int8_check(ranks, smi)}
 
 
 def _tp_gan_reference(torch, dev, gan, tc, batch, start, ranks, task):

@@ -31,6 +31,28 @@ tests/test_torch_sharding_gan.py's spec gives each case a ``kind``:
   maps and the input's gradient of their sum;
 - ``grouped``: a grouped Conv1d whose group count the model axis does not
   divide, cut: its output and the input's and weight's gradients.
+
+tests/test_torch_sharding_zoo.py's kind ``zoo``: a net of the zoo (``ZOO``:
+the HiFi-GAN and BWE generators, GaGNet, ConvTasNet, the NCSNv1 blocks, a
+transposed conv with and without the causal trim) cut and loaded from its
+full state dict, its outputs and the inputs' gradients of their sum, the
+gathered state before the pass.
+
+tests/test_torch_sharding_serving.py's kinds:
+
+- ``serving``: an int8 NCSN++ (``quant='int8'`` or ``'int8_pallas'``) cut
+  and loaded with ``convert_jax.ncsnpp_params_to_shards`` from use_tpu's
+  params (the uncut net from their state dict), its forward on this data rank's
+  lanes; each quantized conv call recorded and its output gathered, held
+  bit for bit against the same conv of the uncut net on the same
+  arguments, as is the control (the bias added after the gather) -
+  chip_smoke's phase 35 helpers, ``cut_int8_calls`` and
+  ``check_cut_int8_calls``; the uncut net's forward; where the
+  case has a score model, a 2-step ``pc`` sample of the cut net and of the
+  uncut one;
+- ``gate``: a QConv whose output slice falls under the dynamic path's
+  gate and whose whole output does not, cut: its output against the uncut
+  conv's.
 """
 import contextlib
 import sys
@@ -43,9 +65,7 @@ def _gathered(net, grads, world):
     parameters, the slices gathered over the model group."""
     from use_tpu_torch.parallel import sharding
 
-    sliced = sharding.sharded_parameters(net)
-    return {k: sharding.model_all_gather(v, 0, world.model_group.group_name, world.model)
-            if k in sliced else v for k, v in grads.items()}
+    return sharding.gather_slices(net, grads, world)
 
 
 def step_case(spec, case, world):
@@ -206,7 +226,116 @@ def wave_case(spec, case, world):
             "classes": sorted({type(m).__name__ for m in net.modules()})}
 
 
-KINDS = {"gan": gan_case, "csmgan": gan_case, "wave": wave_case, "grouped": wave_case}
+def _zoo_net(name, kw):
+    """The port's module of a ZOO case, and how it is called on (inputs,
+    extra arguments)."""
+    from use_tpu_torch.models import convtasnet, gagnet
+    from use_tpu_torch.models.gan import hifigan_bwe, hifigan_vocoder
+    from use_tpu_torch.models.ncsnpp import legacy_layers
+
+    if name == "gagnet":
+        net = gagnet.GaGNet(**kw["net"])
+        net.materialize(kw["freqs"])
+        return net, lambda xs, extra: net(*xs)
+    if name == "refine":
+        net = legacy_layers.RefineBlock(**kw)
+        return net, lambda xs, extra: net(xs, *extra)
+    if name in ("conv_transpose1d", "conv_transpose2d", "conv_transpose_c"):
+        conv = (hifigan_vocoder.ConvTranspose1dC(**kw) if name == "conv_transpose_c" else
+                getattr(torch.nn, name.replace("conv_transpose", "ConvTranspose"))(**kw))
+        net = _Owner(conv)
+        return net, lambda xs, extra: net(*xs)
+    net = {"hifigan": hifigan_vocoder.HifiganGenerator, "bwe": hifigan_bwe.BandwidthExtender,
+           "convtasnet": convtasnet.ConvTasNet, "residual": legacy_layers.ResidualBlock,
+           "upsample_conv": legacy_layers.UpsampleConv}[name](**kw)
+    return net, lambda xs, extra: net(*xs, *extra)
+
+
+def zoo_case(spec, case, world):
+    """A zoo net cut and loaded from its full state dict: its outputs and
+    the inputs' gradients of the sum of every output."""
+    from use_tpu_torch.parallel import sharding
+
+    net, call = _zoo_net(case["net"], case["kwargs"])
+    plan = sharding.shard_params(net, world, case["min_size"])
+    net.load_state_dict(sharding.shard_state_dict(case["state"], plan, world))
+    xs = [torch.from_numpy(x).requires_grad_(True) for x in case["inputs"]]
+    y = call(xs, case.get("extra", ()))
+    flat = list(y) if isinstance(y, (tuple, list)) else [y]
+    sum(v.sum() for v in flat).backward()
+    return {"outputs": [v.detach() for v in flat], "x_grads": [x.grad.clone() for x in xs],
+            "plan": plan, "sharded": sorted(sharding.sharded_parameters(net)),
+            "gathered_before": sharding.gather_state_dict(net, world),
+            "classes": sorted({type(m).__name__ for m in net.modules()})}
+
+
+def _sample(model, batch, seed):
+    return model.sample(batch, generator=torch.Generator().manual_seed(seed), N=2)["enhanced"]
+
+
+def serving_case(spec, case, world):
+    """An int8 NCSN++ cut over the model axis, against the uncut net on the
+    same rank: the forward, every quantized conv call bit for bit, and a
+    2-step pc sample of an int8 score model."""
+    from use_tpu_torch.engine.convert_jax import ncsnpp_params_to_shards
+    from use_tpu_torch.models.ncsnpp.ncsnpp import NCSNpp, NCSNppConfig
+    from use_tpu_torch.models.sgmse.score_model import ScoreModel
+    from use_tpu_torch.parallel import sharding
+    from use_tpu_torch.parallel.mesh import local_rows
+
+    cfg = NCSNppConfig(**case["config"])
+    full, net = NCSNpp(cfg), NCSNpp(cfg)
+    full.load_state_dict(case["state"])
+    plan = sharding.shard_params(net, world, case["min_size"])
+    shards = ncsnpp_params_to_shards(case["params"], plan, world)
+    net.load_state_dict(shards)
+    from chip_smoke import check_cut_int8_calls, cut_int8_calls
+
+    names = {id(m): n for n, m in net.named_modules()}
+    x, t = (local_rows(torch.from_numpy(v), world) for v in (case["x"], case["t"]))
+    calls = []
+    with torch.no_grad():
+        with cut_int8_calls(calls):
+            y = net(x, t)
+        y_full = full(x, t)
+        checked = check_cut_int8_calls(torch, calls, full, names, world)
+    out = {"y": y, "y_full": y_full, "calls": checked, "plan": plan,
+           "sharded": sorted(sharding.sharded_parameters(net)),
+           "gathered_before": sharding.gather_state_dict(net, world)}
+    if "score_model" not in case:
+        return out
+    models = [ScoreModel(**case["score_model"], device="cpu") for _ in range(2)]
+    for m in models:
+        m.score_net.load_state_dict(case["state"])
+    sharding.shard_params(models[1].score_net, world, case["min_size"])
+    models[1].score_net.load_state_dict(shards)
+    batch = {"perturbed": torch.from_numpy(case["wav"])}
+    out["sample"], out["sample_full"] = (_sample(m, batch, case["seed"]) for m in models[::-1])
+    return out
+
+
+def gate_case(spec, case, world):
+    """A QConv (dynamic path) cut where its slice falls under the gate and
+    its whole width does not: the output gathered, the uncut conv's."""
+    from use_tpu_torch.models.ncsnpp import layers
+    from use_tpu_torch.parallel import sharding
+
+    c, o, min_channels = case["conv"]
+    convs = [layers.QConv(c, o, min_channels=min_channels) for _ in range(2)]
+    for conv in convs:
+        conv.load_state_dict(case["state"])
+    plan = sharding.shard_params(convs[1], world, 1)
+    convs[1].load_state_dict(sharding.shard_state_dict(case["state"], plan, world))
+    x = torch.from_numpy(case["x"])
+    with torch.no_grad():
+        ys = [conv(x) for conv in convs]
+    return {"y": ys[1], "y_full": ys[0], "local_out": convs[1].weight.shape[0],
+            "quantizes": convs[1].quantizes(),
+            "sharded": sorted(sharding.sharded_parameters(convs[1]))}
+
+
+KINDS = {"gan": gan_case, "csmgan": gan_case, "wave": wave_case, "grouped": wave_case,
+         "zoo": zoo_case, "serving": serving_case, "gate": gate_case}
 
 
 def main(spec_path, out_path):

@@ -22,8 +22,13 @@ parallel/sharding.py and mesh, on the CPU.
   as torch.distributed.nn's all_gather does, fails these gates; shard
   then gather is bit-equal, and the gathered state serves from an
   unsharded net.
-- Refusals: shard_params raises, naming the parameter, on HiFi-GAN's
-  generator, ConvTasNet, a transposed conv and the int8 nets.
+- The nets the port refused until transposed convs, the zoo's plain convs
+  and the int8 convs were cut (HiFi-GAN's generator, ConvTasNet, a
+  transposed conv, the int8 nets): the plan names use_tpu's leaves, each
+  on its output axis (dim 1 of a transposed conv's weight).
+- Refusals: shard_params raises, naming the parameter, on a conv that pads
+  other than with zeros, a grouped transposed conv and a plain conv of a
+  net that does not set shards_plain_convs.
 """
 import os
 import socket
@@ -31,6 +36,7 @@ import subprocess
 import sys
 
 import jax
+import flax.linen as jnn
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -362,27 +368,100 @@ class _TransposedOwner(torch.nn.Module):
         self.up = torch.nn.ConvTranspose1d(64, 64, 16, stride=8)
 
 
-@pytest.mark.parametrize("build", ["hifigan_generator", "conv_transpose", "convtasnet", "int8",
-                                   "int8_pallas"])
-def test_shard_params_refuses_what_the_port_cannot_shard(build):
-    """The rule shards a kernel of these nets; the port raises, naming it,
-    and never replicates quietly: HiFi-GAN's generator and ConvTasNet (not
-    nets whose plain convs it cuts), a transposed conv (its output axis is
-    dim 1) even in such a net, and the int8 nets."""
-    mesh = tmesh.make_mesh(model=2, world=4)
-    kind = r"\S+"
-    if build in ("hifigan_generator", "convtasnet"):
-        from use_tpu_torch.models.convtasnet import ConvTasNet
-        from use_tpu_torch.models.gan.hifigan_vocoder import HifiganGenerator
+class _JTransposed(jnn.Module):
+    """use_tpu's side of _TransposedOwner: Flax's ConvTranspose, [k, I, O]."""
 
+    @jnn.compact
+    def __call__(self, x):
+        return jnn.ConvTranspose(64, (16,), strides=(8,), name="up")(x)
+
+
+def _now_cut(build):
+    """(the port's net, use_tpu's params shapes, their converter, min_size)
+    of a build the port refused before it cut transposed convs, the zoo's
+    nets and the int8 convs."""
+    from use_tpu.models.convtasnet import ConvTasNet as JConvTasNet
+    from use_tpu.models.gan.hifigan_vocoder import HifiganGenerator as JHifigan
+    from use_tpu.models.ncsnpp.ncsnpp import NCSNpp as JNCSNpp, NCSNppConfig as JConfig
+    from use_tpu_torch.engine import convert_jax
+    from use_tpu_torch.models.convtasnet import ConvTasNet
+    from use_tpu_torch.models.gan.hifigan_vocoder import HifiganGenerator
+
+    def init(module, *shape):
+        return jax.eval_shape(module.init, jax.random.PRNGKey(0),
+                              jnp.zeros(shape, jnp.float32))["params"]
+
+    if build == "hifigan_generator":
         with torch.device("meta"):
-            net = HifiganGenerator() if build == "hifigan_generator" else ConvTasNet()
-        min_size = 1 << 16
-    elif build == "conv_transpose":
-        net, min_size, kind = _TransposedOwner(), 1 << 10, r"ConvTranspose1d"
-    else:
-        net = BackboneRegistry.get_by_name("ncsnpp")(nf=16, ch_mult=(1, 2), quant=build,
-                                                     quant_min_channels=16)
-        min_size = 1 << 10
-    with pytest.raises(ValueError, match=rf"shard_params: \S+\.weight \({kind}, "):
-        tsharding.shard_params(net, mesh, min_size)
+            net = HifiganGenerator()
+        return (net, init(JHifigan(), 1, 8, 80), convert_jax.hifigan_generator_params_to_state_dict,
+                1 << 16)
+    if build == "convtasnet":
+        with torch.device("meta"):
+            net = ConvTasNet()
+        return net, init(JConvTasNet(), 1, 1600), convert_jax.convtasnet_params_to_state_dict, 1 << 16
+    if build == "conv_transpose":
+        return (_TransposedOwner(), init(_JTransposed(), 1, 5, 64),
+                lambda p: convert_jax.flax_params_to_state_dict(p, transposed=("up",)), 1 << 10)
+    cfg = dict(nf=16, ch_mult=(1, 2), quant=build, quant_min_channels=16)
+    params = jax.eval_shape(JNCSNpp(JConfig(**cfg)).init, jax.random.PRNGKey(0),
+                            jnp.zeros((1, 32, 64, 4), jnp.float32), jnp.full((1,), 0.5))
+    return (BackboneRegistry.get_by_name("ncsnpp")(**cfg), params["params"],
+            ncsnpp_params_to_state_dict, 1 << 10)
+
+
+def _assert_cut_as_use_tpu(build):
+    """The plan of a build the port refused until it cut transposed convs
+    (on dim 1, their output axis), the zoo's plain convs and the int8
+    convs: exactly use_tpu's leaves, each on its output axis."""
+    net, params, convert, min_size = _now_cut(build)
+    mesh = jmesh.make_mesh(model=2, devices=jax.devices()[:8])
+    specs = jax.tree_util.tree_leaves(jsharding.params_shardings(params, mesh, min_size))
+    want = set()
+    for (path, leaf), spec in zip(jax.tree_util.tree_flatten_with_path(params)[0], specs):
+        tree = node = {}
+        for key in path[:-1]:
+            node = node.setdefault(key.key, {})
+        node[path[-1].key] = np.zeros(leaf.shape, np.float32)
+        if spec.spec != P():
+            (name,) = convert(tree)
+            want.add(name)
+    plan = tsharding.params_shardings(net, tmesh.make_mesh(model=2, world=8), min_size)
+    assert {k for k, axis in plan.items() if axis is not None} == want and want
+    for k in want:
+        owner = net.get_submodule(k.rpartition(".")[0])
+        assert plan[k] == (1 if isinstance(owner, torch.nn.modules.conv._ConvTransposeNd) else 0)
+
+
+class _Refused(torch.nn.Module):
+    """Convs the port cannot cut where the rule shards their kernels."""
+
+    shards_plain_convs = True
+
+    def __init__(self, build):
+        super().__init__()
+        if build == "reflect_padding":
+            self.conv = torch.nn.Conv1d(64, 64, 16, padding=1, padding_mode="reflect")
+        else:
+            self.conv = torch.nn.ConvTranspose1d(64, 64, 16, stride=8, groups=2)
+
+
+@pytest.mark.parametrize("build", ["hifigan_generator", "conv_transpose", "convtasnet", "int8",
+                                   "int8_pallas", "reflect_padding", "grouped_transposed",
+                                   "outside_owner"])
+def test_shard_params_refuses_what_the_port_cannot_shard(build):
+    """shard_params refuses exactly what the port cannot cut. The nets it
+    refused until it cut transposed convs, the zoo's plain convs and the
+    int8 convs (HiFi-GAN's generator, a transposed conv, ConvTasNet, the
+    int8 nets) are now cut as use_tpu cuts them. Where the rule shards a
+    kernel of a module the port still cannot cut, it raises, naming it,
+    and never replicates quietly: a conv that pads other than with zeros,
+    a grouped transposed conv, a plain conv of a net that does not set
+    shards_plain_convs."""
+    if build in ("hifigan_generator", "conv_transpose", "convtasnet", "int8", "int8_pallas"):
+        _assert_cut_as_use_tpu(build)
+        return
+    net = (torch.nn.Sequential(torch.nn.Conv1d(64, 64, 16)) if build == "outside_owner"
+           else _Refused(build))
+    with pytest.raises(ValueError, match=r"shard_params: \S+weight \((Conv1d|ConvTranspose1d), "):
+        tsharding.shard_params(net, tmesh.make_mesh(model=2, world=4), 1 << 10)

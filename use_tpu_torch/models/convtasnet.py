@@ -106,6 +106,8 @@ class ConvTasNet(nn.Module):
     The window is int(fs * win_ms / 1000) samples (32 at 16 kHz, 48 at
     24 kHz), the stride half of it."""
 
+    shards_plain_convs = True  # parallel/sharding.py may cut its convs on the 'model' axis
+
     def __init__(self, fs: int = 16000, win_ms: float = 2.0, enc_dim: int = 256,
                  feature_dim: int = 128, layer: int = 8, stack: int = 3, kernel: int = 3,
                  causal: bool = False, seed: int = 0):

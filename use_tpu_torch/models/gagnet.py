@@ -337,6 +337,8 @@ class GaGNet(nn.Module):
     stripped after the last stage. fft_num, norm_type and input_channels
     are accepted and unused, as in use_tpu (the bins come from the input)."""
 
+    shards_plain_convs = True  # parallel/sharding.py may cut its convs on the 'model' axis
+
     def __init__(self, cin: int = 2, k1: Tuple[int, int] = (2, 3), k2: Tuple[int, int] = (1, 3),
                  c: int = 64, kd1: int = 3, cd1: int = 64, d_feat: int = 256, p: int = 2,
                  q: int = 3, dilas: Sequence[int] = (1, 2, 5, 9), fft_num: int = 320,

@@ -45,6 +45,8 @@ class WaveNet(nn.Module):
     """(open_models.py:133-199): [B, 1, T] -> [B, out_channels, T]; the skip
     outputs summed and scaled by sqrt(1 / layers)."""
 
+    shards_plain_convs = True  # parallel/sharding.py may cut its convs on the 'model' axis
+
     def __init__(self, stacks: int = 2, layers: int = 8, wavenet_channels: int = 128,
                  out_channels: int = 1, kernel_size: int = 3, dilation_base: int = 3):
         super().__init__()
@@ -71,6 +73,8 @@ class WaveNet(nn.Module):
 class BandwidthExtender(nn.Module):
     """(open_models.py:74-131): [B, L] at `source_rate` -> [B, L'] at
     sample_rate (L' = ceil(L sample_rate / source_rate))."""
+
+    shards_plain_convs = True  # parallel/sharding.py may cut its convs on the 'model' axis
 
     def __init__(self, sample_rate: int = SAMPLE_RATE, seed: int = 0):
         super().__init__()

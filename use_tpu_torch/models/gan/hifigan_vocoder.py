@@ -144,6 +144,8 @@ class HifiganGenerator(nn.Module):
     and voicing as two more channels) -> wav [B, frames * prod(upsample_scales)]
     ([B, out_channels, ...] where out_channels > 1)."""
 
+    shards_plain_convs = True  # parallel/sharding.py may cut its convs on the 'model' axis
+
     def __init__(self, in_channels: int = 80, out_channels: int = 1, channels: int = 512,
                  kernel_size: int = 7, upsample_scales: Sequence[int] = (8, 8, 2, 2),
                  upsample_kernel_sizes: Sequence[int] = (16, 16, 4, 4),

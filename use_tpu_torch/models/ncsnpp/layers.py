@@ -23,9 +23,13 @@ apply with its int8 epilogue), the ``Conv_2`` shortcut of
 
 Tensor parallelism (parallel/sharding.py): a ``Conv2d`` or ``Linear`` whose
 ``tp`` is set holds its output channels of this model rank; it computes
-them, gathers them over the model group and adds the whole bias. Where a
-BigGAN block's ``Conv_2`` is sharded, K2 runs on this rank's output
-channels and one gather follows it.
+them with the rank's slice of the bias inside the conv or matmul, and
+gathers them over the model group, so that each output channel goes
+through the uncut layer's arithmetic (bit for bit on the CPU). The int8
+convs (``FusedQConv3x3``, ``QConv``) pass the slice to K3's or the s8
+conv's epilogue likewise. Where a BigGAN block's ``Conv_2`` is sharded, K2
+runs on this rank's output channels of ``Conv_1`` and one gather follows
+it.
 """
 from __future__ import annotations
 
@@ -50,7 +54,6 @@ from use_tpu_torch.ops.upfirdn2d import (
     upsample_conv_2d,
 )
 from use_tpu_torch.parallel.sharding import (
-    column_parallel,
     copy_to_model,
     gather_from_model,
     split_to_model,
@@ -108,20 +111,25 @@ class Conv2d(nn.Module):
 
     def conv_with(self, x: torch.Tensor, conv: Callable, dtype: torch.dtype) -> torch.Tensor:
         """conv(x, weight, bias) in `dtype`. Sharded (``tp``): conv on this
-        rank's output channels without the bias, gathered over the model
-        group, then the bias."""
-        w = self.weight.to(dtype)
-        b = None if self.bias is None else self.bias.to(dtype)
+        rank's output channels with their slice of the bias, gathered over
+        the model group: each channel's arithmetic is the uncut conv's."""
         if self.tp is None:
-            return conv(x.to(dtype), w, b)
-        return column_parallel(x, self.tp, lambda x: conv(x.to(dtype), w, None), b)
+            w = self.weight.to(dtype)
+            return conv(x.to(dtype), w, None if self.bias is None else self.bias.to(dtype))
+        return gather_from_model(self.local_with(x, conv, dtype), self.tp, 1)
+
+    def local_with(self, x: torch.Tensor, conv: Callable, dtype: torch.dtype) -> torch.Tensor:
+        """This model rank's output channels of conv_with (sharded convs
+        only): its slice of the bias goes into the conv, and the bias's and
+        x's gradients come back whole."""
+        b = None if self.bias is None else split_to_model(self.bias.to(dtype), self.tp, 0)
+        return conv(copy_to_model(x, self.tp).to(dtype), self.weight.to(dtype), b)
 
     def local(self, x: torch.Tensor) -> torch.Tensor:
-        """This model rank's output channels of forward(x), with their
-        slice of the bias (sharded convs only)."""
-        b = None if self.bias is None else split_to_model(self.bias.to(self.dtype), self.tp, 0)
-        return F.conv2d(copy_to_model(x, self.tp).to(self.dtype), self.weight.to(self.dtype), b,
-                        padding=self.padding)
+        """This model rank's output channels of forward(x) (sharded convs
+        only)."""
+        return self.local_with(x, lambda x, w, b: F.conv2d(x, w, b, padding=self.padding),
+                               self.dtype)
 
 
 def _state(t: torch.Tensor) -> Optional[tuple]:
@@ -169,12 +177,30 @@ class FusedQConv3x3(Conv2d):
 
     def forward(self, x: torch.Tensor, gn_scale: torch.Tensor, gn_shift: torch.Tensor,
                 u: torch.Tensor) -> torch.Tensor:
+        y = self.local(x, gn_scale, gn_shift, u)
+        return y if self.tp is None else gather_from_model(y, self.tp, 1)
+
+    def local(self, x: torch.Tensor, gn_scale: torch.Tensor, gn_shift: torch.Tensor,
+              u: torch.Tensor) -> torch.Tensor:
+        """K3 on the output channels this model rank holds (all of them
+        where the weight is not cut), their slice of the bias in K3's
+        epilogue. A cut weight is prepared as its slice of the whole weight's
+        preparation (both are per output channel)."""
         prepared, bias = _kept(self, u, lambda: (
             fused_qconv.prepare_qconv_weight(self.weight, u),
-            None if self.bias is None else self.bias.float().contiguous()))
+            None if self.bias is None else _bias_slice(self).float().contiguous()))
         return fused_qconv.qconv3x3_fused(x.contiguous(), self.weight, u, gn_scale, gn_shift,
                                           act=True, bias=bias, out_dtype=self.dtype,
                                           prepared=prepared)
+
+
+def _bias_slice(conv: Conv2d) -> Optional[torch.Tensor]:
+    """The bias of the output channels a conv's weight holds: the whole bias,
+    or this model rank's slice of it where the weight is cut."""
+    if conv.bias is None or conv.tp is None:
+        return conv.bias
+    n = conv.weight.shape[0]
+    return conv.bias.narrow(0, conv.tp.model_rank * n, n)
 
 
 class QConv(Conv2d):
@@ -188,9 +214,10 @@ class QConv(Conv2d):
     NCHW: a per-input-channel scale [C] folds into the weight, a scalar or
     per-sample one [B, 1, 1, 1] dequantizes after the conv. ``forward(x)``
     quantizes x per sample (packed to C32) where min(C, O) reaches
-    ``min_channels`` (scaled by 9 / (kh kw) for other kernels), else runs
-    the exact conv. The weight is quantized once and kept until the weight,
-    the bias or the scale tensor change (``_kept``). Serving only."""
+    ``min_channels`` (scaled by 9 / (kh kw) for other kernels; O the whole
+    output width of a cut weight, as use_tpu's sharded kernel has it), else
+    runs the exact conv. The weight is quantized once and kept until the
+    weight, the bias or the scale tensor change (``_kept``). Serving only."""
 
     _prepared = None  # (key, u, S8Weights, pinned parameters)
 
@@ -200,12 +227,28 @@ class QConv(Conv2d):
         super().__init__(in_ch, out_ch, kernel, bias, init_scale, dtype)
         self.min_channels = min_channels
 
+    def quantizes(self) -> bool:
+        """Whether ``forward(x)`` quantizes x: use_tpu's gate, on the whole
+        output width of a cut weight."""
+        o, c, kh, kw = self.weight.shape
+        o *= 1 if self.tp is None else self.tp.model
+        return min(c, o) >= self.min_channels * 9 // max(kh * kw, 1)
+
     def forward(self, x: torch.Tensor,
                 prequant_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if prequant_scale is None and not self.quantizes():
+            return super().forward(x)
+        y = self.local(x, prequant_scale)
+        return y if self.tp is None else gather_from_model(y, self.tp, 1)
+
+    def local(self, x: torch.Tensor,
+              prequant_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The s8 conv on the output channels this model rank holds, their
+        slice of the bias in the kernel's epilogue (the exact conv's local
+        channels where the dynamic path's gate is shut)."""
         if prequant_scale is None:
-            o, c, kh, kw = self.weight.shape
-            if min(c, o) < self.min_channels * 9 // max(kh * kw, 1):
-                return super().forward(x)
+            if not self.quantizes():
+                return super().local(x)
             x, post = qconv.quantize_per_sample(x)
             x, u = qconv.pack_c32(x), None
         elif prequant_scale.dim() == 1:
@@ -213,7 +256,8 @@ class QConv(Conv2d):
         else:
             u, post = None, prequant_scale.reshape(-1)
         prepared = _kept(self, u, lambda: qconv.prepare_s8_weight(self.weight, u))
-        return qconv.s8_conv(x, prepared, post, self.bias, self.dtype, padding=self.padding)
+        return qconv.s8_conv(x, prepared, post, _bias_slice(self), self.dtype,
+                             padding=self.padding)
 
 
 class Linear(nn.Module):
@@ -238,7 +282,9 @@ class Linear(nn.Module):
         w, b = self.weight.to(self.dtype), self.bias.to(self.dtype)
         if self.tp is None:
             return F.linear(x.to(self.dtype), w, b)
-        return column_parallel(x, self.tp, lambda x: F.linear(x.to(self.dtype), w), b)
+        # as Conv2d's: this rank's slice of the bias in the matmul
+        y = F.linear(copy_to_model(x, self.tp).to(self.dtype), w, split_to_model(b, self.tp, 0))
+        return gather_from_model(y, self.tp, 1)
 
 
 class GroupNormAct(nn.Module):
@@ -617,14 +663,16 @@ class ResnetBlockBigGANpp(nn.Module):
         if temb is not None and self.Dense_0 is not None:
             h = h + self.Dense_0(self.act(temb))[:, :, None, None]
         scale = _SKIP_SCALE if self.skip_rescale else 1.0
-        if self.qp1:
-            h = self.Conv_1(h, *self.GroupNorm_1(h))
-        elif self.q1:
-            h = self.Conv_1(*self.GroupNorm_1(h))
+        sharded = self.Conv_2 is not None and self.Conv_2.tp is not None
+        if self.qp1 or self.q1:
+            args = (h, *self.GroupNorm_1(h)) if self.qp1 else self.GroupNorm_1(h)
+            if sharded:
+                return self._sharded_skip(x, self.Conv_1.local(*args), scale)
+            h = self.Conv_1(*args)
         else:
             h = F.dropout(self.GroupNorm_1(h), self.dropout, training=self.training)
-            if self.Conv_2 is not None and self.Conv_2.tp is not None:
-                return self._sharded_skip(x, h, scale)
+            if sharded:
+                return self._sharded_skip(x, self.Conv_1.local(h), scale)
             h = self.Conv_1(h)
         if self.Conv_2 is not None:
             conv = self.Conv_2
@@ -636,13 +684,13 @@ class ResnetBlockBigGANpp(nn.Module):
         return (x + h) * scale if self.skip_rescale else x + h
 
     def _sharded_skip(self, x: torch.Tensor, h: torch.Tensor, scale: float) -> torch.Tensor:
-        """Conv_1 and K2 on this model rank's output channels (Conv_2
-        sharded, so Conv_1 too: its 9 out^2 weights outnumber Conv_2's
-        in x out in every NCSN++ block): K2 takes Conv_1's output channels
-        of this rank before their gather, Conv_2's weight slice and bias
+        """K2 on this model rank's output channels (Conv_2 sharded, so Conv_1
+        too: its 9 out^2 weights outnumber Conv_2's in x out in every NCSN++
+        block): K2 takes h, Conv_1's output channels of this rank before
+        their gather (``Conv_1.local``), Conv_2's weight slice and bias
         slice; one gather follows."""
         tp, conv = self.Conv_2.tp, self.Conv_2
-        out = fused_skip_add(copy_to_model(x.to(self.dtype), tp).contiguous(),
-                             self.Conv_1.local(h).contiguous(), conv.weight.to(self.dtype),
+        out = fused_skip_add(copy_to_model(x.to(self.dtype), tp).contiguous(), h.contiguous(),
+                             conv.weight.to(self.dtype),
                              split_to_model(conv.bias.to(self.dtype), tp, 0), scale)
         return gather_from_model(out, tp, 1)

@@ -80,6 +80,8 @@ def _pool5(x: torch.Tensor, maxpool: bool) -> torch.Tensor:
 class CRPBlock(nn.Module):
     """Chained residual pooling (layers.py:170-191)."""
 
+    shards_plain_convs = True  # parallel/sharding.py may cut its convs on the 'model' axis
+
     def __init__(self, features: int, n_stages: int, act: Act = F.relu, maxpool: bool = True,
                  normalizer: Normalizer = None):
         super().__init__()
@@ -105,6 +107,8 @@ class CRPBlock(nn.Module):
 
 class RCUBlock(nn.Module):
     """Residual conv unit chain (layers.py:220-246)."""
+
+    shards_plain_convs = True  # parallel/sharding.py may cut its convs on the 'model' axis
 
     def __init__(self, features: int, n_blocks: int, n_stages: int, act: Act = F.relu,
                  normalizer: Normalizer = None):
@@ -150,6 +154,8 @@ class MSFBlock(nn.Module):
     """Multi-scale fusion: a conv per input, bilinear resize, sum
     (layers.py:283-300)."""
 
+    shards_plain_convs = True  # parallel/sharding.py may cut its convs on the 'model' axis
+
     def __init__(self, in_planes: Sequence[int], features: int, normalizer: Normalizer = None):
         super().__init__()
         self.n_inputs = len(in_planes)
@@ -174,6 +180,8 @@ class MSFBlock(nn.Module):
 class RefineBlock(nn.Module):
     """RefineNet block: RCU adapters -> MSF -> CRP -> output RCU
     (layers.py:330-360)."""
+
+    shards_plain_convs = True  # parallel/sharding.py may cut its convs on the 'model' axis
 
     def __init__(self, in_planes: Sequence[int], features: int, act: Act = F.relu,
                  start: bool = False, end: bool = False, maxpool: bool = True,
@@ -207,6 +215,8 @@ class ConvMeanPool(nn.Module):
     one row and column on the top and left, then pads no more (k 3: VALID;
     k 1: k // 2 = 0)."""
 
+    shards_plain_convs = True  # parallel/sharding.py may cut its convs on the 'model' axis
+
     def __init__(self, input_dim: int, output_dim: int, kernel_size: int = 3,
                  biases: bool = True, adjust_padding: bool = False):
         super().__init__()
@@ -223,6 +233,8 @@ class ConvMeanPool(nn.Module):
 class MeanPoolConv(nn.Module):
     """A 2x mean pool, then a conv (layers.py:434-454)."""
 
+    shards_plain_convs = True  # parallel/sharding.py may cut its convs on the 'model' axis
+
     def __init__(self, input_dim: int, output_dim: int, kernel_size: int = 3,
                  biases: bool = True):
         super().__init__()
@@ -236,6 +248,8 @@ class MeanPoolConv(nn.Module):
 class UpsampleConv(nn.Module):
     """A nearest 2x upsample (the reference's 4x channel repeat and pixel
     shuffle), then a conv (layers.py:457-470)."""
+
+    shards_plain_convs = True  # parallel/sharding.py may cut its convs on the 'model' axis
 
     def __init__(self, input_dim: int, output_dim: int, kernel_size: int = 3,
                  biases: bool = True):
@@ -252,6 +266,8 @@ class ResidualBlock(nn.Module):
     (layers.py:473-560); conditional when `normalizer` is given. The
     shortcut is the identity only when the widths match and nothing
     resamples."""
+
+    shards_plain_convs = True  # parallel/sharding.py may cut its convs on the 'model' axis
 
     def __init__(self, input_dim: int, output_dim: int, resample: Optional[str] = None,
                  act: Act = F.elu, normalizer: Normalizer = None, dilation: int = 1,

@@ -6,9 +6,9 @@ keeps biases, norms and the NIN / Fourier ``W``s replicated; where the
 output axis does not divide by the model axis, it falls back to
 replication. XLA's SPMD partitioner then derives the collectives. The
 port's kernels are the ``weight``s of its convs (OIHW) and dense layers
-([out, in]), so the output axis is dim 0; the FIR convs of Upsample /
-Downsample hold ``Conv2d_0.weight``, which use_tpu names
-``Conv2d_0_weight`` (no kernel), and stay replicated.
+([out, in]), so the output axis is dim 0 (a transposed conv's is dim 1,
+below); the FIR convs of Upsample / Downsample hold ``Conv2d_0.weight``,
+which use_tpu names ``Conv2d_0_weight`` (no kernel), and stay replicated.
 
 The collectives are written out here, over the model group of a
 ``make_mesh`` layout (parallel/mesh.py, rank = d * model + m):
@@ -24,22 +24,35 @@ The collectives are written out here, over the model group of a
   then the slice), so that the gradient of what it came from is whole.
 
 A sharded layer (its ``tp`` the World of the layout) is column-parallel
-with its output gathered (``column_parallel``): the conv or matmul of its
-output channels, the gather, then the replicated bias. The NCSN++ family's
-``layers.Conv2d`` / ``layers.Linear`` carry that forward themselves, and
-the BigGAN block's K2 runs on the shard of its output channels (models/
-ncsnpp/layers.py). A plain ``nn.Conv1d`` / ``nn.Conv2d`` is cut where it
-lies under a module whose class sets ``shards_plain_convs`` (the
-discriminator banks, CSMGAN): ``shard_params`` turns the instance itself
-into a ``ColumnParallelConv1d`` / ``ColumnParallelConv2d`` (its class, not
-its place in the parent: a net that calls its convs from a plain list keeps
-calling the cut one, and the state-dict keys stay). A grouped conv's slice
-covers a run of its groups: the rank convolves those groups' input
-channels only, the slice padded with zero rows to whole groups where the
-model axis does not divide the group count. The gather is one opaque op
-(``model_all_gather``), so that the ``conv_outs`` remat policy
-(models/ncsnpp/ncsnpp.py) keeps its output and the backward's
-recomputation gathers nothing again.
+with its output gathered: the conv or matmul of its output channels, then
+the gather. The NCSN++ family's ``layers.Conv2d`` / ``layers.Linear``
+carry that forward themselves, with the rank's slice of the bias
+(``split_to_model``) inside the conv or matmul, so that each output
+channel goes through the uncut layer's arithmetic; the BigGAN block's K2
+runs on the shard of its output channels, and the int8 serving convs
+(``FusedQConv3x3``, ``QConv``) run K3 or the s8 conv on them with the
+bias slice in the kernel's epilogue (models/ncsnpp/layers.py): their
+gathered output is the one-process call's, bit for bit. The plain torch
+convs below add the replicated bias after the gather
+(``column_parallel``). A plain torch conv (``nn.Conv1d`` /
+``nn.Conv2d``, or a subclass that keeps their forward, as the NCSNv1
+layers' ``Conv``) is cut where it lies under a module whose class sets
+``shards_plain_convs`` (the discriminator banks, CSMGAN, the HiFi-GAN and
+BWE generators, GaGNet, ConvTasNet, the NCSNv1 blocks): ``shard_params``
+turns the instance itself into a ``ColumnParallelConv1d`` /
+``ColumnParallelConv2d`` (its class, not its place in the parent: a net
+that calls its convs from a plain list keeps calling the cut one, and the
+state-dict keys stay; a subclass gets a column-parallel class of its own,
+which keeps its methods). A grouped conv's slice covers a run of its
+groups: the rank convolves those groups' input channels only, the slice
+padded with zero rows to whole groups where the model axis does not divide
+the group count. A transposed conv (``nn.ConvTranspose1d`` / ``2d``,
+weight [I, O, k...]) has its output axis on dim 1, where Flax's kernel
+[k..., I, O] has it last: it is cut on dim 1 and becomes a
+``ColumnParallelConvTranspose1d`` / ``2d``; any crop of its output stays
+with its caller. The gather is one opaque op (``model_all_gather``), so
+that the ``conv_outs`` remat policy (models/ncsnpp/ncsnpp.py) keeps its
+output and the backward's recomputation gathers nothing again.
 
 In training (engine/state.py) the replicated parameters' gradients are
 averaged over the model group, so the replicas stay bit-identical, and the
@@ -172,17 +185,77 @@ class ColumnParallelConv2d(ColumnParallelConv, nn.Conv2d):
     pass
 
 
-_COLUMN_PARALLEL = {nn.Conv1d: ColumnParallelConv1d, nn.Conv2d: ColumnParallelConv2d}
+class ColumnParallelConvTranspose:
+    """The forward of a plain torch transposed conv (one group) that
+    ``shard_params`` cut: its ``weight`` [I, O / model, k...] holds this
+    model rank's output channels on dim 1 (``tp`` the World); the rank's
+    transposed conv, the gather on the channel axis, then the bias."""
+
+    tp: Optional[World] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return column_parallel(x, self.tp, self._local, self.bias)
+
+    def _local(self, x: torch.Tensor) -> torch.Tensor:
+        conv = F.conv_transpose1d if self.weight.dim() == 3 else F.conv_transpose2d
+        return conv(x, self.weight, None, self.stride, self.padding, self.output_padding, 1,
+                    self.dilation)
 
 
-def param_spec(name: str, tensor: torch.Tensor, min_size: int = 1 << 16) -> Optional[int]:
-    """The axis use_tpu's rule shards the parameter `name` on (0, the
-    output axis of the port's kernels), or None: a ``weight`` of ndim >= 2
-    with at least `min_size` elements, but a FIR conv's (``Conv2d_0``)."""
+class ColumnParallelConvTranspose1d(ColumnParallelConvTranspose, nn.ConvTranspose1d):
+    pass
+
+
+class ColumnParallelConvTranspose2d(ColumnParallelConvTranspose, nn.ConvTranspose2d):
+    pass
+
+
+_TRANSPOSED = (nn.ConvTranspose1d, nn.ConvTranspose2d)
+_PLAIN = (nn.Conv1d, nn.Conv2d) + _TRANSPOSED
+# the class a cut plain conv takes, by its own class; subclasses join at
+# their first cut (``_column_parallel_class``)
+_COLUMN_PARALLEL = {nn.Conv1d: ColumnParallelConv1d, nn.Conv2d: ColumnParallelConv2d,
+                    nn.ConvTranspose1d: ColumnParallelConvTranspose1d,
+                    nn.ConvTranspose2d: ColumnParallelConvTranspose2d}
+
+
+def _column_parallel_class(cls: type) -> type:
+    """The column-parallel class of a plain conv class: for a subclass of a
+    torch conv, one made from it, with the column-parallel forward first."""
+    if cls not in _COLUMN_PARALLEL:
+        mixin = ColumnParallelConvTranspose if issubclass(cls, _TRANSPOSED) else ColumnParallelConv
+        _COLUMN_PARALLEL[cls] = type(f"{cls.__name__}ColumnParallel", (mixin, cls),
+                                     {"__module__": cls.__module__})
+    return _COLUMN_PARALLEL[cls]
+
+
+def _cuttable_plain(m: nn.Module) -> bool:
+    """Whether `m` is a plain torch conv the port can cut: zero padding, the
+    torch class's own forward, one group where it is transposed."""
+    if not isinstance(m, _PLAIN) or m.padding_mode != "zeros":
+        return False
+    base = next(b for b in _PLAIN if isinstance(m, b))
+    return type(m).forward is base.forward and not (isinstance(m, _TRANSPOSED) and m.groups > 1)
+
+
+def _weight_axis(m: nn.Module) -> int:
+    """The axis of `m`'s weight that holds its output channels: 1 for a
+    transposed conv ([I, O, k...]), else 0."""
+    return 1 if isinstance(m, _TRANSPOSED) else 0
+
+
+def param_spec(name: str, tensor: torch.Tensor, min_size: int = 1 << 16,
+               transposed: bool = False) -> Optional[int]:
+    """The axis use_tpu's rule shards the parameter `name` on (the output
+    axis of the port's kernels: 0, or 1 for a transposed conv's weight), or
+    None: a ``weight`` of ndim >= 2 with at least `min_size` elements, but a
+    FIR conv's (``Conv2d_0``)."""
     scope, _, leaf = name.rpartition(".")
     if leaf != "weight" or scope.rpartition(".")[2] == "Conv2d_0":
         return None
-    return 0 if tensor.dim() >= 2 and tensor.numel() >= min_size else None
+    if tensor.dim() < 2 or tensor.numel() < min_size:
+        return None
+    return 1 if transposed else 0
 
 
 def _plain_conv_owners(module: nn.Module) -> List[str]:
@@ -201,10 +274,9 @@ def params_shardings(module: nn.Module, mesh: World,
     (replicated, also where the output axis does not divide by the model
     axis). Raises, naming the parameter, where the rule shards a parameter
     of a module the port cannot cut: one other than the NCSN++ family's
-    ``Conv2d`` and ``Linear`` and the plain ``nn.Conv1d`` / ``nn.Conv2d``
-    (zero padding) of a net that sets ``shards_plain_convs`` (transposed
-    convs, the int8 convs, GaGNet's, ConvTasNet's and the NCSNv1 layers
-    among them)."""
+    ``Conv2d`` (the int8 convs among them) and ``Linear``, and the plain
+    torch convs of a net that sets ``shards_plain_convs`` (zero padding, the
+    torch forward, one group where transposed)."""
     from use_tpu_torch.models.ncsnpp import layers
 
     owners = _plain_conv_owners(module)
@@ -212,17 +284,17 @@ def params_shardings(module: nn.Module, mesh: World,
     for mname, m in module.named_modules():
         for pname, p in m.named_parameters(recurse=False):
             name = f"{mname}.{pname}" if mname else pname
-            axis = param_spec(name, p, min_size)
+            axis = param_spec(name, p, min_size, isinstance(m, _TRANSPOSED))
             if axis is not None and isinstance(m, nn.Embedding):
                 axis = None  # use_tpu's ``embedding``, not a kernel
-            plain = (type(m) in _COLUMN_PARALLEL and m.padding_mode == "zeros"
-                     and _under(mname, owners))
-            if axis is not None and not plain and type(m) not in (layers.Conv2d, layers.Linear):
+            plain = _cuttable_plain(m) and _under(mname, owners)
+            if axis is not None and not plain and not isinstance(m, (layers.Conv2d,
+                                                                     layers.Linear)):
                 raise ValueError(
                     f"shard_params: {name} ({type(m).__name__}, {tuple(p.shape)}) is a kernel "
                     "that use_tpu's rule shards; the port shards the NCSN++ family's Conv2d "
-                    "and Linear and the plain Conv1d / Conv2d of the discriminator banks "
-                    "and CSMGAN only")
+                    "and Linear and the plain torch convs (zero padding, one group where "
+                    "transposed) of a net that sets shards_plain_convs only")
             if axis is not None and p.shape[axis] % mesh.model:
                 axis = None
             out[name] = axis
@@ -248,8 +320,8 @@ def shard_params(module: nn.Module, mesh: World,
         owner.weight = nn.Parameter(_slice(full, axis, mesh).clone(),
                                     requires_grad=owner.weight.requires_grad)
         owner.tp = mesh
-        if type(owner) in _COLUMN_PARALLEL:
-            owner.__class__ = _COLUMN_PARALLEL[type(owner)]
+        if isinstance(owner, _PLAIN):
+            owner.__class__ = _column_parallel_class(type(owner))
     return plan
 
 
@@ -273,15 +345,23 @@ def sharded_parameters(module: nn.Module) -> Dict[str, nn.Parameter]:
             if getattr(m, "tp", None) is not None}
 
 
+def gather_slices(module: nn.Module, tensors: Dict[str, torch.Tensor],
+                  world: World) -> Dict[str, torch.Tensor]:
+    """`tensors` (by `module`'s parameter names: its parameters, their
+    gradients) with each of a cut weight's slices gathered whole over the
+    model group, on the weight's output axis."""
+    axes = {f"{n}.weight" if n else "weight": _weight_axis(m) for n, m in module.named_modules()
+            if getattr(m, "tp", None) is not None}
+    return {k: model_all_gather(v.detach(), axes[k], world.model_group.group_name, world.model)
+            if k in axes else v for k, v in tensors.items()}
+
+
 @torch.no_grad()
 def gather_state_dict(module: nn.Module, mesh: World) -> Dict[str, torch.Tensor]:
     """`module`'s state dict with each slice gathered over the model group:
     the full state, as np.asarray gives a sharded jax array whole, which
     loads into an unsharded net bit for bit."""
-    out = module.state_dict()
-    for name, p in sharded_parameters(module).items():
-        out[name] = model_all_gather(p.detach(), 0, mesh.model_group.group_name, mesh.model)
-    return out
+    return gather_slices(module, module.state_dict(), mesh)
 
 
 @torch.no_grad()
