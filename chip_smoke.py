@@ -1068,9 +1068,10 @@ def qconv_phase(torch, dev, gen):
     1e-3 of the outputs off by more than 1e-6 * max|ref| (a quantum flipped
     by a last-bit difference of the sigmoid); bf16: one bf16 ulp of max|ref|.
     The kernel's time is on prepared weights (`ms`, with the tile the
-    wrapper picks; `tile_ms` with each of the kernel's tiles), and
-    `prep_ms` is the weight preparation alone. QCONV_RAGGED is checked, not
-    timed."""
+    wrapper picks, single calls in turns with the library call, bf16 /
+    fp32 F.conv2d on the unquantized activation, as `s8_phase` times them;
+    `tile_ms` with each of the kernel's tiles), and `prep_ms` is the weight
+    preparation alone. QCONV_RAGGED is checked, not timed."""
     import torch.nn.functional as F
 
     from use_tpu_torch.ops import fused_qconv as fq
@@ -1083,7 +1084,7 @@ def qconv_phase(torch, dev, gen):
         return err, flips, flips / diff.numel(), (err <= tol and flips / diff.numel() <= 1e-3)
 
     mismatches = fq.rcp_mismatches(dev)
-    phase("kernel_check", name="rcp_newton", floats="[1, 2^126)", mismatches=mismatches)
+    phase("kernel_check", name="rcp_newton", floats="[1, inf] and NaN", mismatches=mismatches)
     if mismatches:
         raise AssertionError(f"K3's reciprocal differs from IEEE 1/d at {mismatches} floats")
     cases = []
@@ -1101,7 +1102,7 @@ def qconv_phase(torch, dev, gen):
             bias = 0.05 * torch.randn((o,), generator=gen, device=dev)
             args = (x, w, u, a, off, True, bias, dt)
             prepared = fq.prepare_qconv_weight(w, u)
-            tile = fq.pick_tile(hh, ww, o)
+            tile = fq.pick_tile(hh, ww, o, b)
             run_args = (x, prepared, a, off, True, bias, dt)
             out_tiles = {t: fq.qconv3x3_fused_prepared(*run_args, tile=t) for t in fq.TILES}
             out = out_tiles[tile]
@@ -1144,18 +1145,18 @@ def qconv_phase(torch, dev, gen):
             bms, by = bound(nbytes, 2 * 9 * b * hh * ww * c * o, "int8")
             act_x = F.silu(x.float() * a[:, :, None, None] + off[:, :, None, None]).to(dt)
             bias_dt = bias.to(dt)
+            library = lambda: F.conv2d(act_x, w, bias_dt, padding=1)  # noqa: E731
+            ms, lib_ms = time_pair_ms(torch, lambda: fq.qconv3x3_fused_prepared(*run_args),
+                                      library, 20)
             cases.append(dict(
                 name="qconv3x3_fused", route="cuda", source="use_tpu_torch/csrc/fused_qconv.cu",
                 replaces="use_tpu/ops/pallas_qconv.py:186", **checked,
-                ms=time_ms(torch, lambda: fq.qconv3x3_fused_prepared(*run_args)),
-                device_ms=device_ms(torch, lambda: fq.qconv3x3_fused_prepared(*run_args))[0],
+                ms=ms, device_ms=device_ms(torch, lambda: fq.qconv3x3_fused_prepared(*run_args))[0],
                 tile_ms={t: time_ms(torch, lambda: fq.qconv3x3_fused_prepared(*run_args, tile=t))
                          for t in fq.TILES},
                 prep_ms=time_ms(torch, lambda: fq.prepare_qconv_weight(w, u)),
                 plain_ms=time_ms(torch, lambda: fq.qconv3x3_fused_plain(*args), reps=3, warmup=1),
-                library_ms=time_ms(torch, lambda: F.conv2d(act_x, w, bias_dt, padding=1)),
-                library_device_ms=device_ms(torch, lambda: F.conv2d(act_x, w, bias_dt,
-                                                                    padding=1))[0],
+                library_ms=lib_ms, library_device_ms=device_ms(torch, library)[0],
                 bound_ms=bms, bound_by=by))
             phase("kernel", **{k: v for k, v in cases[-1].items()
                                if k not in ("route", "source", "replaces")})

@@ -88,20 +88,21 @@ def test_quantize_weight_folded_bit_equal_to_jax():
 
 
 def _assert_kernel_layout(wk, want):
-    """wk, the kernel's int8 [ceil(C / 32), 9, O, 32], unpacked by a naive
+    """wk, the kernel's int8 [ceil(C / 32), 2, 9, O, 16], unpacked by a naive
     index loop, equals want [9, C, O] (use_tpu's HWIO order); zeros past C."""
     taps, c, o = want.shape
     wk = wk.numpy()
-    assert wk.dtype == np.int8 and wk.shape == (-(-c // 32), 9, o, 32)
+    assert wk.dtype == np.int8 and wk.shape == (-(-c // 32), 2, 9, o, 16)
     got = np.full((9, c, o), 99, np.int8)
     for k in range(wk.shape[0]):
-        for tap in range(9):
-            for oo in range(o):
-                for j in range(32):
-                    if 32 * k + j < c:
-                        got[tap, 32 * k + j, oo] = wk[k, tap, oo, j]
-                    else:
-                        assert wk[k, tap, oo, j] == 0
+        for half in range(2):
+            for tap in range(9):
+                for oo in range(o):
+                    for j in range(16):
+                        if 32 * k + 16 * half + j < c:
+                            got[tap, 32 * k + 16 * half + j, oo] = wk[k, half, tap, oo, j]
+                        else:
+                            assert wk[k, half, tap, oo, j] == 0
     np.testing.assert_array_equal(got, want)
 
 
@@ -114,6 +115,37 @@ def test_kernel_weight_layout_ragged_channels_bit_equal_to_jax():
     _assert_kernel_layout(prepared.qw, np.asarray(qw).reshape(9, 36, 40))
     tqw, _ = tq.quantize_weight_folded(_hwio_to_oihw(k), _t(u))
     assert torch.equal(tq._weights_from_kernel(prepared.qw, 36), tqw)
+
+
+@pytest.mark.parametrize("b,h,w,o,tile", [
+    (8, 512, 192, 128, "16x16x128"), (8, 256, 96, 128, "16x16x128"),
+    (8, 128, 48, 256, "8x16x256"), (8, 64, 24, 256, "8x16x256"), (8, 128, 16, 128, "16x16x128"),
+    (8, 32, 12, 256, "8x8x256"), (8, 16, 6, 256, "8x8x256"), (8, 8, 3, 256, "8x8x256"),
+    (1, 512, 64, 64, "16x16x64"), (1, 128, 16, 128, "8x8x256"),  # a model rank's slices
+    (2, 5, 7, 40, "8x8x256"),
+])
+def test_pick_tile_at_the_int8_path_shapes(b, h, w, o, tile):
+    assert tq.pick_tile(h, w, o, b) == tile and tile in tq.TILES
+
+
+@pytest.mark.parametrize("shape,tile,splits", [
+    ((8, 128, 128, 512, 192), "16x16x128", 1),  # 3072 tiles
+    ((8, 256, 256, 64, 24), "8x16x256", 1),  # 128 tiles: no split
+    ((1, 128, 64, 512, 64), "16x16x64", 1),  # a rank's O 64: 128 tiles
+    ((1, 256, 128, 128, 16), "16x16x128", 8),  # 8 tiles, 8 chunks: one a unit
+    ((8, 512, 256, 32, 12), "8x8x256", 2),  # 64 tiles
+    ((8, 256, 256, 8, 3), "8x8x256", 8),  # 8 tiles
+    ((2, 36, 40, 5, 7), "8x8x256", 2),  # 2 tiles, 2 chunks
+])
+def test_split_plan_fills_the_card(shape, tile, splits):
+    """Tiles fewer than half of 132 SMs split their chunks over up to
+    132 // tiles units; the workspace holds a tile's sums and a counter."""
+    b, c, o, h, w = shape
+    got, n = tq.split_plan(tile, b, c, h, w, o, 132)
+    th, tw, bn = tq.tile_shape(tile)
+    tiles = b * -(-h // th) * -(-w // tw) * -(-o // bn)
+    assert got == splits and got <= -(-c // 32)
+    assert n == (tiles * (th * tw * bn + 1) if splits > 1 else 0)
 
 
 @pytest.mark.parametrize(
@@ -129,7 +161,7 @@ def test_qconv3x3_prepared_equals_fused_and_plain(B, C, O, H, W, affine, dtype, 
     rest = (None if a is None else _t(a), None if o is None else _t(o), affine,
             None if bias is None else _t(bias), getattr(torch, dtype))
     prepared = tq.prepare_qconv_weight(w, tu)
-    assert prepared.qw.shape == (-(-C // 32), 9, O, 32) and prepared.sw.shape == (O,)
+    assert prepared.qw.shape == (-(-C // 32), 2, 9, O, 16) and prepared.sw.shape == (O,)
     launches = tq.qconv3x3_fused.launches
     got = tq.qconv3x3_fused_prepared(tx, prepared, *rest)
     assert tq.qconv3x3_fused.launches == launches  # CPU tensors: the plain version

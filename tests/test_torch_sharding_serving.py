@@ -135,7 +135,7 @@ def test_rule_matches_jax_on_the_serving_nets(name):
 def test_prepared_slice_is_the_slice_of_the_whole_preparation(kernel, o, model):
     """Each model rank's slice of an OIHW weight, prepared alone, gives the
     whole weight's preparation at its output channels, bit for bit (K3:
-    qw [ceil(C/32), 9, O, 32], sw [O], iu; the s8 conv: qw, sw and the
+    qw [ceil(C/32), 2, 9, O, 16], sw [O], iu; the s8 conv: qw, sw and the
     kernel's blocks of 128 output channels, a slice of 64 zero past its
     channels)."""
     c, n = 80, o // model
@@ -150,7 +150,7 @@ def test_prepared_slice_is_the_slice_of_the_whole_preparation(kernel, o, model):
         part = slice(r * n, (r + 1) * n)
         if kernel == "k3":
             whole, got = tfq.prepare_qconv_weight(w, u), tfq.prepare_qconv_weight(w[part], u)
-            assert torch.equal(got.qw, whole.qw[:, :, part])
+            assert torch.equal(got.qw, whole.qw[:, :, :, part])
             assert torch.equal(got.iu, whole.iu)
         else:
             whole, got = tqc.prepare_s8_weight(w, u), tqc.prepare_s8_weight(w[part], u)

@@ -3,10 +3,11 @@
 
     python3 -m use_tpu_torch.tools.qconv_ablation [--kernel k3|s8|both]
 
-K3 (csrc/fused_qconv.cu) is built four times with nvcc, in parallel, into
-use_tpu_torch/_build/ablation/: as shipped, and with -DQC_SKIP_PRODUCE (the
-quantized operand is not computed), -DQC_SKIP_MMA (no products) or
--DQC_SKIP_WLOAD (the weights are not loaded). The s8 conv (csrc/qconv_s8.cu)
+K3 (csrc/fused_qconv.cu) is built six times with nvcc, in parallel, into
+use_tpu_torch/_build/ablation/: as shipped, and with -DQC_NO_X_LOAD (the raw
+windows of x are not loaded), -DQC_NO_TRANSFORM (the int8 operand is not
+computed), -DQC_NO_MMA (no products), -DQC_NO_WEIGHT_LOAD (the weights are
+not loaded) or -DQC_NO_STORE (no output written). The s8 conv (csrc/qconv_s8.cu)
 likewise: as shipped, -DS8_NO_OPERAND_TMA (the operand windows are not
 loaded), -DS8_NO_MMA (no products), -DS8_NO_WEIGHT_LOAD (the weights are
 not loaded) and -DS8_NO_STORE (no output written). Then, at the int8
@@ -31,9 +32,11 @@ import numpy as np
 VARIANTS = {
     "k3": ("fused_qconv", {
         "full": [],
-        "no_produce": ["-DQC_SKIP_PRODUCE"],
-        "no_mma": ["-DQC_SKIP_MMA"],
-        "no_weight_load": ["-DQC_SKIP_WLOAD"],
+        "no_x_load": ["-DQC_NO_X_LOAD"],
+        "no_transform": ["-DQC_NO_TRANSFORM"],
+        "no_mma": ["-DQC_NO_MMA"],
+        "no_weight_load": ["-DQC_NO_WEIGHT_LOAD"],
+        "no_store": ["-DQC_NO_STORE"],
     }),
     "s8": ("qconv_s8", {
         "full": [],
@@ -72,7 +75,7 @@ def build(cuda_build, kernels):
         cdll = ctypes.CDLL(lib)
         if kernel == "k3":
             cdll.qconv3x3_fused.argtypes = [p, i32, p, p, p, p, p, p, p, i32, i32, i32, i32, i32,
-                                            i32, i32, i32, p]
+                                            i32, i32, i32, i32, p, p]
             cdll.qconv3x3_fused.restype = i32
         else:
             cdll.qconv3x3_s8.argtypes = [p, p, p, p, i32, p, p, i32, i32, i32, i32, i32, i32,
@@ -126,19 +129,22 @@ def main() -> int:
         stream = torch.cuda.current_stream(dev).cuda_stream
         if "k3" in libs:
             qw, sw, iu = fq.prepare_qconv_weight(weight, u)
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
             for tile, code in fq.TILES.items():
+                splits, ws_ints = fq.split_plan(tile, b, c, h, w, o, sms)
+                ws = fq._workspace(dev, ws_ints).data_ptr() if splits > 1 else None
                 row = {}
                 for name, lib in libs["k3"].items():
                     def launch():
                         status = lib.qconv3x3_fused(
                             x.data_ptr(), 1, a.data_ptr(), off.data_ptr(), iu.data_ptr(),
                             qw.data_ptr(), sw.data_ptr(), bias.data_ptr(), out.data_ptr(), 1,
-                            b, c, h, w, o, 1, code, stream)
+                            b, c, h, w, o, 1, code, splits, ws, stream)
                         cuda_build.check(status, "qconv3x3_fused")
                     row[name] = time_ms(launch)
                 print(json.dumps({"kernel": "k3", "shape": list(shape), "dtype": "bfloat16",
-                                  "tile": tile, "picked": tile == fq.pick_tile(h, w, o),
-                                  "ms": row}), flush=True)
+                                  "tile": tile, "picked": tile == fq.pick_tile(h, w, o, b),
+                                  "splits": splits, "ms": row}), flush=True)
         if "s8" in libs:
             qx = q.pack_c32(torch.randint(-127, 128, (b, c, h, w), generator=gen, device=dev,
                                           dtype=torch.int8))
